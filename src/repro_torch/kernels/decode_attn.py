@@ -1,0 +1,157 @@
+"""Flash decode: new query tokens against a (possibly rank-truncated) KV
+cache with per-row valid lengths. Port of the TPU kernel
+``repro/kernels/decode_attn.py:flash_decode``.
+
+Two versions of one function live here:
+
+* :func:`flash_decode` launches the hand-written CUDA kernel
+  (``csrc/decode_attn.cu``, built for ``sm_90a`` at first use) on CUDA
+  tensors, and raises on anything the kernel does not take;
+* :func:`flash_decode_plain` is the same function in plain PyTorch: the
+  CPU path and the reference the kernel is held against on the card.
+
+Semantics (both): ``q`` (b, hq, r) for one decode token or (b, hq, C, r)
+for a per-row query chunk; ``k`` (b, hkv, M, r); ``v`` (b, hkv, M, dv);
+``kv_len`` () or (b,) valid keys INCLUDING the new chunk; ``q_start`` ()
+or (b,) cache position of each row's first query (default
+``kv_len - C``); ``q_lens`` optional (b,) valid query count per row.
+Query j of row b sees key p iff p < kv_len[b], p <= q_start[b] + j and
+j < q_lens[b]. Masked scores contribute exact zeros, so a query with no
+visible key gives an all-zero output and probability row. Output is in
+v's dtype; ``return_probs`` appends the normalised f32 probability rows
+(b, hq, [C,] M) that feed the serving engine's attention-mass
+accumulator.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+# launches of each CUDA kernel in this process; a wrapper adds one where
+# it launches its kernel and nowhere else (chip_smoke.py reads it to show
+# that the serving path went through the kernel)
+LAUNCHES: Dict[str, int] = {"flash_decode": 0}
+
+MAX_DIM = 128          # largest r and dv the CUDA kernel takes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _row_vector(x, b: int, device, name: str) -> torch.Tensor:
+    """() or (b,) integer lengths as a contiguous (b,) int32 tensor."""
+    if isinstance(x, torch.Tensor) and x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    t = torch.as_tensor(x, device=device)
+    if t.dtype.is_floating_point or t.dtype == torch.bool:
+        raise ValueError(f"{name} must be an integer tensor, got {t.dtype}")
+    if t.numel() not in (1, b):
+        raise ValueError(f"{name} must have 1 or {b} entries, got {t.numel()}")
+    return t.reshape(-1).to(torch.int32).expand(b).contiguous()
+
+
+def _defaults(q, kv_len, q_start, q_lens):
+    b, C = q.shape[0], q.shape[2]
+    lens = _row_vector(kv_len, b, q.device, "kv_len")
+    qs = (lens - C if q_start is None
+          else _row_vector(q_start, b, q.device, "q_start"))
+    ql = (torch.full((b,), C, dtype=torch.int32, device=q.device)
+          if q_lens is None else _row_vector(q_lens, b, q.device, "q_lens"))
+    return lens, qs, ql
+
+
+def flash_decode_plain(q, k, v, kv_len, *, scale: float,
+                       return_probs: bool = False, q_start=None, q_lens=None):
+    """The plain PyTorch version of the kernel (f32 arithmetic)."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, :, None, :]
+    b, hq, C, _ = q.shape
+    hkv, M = k.shape[1], k.shape[2]
+    lens, qs, ql = _defaults(q, kv_len, q_start, q_lens)
+    kr = k.float().repeat_interleave(hq // hkv, dim=1)
+    vr = v.float().repeat_interleave(hq // hkv, dim=1)
+    s = torch.einsum("bhcd,bhkd->bhck", q.float(), kr) * scale
+    k_pos = torch.arange(M, device=q.device)[None, None, None, :]
+    j = torch.arange(C, device=q.device)[None, None, :, None]
+    ok = ((k_pos <= qs[:, None, None, None] + j)
+          & (k_pos < lens[:, None, None, None])
+          & (j < ql[:, None, None, None]))
+    s = s.masked_fill(~ok, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    e = torch.exp(s - m)                         # masked: exp(-inf) == 0
+    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhck,bhkd->bhcd", p, vr).to(v.dtype)
+    if squeeze:
+        o, p = o[:, :, 0], p[:, :, 0]
+    return (o, p) if return_probs else o
+
+
+def _check(q, k, v):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_decode launches on CUDA tensors, got {dev}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_decode takes q, k, v all float32 or all "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected q (b, hq, C, r), k (b, hkv, M, r), "
+                         "v (b, hkv, M, dv)")
+    b, hq, _, r = q.shape
+    if (k.shape[0] != b or v.shape[0] != b or k.shape[3] != r
+            or v.shape[1] != k.shape[1] or v.shape[2] != k.shape[2]):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hq % k.shape[1]:
+        raise ValueError(f"hq={hq} is not a multiple of hkv={k.shape[1]}")
+    if r > MAX_DIM or v.shape[3] > MAX_DIM:
+        raise ValueError(f"the kernel takes r, dv <= {MAX_DIM}, got r={r}, "
+                         f"dv={v.shape[3]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _library():
+    from repro_torch.kernels import build
+    lib = build.load("decode_attn")
+    fn = lib.flash_decode_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode(q, k, v, kv_len, *, scale: float, return_probs: bool = False,
+                 q_start=None, q_lens=None):
+    """Launch the CUDA kernel on the current stream (no fallback)."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, :, None, :]
+    _check(q, k, v)
+    b, hq, C, r = q.shape
+    hkv, M, dv = k.shape[1], k.shape[2], v.shape[3]
+    lens, qs, ql = _defaults(q, kv_len, q_start, q_lens)
+    out = torch.empty((b, hq, C, dv), dtype=v.dtype, device=q.device)
+    probs = (torch.empty((b, hq, C, M), dtype=torch.float32, device=q.device)
+             if return_probs else None)
+    launch = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                     qs.data_ptr(), ql.data_ptr(), out.data_ptr(),
+                     None if probs is None else probs.data_ptr(),
+                     b, hq, hkv, C, M, r, dv, float(scale),
+                     _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_decode"] += 1
+    if squeeze:
+        out = out[:, :, 0]
+        probs = None if probs is None else probs[:, :, 0]
+    return (out, probs) if return_probs else out
