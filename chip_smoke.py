@@ -1,10 +1,12 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and forward paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases (one line each, plus detail lines):
   1. card and build: the card's name and power limit (nvidia-smi), then
-     the CUDA kernel built from src/repro_torch/kernels/csrc with nvcc;
+     both CUDA kernels built from src/repro_torch/kernels/csrc, one nvcc
+     per source, started together;
   2. the flash-decode kernel against its plain PyTorch version on the card,
      at the CPU tests' shapes and at the serving path's shapes;
   3. full-width serving of the drrl-paper model (12 layers, d_model 768,
@@ -16,7 +18,22 @@ Phases (one line each, plus detail lines):
      attention on the same inputs: logits must agree;
   5. times at the serving shapes: kernel, plain version, one PyTorch
      library call for the same attention, and the kernel's bound; then
-     the adaptive serving run under torch.profiler, device time by kernel.
+     the adaptive serving run under torch.profiler, device time by kernel;
+  6. the lowrank_flash kernel against its plain version on the card, f32
+     (2e-5) and bf16 (two bf16 steps of each element): the CPU tests' six
+     cases, the q_offset case, and the forward path's shapes (b = 2, 12
+     heads, 4096 tokens, causal; r = dv = 64 masked, r = 32 / dv = 64
+     static);
+  7. the full-width cache-free forward ``forward_dense(chunked=True)`` at
+     2 x 4096 tokens, adaptive/masked with fidelity and fixed/static:
+     kernel launches (12 per attention call site), logits and ranks against
+     the same forward through the kernel's plain version, and a reduced
+     model on the card against the CPU;
+  8. one-shot serving (``prefill_chunk=None``) of phase 3's adaptive
+     workload: greedy tokens equal to the chunked run's;
+  9. times of lowrank_flash at both forward shapes (kernel, plain version,
+     ``scaled_dot_product_attention`` and the backend it picked, bound),
+     and each forward's wall time and device time by layer.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -24,6 +41,7 @@ phase fails. The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -39,16 +57,20 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RankConfig  # noqa: E402
-from repro_torch.kernels import build, decode_attn  # noqa: E402
+from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
-from repro_torch.models.transformer import decode_step_paged  # noqa: E402
+from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, SamplingParams  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-LOGIT_TOL = 1e-3               # f32 engine step, kernel vs plain attention
+# lowrank_flash and its plain version both stay in f32 up to the one rounding
+# of the output, so in bf16 they may differ by one bf16 step (at most 2^-7 of
+# the value): hold them to two steps, relative to each element
+FLASH_BF16_REL = 2 ** -6
+LOGIT_TOL = 1e-3               # f32 engine step / forward, kernel vs plain attention
 GRID = (16, 24, 32, 40, 48, 56, 64)
 DEV = "cuda"
 
@@ -304,10 +326,44 @@ def time_kernel(case, card_name):
 PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 # device time by layer, first match wins (lower-case substrings of kernel names)
 LAYERS = (("flash_decode kernel", ("flash_decode_kernel",)),
-          ("decision eigh (cuSOLVER)", ("syev", "jacobi", "rotate_batch", "cusolver",
-                                        "sytrd", "ormtr")),
+          ("lowrank_flash kernel", ("lowrank_flash_kernel",)),
+          ("eigh (cuSOLVER)", ("syev", "jacobi", "rotate_batch", "cusolver",
+                               "sytrd", "ormtr")),
           ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv")),
           ("copies", ("memcpy", "memset")))
+OTHER = "other (elementwise, gather, reduce)"
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def device_kernels(prof):
+    """The profile's device kernels (CUPTI's own buffer work left out)."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and dev_us(e) > 0 and e.key not in PROFILER_OVERHEAD]
+    if not kern:
+        raise AssertionError("the profiler recorded no device time")
+    return kern
+
+
+def by_layer(kern) -> dict:
+    """Device microseconds summed by LAYERS, the rest under OTHER."""
+    out = {name: 0.0 for name, _ in LAYERS}
+    out[OTHER] = 0.0
+    for e in kern:
+        low = e.key.lower()
+        name = next((n for n, pats in LAYERS if any(p in low for p in pats)), OTHER)
+        out[name] += dev_us(e)
+    return out
+
+
+def log_layers(layers: dict, busy: float) -> None:
+    for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
+        if us > 0:
+            log(f"    {us / 1e3:9.2f} ms {us / busy:6.1%}  {name}")
 
 
 def profile_serving(cfg, params, card_name, plain_wall_s):
@@ -316,7 +372,6 @@ def profile_serving(cfg, params, card_name, plain_wall_s):
     kernels' device time summed by layer. The idle share is taken against
     both the profiled wall time and ``plain_wall_s``, the same run's wall
     time without the profiler (tracing slows the host)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(1)
     eng = Engine(cfg, params, device=DEV, config=EngineConfig(
@@ -330,15 +385,8 @@ def profile_serving(cfg, params, card_name, plain_wall_s):
         eng.run()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and dev_us(e) > 0 and e.key not in PROFILER_OVERHEAD]
+    kern = device_kernels(prof)
     busy = sum(dev_us(e) for e in kern)
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time")
     st = eng.stats
     plain_us = 1e6 * plain_wall_s
     log(f"  profiled serving run: {st['steps']} steps ({st['mixed_steps']} mixed, "
@@ -346,22 +394,248 @@ def profile_serving(cfg, params, card_name, plain_wall_s):
         f"{wall_us / 1e3:.1f} ms profiled (idle {1 - busy / wall_us:.1%}), "
         f"{plain_us / 1e3:.1f} ms unprofiled (idle {1 - busy / plain_us:.1%}) "
         f"[{card_name}]")
-    by_layer = {name: 0.0 for name, _ in LAYERS}
-    by_layer["other (elementwise, gather, reduce)"] = 0.0
-    for e in kern:
-        low = e.key.lower()
-        name = next((n for n, pats in LAYERS if any(p in low for p in pats)),
-                    "other (elementwise, gather, reduce)")
-        by_layer[name] += dev_us(e)
-    for name, us in sorted(by_layer.items(), key=lambda kv: -kv[1]):
-        log(f"    {us / 1e3:9.2f} ms {us / busy:6.1%}  {name}")
-    log(f"  per decision: {by_layer['decision eigh (cuSOLVER)'] / 1e3 / st['decides']:.2f} "
-        f"ms of eigh; per fused step: {by_layer['flash_decode kernel'] / 1e3 / st['steps']:.2f} "
+    layers = by_layer(kern)
+    log_layers(layers, busy)
+    log(f"  per decision: {layers['eigh (cuSOLVER)'] / 1e3 / st['decides']:.2f} "
+        f"ms of eigh; per fused step: {layers['flash_decode kernel'] / 1e3 / st['steps']:.2f} "
         f"ms of flash_decode, {busy / 1e3 / st['steps']:.2f} ms of device work")
     log("  top kernels:")
     for e in sorted(kern, key=dev_us, reverse=True)[:12]:
         log(f"    {dev_us(e) / 1e3:9.2f} ms {dev_us(e) / busy:6.1%} "
             f"x{e.count:<6d} {e.key[:90]}")
+
+
+# -- phase 6 ---------------------------------------------------------------
+
+# tests/test_torch_flash.py:FLASH_CASES plus the q_offset case and the
+# forward path's shapes: b, hq, hkv, sq, skv, r, dv, causal, q_offset
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, 16, 32, True, 0),
+    (1, 4, 4, 128, 128, 64, 64, True, 0),
+    (2, 2, 1, 48, 96, 8, 16, False, 0),
+    (1, 8, 2, 37, 37, 24, 16, True, 0),
+    (1, 2, 2, 16, 16, 128, 128, True, 0),
+    (2, 6, 3, 33, 65, 40, 48, True, 0),
+    (1, 2, 2, 4, 32, 16, 16, True, 28),
+]
+PATH_MASKED = (2, 12, 12, 4096, 4096, 64, 64, True, 0)   # adaptive/masked: r = dh
+PATH_STATIC = (2, 12, 12, 4096, 4096, 32, 64, True, 0)   # static_rank 32
+
+
+def flash_inputs(case, dtype, seed):
+    b, hq, hkv, sq, skv, r, dv, causal, off = case
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((b, hq, sq, r), generator=g, device=DEV).to(dtype)
+    k = torch.randn((b, hkv, skv, r), generator=g, device=DEV).to(dtype)
+    v = torch.randn((b, hkv, skv, dv), generator=g, device=DEV).to(dtype)
+    return (q, k, v), dict(scale=r ** -0.5, causal=causal, q_offset=off)
+
+
+def check_flash() -> float:
+    worst = 0.0
+    for i, case in enumerate(FLASH_CASES + [PATH_MASKED, PATH_STATIC]):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = flash_inputs(case, dtype, seed=100 + i)
+            o = lowrank_flash.lowrank_flash(*args, **kw)
+            torch.cuda.synchronize()
+            ro = lowrank_flash.lowrank_flash_plain(*args, **kw)
+            diff = (o.float() - ro.float()).abs()
+            err = diff.max().item()
+            atol = TOL[torch.float32]
+            rtol = atol if dtype == torch.float32 else FLASH_BF16_REL
+            tol = f"{atol:g} + {rtol:.3g}*|plain|"
+            if (diff > atol + rtol * ro.float().abs()).any().item():
+                raise AssertionError(f"lowrank_flash disagrees with its plain version "
+                                     f"at {case} {dtype}: {err:.3g} (tol {tol})")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            log(f"  {str(dtype)[6:]:8s} b,hq,hkv,sq,skv,r,dv,causal,q_offset={case}: "
+                f"max|out-plain| {err:.3g} (tol {tol})")
+    return worst
+
+
+# -- phase 7 ---------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the model's flash branch through the kernel's plain version
+    (on the card) for a reference run; the port itself has no such switch."""
+    kernel = ops.flash_attention
+    ops.flash_attention = lowrank_flash.lowrank_flash_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def forward_cfg(cfg, mode, realisation):
+    return cfg.with_(rank=RankConfig(mode=mode, realisation=realisation,
+                                     rank_grid=GRID, fixed_rank=32, static_rank=32,
+                                     segment_len=32))
+
+
+# (rank mode, realisation, compute_fidelity)
+FORWARDS = (("adaptive", "masked", True), ("fixed", "static", False))
+
+
+def run_forward(cfg, params, tokens, fid):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, aux = forward_dense(cfg, params, tokens, chunked=True,
+                                collect_aux="ranks", compute_fidelity=fid)
+    torch.cuda.synchronize()
+    return logits, aux["layers"], time.perf_counter() - t0
+
+
+def check_forward(cfg_base, params, card_name) -> int:
+    """The full-width 2 x 4096 forward in both realisations; returns the
+    kernel's launches over both runs."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg_base.vocab_size, (2, 4096), generator=g, device=DEV)
+    total = 0
+    for mode, real, fid in FORWARDS:
+        cfg = forward_cfg(cfg_base, mode, real)
+        reset_launches()
+        logits, aux, wall = run_forward(cfg, params, tokens, fid)
+        launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+        want = cfg.num_layers * (2 if fid else 1)
+        assert launches == want, f"{launches} lowrank_flash launches, expected {want}"
+        total += launches
+        assert logits.shape == (*tokens.shape, cfg.vocab_size) and torch.isfinite(logits).all()
+        with plain_flash():
+            logits_p, aux_p, wall_p = run_forward(cfg, params, tokens, fid)
+        assert lowrank_flash.LAUNCHES["lowrank_flash"] == launches
+        err = (logits - logits_p).abs().max().item()
+        top = logits_p.abs().max().item()
+        assert err <= LOGIT_TOL * max(1.0, top), \
+            f"forward {mode}/{real}: kernel vs plain logits differ by {err}"
+        assert torch.equal(aux["rank"], aux_p["rank"]), f"forward {mode}/{real}: ranks differ"
+        ranks = sorted(set(aux["rank"].flatten().tolist()))
+        line = (f"  {mode}/{real}{' + fidelity' if fid else ''}: {launches} lowrank_flash "
+                f"launches = {cfg.num_layers} layers x {want // cfg.num_layers}; "
+                f"max|logits - plain| {err:.3g} (max |logit| {top:.3g}, tol {LOGIT_TOL}), "
+                f"ranks identical {ranks}")
+        if fid:
+            f_err = (aux["fidelity"] - aux_p["fidelity"]).abs().max().item()
+            line += (f", fidelity {aux['fidelity'].mean().item():.4f} "
+                     f"(|kernel - plain| {f_err:.3g})")
+        log(line + f"; wall {wall * 1e3:.1f} ms kernel, {wall_p * 1e3:.1f} ms plain "
+            f"(first calls) [{card_name}]")
+    check_forward_reference()
+    return total
+
+
+def check_forward_reference():
+    """Reduced drrl-paper at 1040 tokens (flash branch taken): the card with
+    the kernel vs the CPU with the plain version."""
+    base = get_config("drrl-paper", reduced=True)
+    params = get_model(base).init(torch.Generator().manual_seed(0), device="cpu")
+    params_dev = _to(params, DEV)
+    tokens = torch.randint(0, base.vocab_size, (2, 1040),
+                           generator=torch.Generator().manual_seed(6))
+    for mode, real in (("adaptive", "masked"), ("fixed", "static")):
+        cfg = base.with_(rank=RankConfig(mode=mode, realisation=real, rank_grid=(4, 8, 12, 16),
+                                         fixed_rank=8, static_rank=8, segment_len=8))
+        out = {}
+        for dev, p in ((DEV, params_dev), ("cpu", params)):
+            lg, aux = forward_dense(cfg, p, tokens.to(dev), chunked=True,
+                                    collect_aux="ranks", compute_fidelity=True)
+            out[dev] = (lg.cpu(), aux["layers"]["rank"].cpu(), aux["layers"]["fidelity"].cpu())
+        (lg, rk, fd), (lg_c, rk_c, fd_c) = out[DEV], out["cpu"]
+        err = (lg - lg_c).abs().max().item()
+        assert err <= 1e-4, f"reduced forward {mode}/{real}: card vs CPU logits differ by {err}"
+        assert torch.equal(rk, rk_c), f"reduced forward {mode}/{real}: ranks differ"
+        assert (fd - fd_c).abs().max().item() <= 1e-5
+        log(f"  reduced model, 2 x 1040 tokens, {mode}/{real}: card kernel vs CPU plain "
+            f"max|logits| diff {err:.3g} (tol 1e-4), ranks and fidelity equal")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# -- phase 8 ---------------------------------------------------------------
+
+def check_oneshot(cfg, params, chunked_outs, card_name):
+    """Phase 3's adaptive workload with one-shot prefill: the tokens of the
+    chunked run, request by request."""
+    eng, outs, launches = serve(cfg, params, n_slots=8, max_len=2048, page_size=16,
+                                prefill_chunk=None, use_kernel=True)
+    st = eng.stats
+    n_steps = st["steps"] + st["warmup_steps"]
+    assert launches == cfg.num_layers * n_steps, f"{launches} flash_decode launches"
+    assert lowrank_flash.LAUNCHES["lowrank_flash"] == 0   # prefill needs probabilities
+    assert st["mixed_steps"] == 0 and st["prefills"] == len(outs)
+    for i, (a, b) in enumerate(zip(outs, chunked_outs)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}: one-shot != chunked")
+    log(f"  one-shot: {len(outs)} requests x 64 tokens equal to the chunked run's; "
+        f"{st['steps']} decode steps, {st['prefills']} prefills in "
+        f"{st['prefill_s'] * 1e3:.1f} ms ({st['stall_s'] * 1e3:.1f} ms of decode stall), "
+        f"{st['tokens_decoded'] / st['decode_s']:.1f} decoded tokens/s, flash_decode "
+        f"launches {launches} [{card_name}]")
+
+
+# -- phase 9 ---------------------------------------------------------------
+
+def flash_bound_ms(case) -> tuple:
+    """Least time for the work: q, k, v and out once over HBM bandwidth, and
+    the f32 operations (2 (r + dv) per visible query-key pair) over the f32
+    peak; returns (ms, what binds)."""
+    b, hq, hkv, sq, skv, r, dv, causal, off = case
+    n_bytes = 4 * (b * hq * sq * r + b * hkv * skv * (r + dv) + b * hq * sq * dv)
+    i = np.arange(sq)
+    pairs = np.minimum(skv, off + i + 1).sum() if causal else sq * skv
+    flops = 2.0 * b * hq * pairs * (r + dv)
+    t_bytes, t_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_backend(q, k, v, scale) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs
+    (PyTorch's own dispatch decision, the one the call below takes)."""
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, is_causal=True, scale=scale,
+                                     enable_gqa=True)
+    return SDPBackend(choice).name
+
+
+def time_flash(case, label, card_name) -> dict:
+    import torch.nn.functional as F
+    (q, k, v), kw = flash_inputs(case, torch.float32, seed=9)
+    ms = time_ms(lambda: lowrank_flash.lowrank_flash(q, k, v, **kw), n=15)
+    plain_ms = time_ms(lambda: lowrank_flash.lowrank_flash_plain(q, k, v, **kw), n=15)
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=kw["scale"],
+                                              enable_gqa=True)
+    lib_ms = time_ms(lib, n=15)
+    backend = sdpa_backend(q, k, v, kw["scale"])
+    bnd, by = flash_bound_ms(case)
+    log(f"  lowrank_flash {label} (b=2, hq=hkv=12, sq=skv=4096, causal, f32): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {lib_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound [{card_name}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+
+
+def profile_forwards(cfg_base, params, card_name) -> None:
+    """Each forward of phase 7 again: wall time unprofiled (median of 3),
+    then one run under torch.profiler, device time by layer."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg_base.vocab_size, (2, 4096), generator=g, device=DEV)
+    for mode, real, fid in FORWARDS:
+        cfg = forward_cfg(cfg_base, mode, real)
+        wall = statistics.median(run_forward(cfg, params, tokens, fid)[2] for _ in range(3))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_forward(cfg, params, tokens, fid)
+        kern = device_kernels(prof)
+        busy = sum(dev_us(e) for e in kern)
+        log(f"  forward {mode}/{real}{' + fidelity' if fid else ''}, 2 x 4096 tokens: wall "
+            f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+            f"(idle {1 - busy / (wall * 1e6):.1%}) [{card_name}]")
+        log_layers(by_layer(kern), busy)
 
 
 def main() -> int:
@@ -373,18 +647,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    log(f"[1/5] card and build: {torch.cuda.get_device_name(0)}, torch "
+    log(f"[1/9] card and build: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    secs = build.build(["decode_attn"])
-    log(f"  built decode_attn.cu in {secs['decode_attn']:.1f} s")
-    for line in build.build_log.get("decode_attn", (0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:" + line.split(":", 1)[-1])
+    sources = ["decode_attn", "lowrank_flash"]
+    secs = build.build(sources)
+    for name in sources:
+        log(f"  built {name}.cu in {secs[name]:.1f} s")
+        for line in build.build_log.get(name, (0, ""))[1].splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:" + line.split(":", 1)[-1])
 
-    log("[2/5] flash_decode kernel vs its plain version on the card")
+    log("[2/9] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    log("[3/5] full-width drrl-paper serving through Engine, kernel on")
+    log("[3/9] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -401,18 +677,37 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    log("[4/5] full-width engine step: kernel vs plain attention")
+    log("[4/9] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    log("[5/5] times at the serving shapes")
+    log("[5/9] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     time_kernel(MAIN_CHUNK, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
-        "replaces": "src/repro/kernels/decode_attn.py:122",
-        "launches": launches, "max_abs_err": max_err, **t_dec}]}))
+
+    log("[6/9] lowrank_flash kernel vs its plain version on the card")
+    flash_err = check_flash()
+
+    log("[7/9] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    flash_launches = check_forward(cfg, params, card_name)
+
+    log("[8/9] one-shot serving (prefill_chunk=None) vs the chunked run")
+    check_oneshot(cfg, params, outs, card_name)
+
+    log("[9/9] lowrank_flash times at the forward shapes; the forwards by layer")
+    t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
+    time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
+    profile_forwards(cfg, params, card_name)
+
+    print(json.dumps({"kernels": [
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn.py:122",
+         "launches": launches, "max_abs_err": max_err, **t_dec},
+        {"name": "lowrank_flash", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
+         "replaces": "src/repro/kernels/lowrank_flash.py:82",
+         "launches": flash_launches, "max_abs_err": flash_err, **t_flash}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

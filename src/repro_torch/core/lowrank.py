@@ -13,6 +13,12 @@ from typing import Tuple
 import torch
 
 
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., n, d) -> Gram (..., d, d) in f32."""
+    xf = x.float()
+    return torch.einsum("...nd,...ne->...de", xf, xf)
+
+
 def gram_spectrum(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigendecomposition of a PSD Gram matrix (..., d, d).
 
@@ -22,6 +28,12 @@ def gram_spectrum(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     evals = torch.flip(evals, dims=(-1,))
     evecs = torch.flip(evecs, dims=(-1,))
     return evals.clamp_min(0.0), evecs
+
+
+def singular_values(x: torch.Tensor) -> torch.Tensor:
+    """Descending singular values of (..., n, d) via the Gram route."""
+    s2, _ = gram_spectrum(gram(x))
+    return torch.sqrt(s2)
 
 
 def ner_curve(sigmas_sq: torch.Tensor) -> torch.Tensor:
@@ -39,3 +51,33 @@ def rank_for_energy(sigmas_sq: torch.Tensor, threshold: float,
     r = 1 + torch.argmax(hit.to(torch.int32), dim=-1)
     r = torch.where(hit.any(dim=-1), r, torch.full_like(r, r_max))
     return r.clamp(r_min, r_max).to(torch.int32)
+
+
+def rank_mask(d: int, r) -> torch.Tensor:
+    """(d,) float mask keeping the first r eigendirections; ``r`` may be an
+    int or an integer tensor (then the mask is (*r.shape, d))."""
+    r = torch.as_tensor(r)
+    return (torch.arange(d, device=r.device) < r[..., None]).float()
+
+
+def project_masked(x: torch.Tensor, evecs: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Rank-truncate x (..., n, d) with eigvecs (..., d, d) and mask (..., d):
+    x_r = x . E diag(mask) E^T, in x's shape and dtype (the 'masked'
+    realisation: dynamic rank as a mask over static shapes)."""
+    xe = torch.einsum("...nd,...de->...ne", x.float(), evecs)
+    xe = xe * mask[..., None, :]
+    return torch.einsum("...ne,...de->...nd", xe, evecs).to(x.dtype)
+
+
+def project_static(x: torch.Tensor, evecs: torch.Tensor, r: int) -> torch.Tensor:
+    """Rank-r factor x~ = x . E[:, :r] of shape (..., n, r): the score
+    contraction then runs over r instead of d."""
+    return torch.einsum("...nd,...dr->...nr", x.float(),
+                        evecs[..., :, :r]).to(x.dtype)
+
+
+def mixing_matrix(eq: torch.Tensor, ek: torch.Tensor, r: int) -> torch.Tensor:
+    """M = Eq[:, :r]^T Ek[:, :r] (..., r, r), so that
+    Q_r K_r^T == (Q Eq_r) M (K Ek_r)^T with rank-r factors on both sides."""
+    return torch.einsum("...dr,...ds->...rs", eq[..., :, :r], ek[..., :, :r])

@@ -1,5 +1,7 @@
 """Plain PyTorch oracles for the attention kernels: straight ports of
-``repro.kernels.ref`` (masked scores at -1e30, then a softmax)."""
+``repro.kernels.ref`` (masked scores at -1e30, then a softmax). With a
+negative ``q_offset`` a query may see no key; ``flash_ref`` then averages
+all keys, which the kernels do not (they refuse such offsets)."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +11,23 @@ def _rows(x, b: int, device) -> torch.Tensor:
     """() or (b,) lengths / offsets as a (b,) int64 tensor."""
     t = torch.as_tensor(x, device=device).reshape(-1).to(torch.int64)
     return t.expand(b)
+
+
+def flash_ref(q, k, v, *, scale: float, causal: bool = True,
+              q_offset: int = 0):
+    """q: (b, hq, sq, dq), k: (b, hkv, skv, dq), v: (b, hkv, skv, dv).
+    GQA: hq % hkv == 0. Returns (b, hq, sq, dv)."""
+    hq, sq = q.shape[1], q.shape[2]
+    hkv, skv = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(hq // hkv, dim=1)
+    vr = v.repeat_interleave(hq // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr).float() * scale
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        k_pos = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(k_pos > q_pos, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(vr.dtype), vr)
 
 
 def decode_ref(q, k, v, kv_len, *, scale: float):

@@ -1,4 +1,5 @@
-"""Shared model components of the port: RoPE and the GQA head maps."""
+"""Shared model components of the port: RoPE, the GQA head maps and the
+dense KV-cache append."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +35,17 @@ def kv_group_mean(w: torch.Tensor, hkv: int) -> torch.Tensor:
     group: the inverse reduction of :func:`repeat_kv`."""
     hq, K = w.shape[-2], w.shape[-1]
     return w.reshape(*w.shape[:-2], hkv, hq // hkv, K).mean(dim=-2)
+
+
+def cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+    """Append k/v (b, s_new, kv, d) at ``cache['len']`` (an int) of a dense
+    cache {'k', 'v': (b, max_len, kv, d), 'len'}. The cache tensors are
+    written IN PLACE (JAX returns updated copies; no caller of the port
+    keeps the old values) and returned with the advanced length."""
+    idx, s_new = int(cache["len"]), k_new.shape[1]
+    if idx + s_new > cache["k"].shape[1]:
+        raise ValueError(f"cache holds {cache['k'].shape[1]} positions, "
+                         f"appending {s_new} at {idx}")
+    cache["k"][:, idx:idx + s_new] = k_new.to(cache["k"].dtype)
+    cache["v"][:, idx:idx + s_new] = v_new.to(cache["v"].dtype)
+    return {"k": cache["k"], "v": cache["v"], "len": idx + s_new}

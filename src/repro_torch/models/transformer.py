@@ -1,9 +1,10 @@
-"""Dense decoder-only transformer of the port: stacked-layer init and the
-fused paged decode step of the continuous-batching engine
-(``repro.models.transformer.init_dense`` / ``decode_step_paged``)."""
+"""Dense decoder-only transformer of the port (``repro.models.
+transformer``): stacked-layer init, the cache-free forward and its loss,
+the dense-cache decode step, and the fused paged decode step of the
+continuous-batching engine."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -11,8 +12,8 @@ import torch.nn.functional as F
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import decode_attention
-from repro_torch.models.attention import attend
-from repro_torch.models.common import apply_rope, kv_group_mean, repeat_kv
+from repro_torch.models.attention import attend, mhsa
+from repro_torch.models.common import apply_rope, kv_group_mean
 
 
 def init_dense(cfg: ModelConfig, gen: torch.Generator, *,
@@ -60,6 +61,141 @@ def init_dense(cfg: ModelConfig, gen: torch.Generator, *,
         params["lm_head"] = nn.dense_init(gen, d, cfg.vocab_size,
                                           device=device, dtype=dtype)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Forward (the layer stack runs as a Python loop; per-layer aux is stacked
+# on a leading L axis, as JAX's scan stacks it)
+# ---------------------------------------------------------------------------
+
+def _block(cfg: ModelConfig, lp, x, positions, rank_ctx, cache, chunked):
+    h, new_cache, aux = mhsa(cfg, lp["attn"], nn.rms_norm(x, lp["ln1"], cfg.rms_eps),
+                             positions, rank_ctx=rank_ctx, cache=cache,
+                             chunked=chunked)
+    x = x + h
+    f = nn.swiglu(nn.rms_norm(x, lp["ln2"], cfg.rms_eps),
+                  lp["ffn"]["w_gate"], lp["ffn"]["w_up"], lp["ffn"]["w_down"])
+    return x + f, new_cache, aux
+
+
+def _aux_slim(aux: Dict[str, Any], collect: str) -> Dict[str, Any]:
+    """Select which per-layer aux to keep.
+    collect: 'none' | 'ranks' | 'rl' (also the spectra, bounds and the serve
+    prefill's qkv and mass)."""
+    if collect == "none":
+        return {}
+    keep = {"rank", "fidelity"}
+    if collect == "rl":
+        keep |= {"delta_a_grid", "delta_a_norm", "k_s2", "qkv", "mass"}
+    return {k: v for k, v in aux.items() if k in keep}
+
+
+def _stack(per_layer: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """[{name: tensor or dict}] over layers -> {name: (L, ...) stacked}."""
+    if not per_layer or not per_layer[0]:
+        return {}
+    return {k: (_stack([a[k] for a in per_layer]) if isinstance(v, dict)
+                else torch.stack([a[k] for a in per_layer]))
+            for k, v in per_layer[0].items()}
+
+
+def _layer(params, li: int) -> Dict[str, Any]:
+    """Layer ``li``'s parameters out of the stacked tree (views)."""
+    def pick(t):
+        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[li]
+    return pick(params["layers"])
+
+
+def _logits(params, x):
+    head = params.get("lm_head")
+    return x @ head.to(x.dtype) if head is not None else x @ params["embed"].to(x.dtype).T
+
+
+def make_rank_ctx(cfg: ModelConfig, *, compute_fidelity=False,
+                  collect_qkv=False, collect_mass=False, mass_q_len=None):
+    """Build the per-forward rank context (None when mode == 'off', unless
+    qkv/mass capture is requested: the serve prefill collects per-layer
+    k/v and the per-key attention mass from the full-rank forward)."""
+    rcfg = cfg.rank
+    if rcfg.mode == "off" and not (collect_qkv or collect_mass):
+        return None
+    return {"cfg": rcfg, "compute_fidelity": compute_fidelity,
+            "collect_qkv": collect_qkv, "collect_mass": collect_mass,
+            "mass_q_len": mass_q_len}
+
+
+def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
+                  compute_fidelity=False, collect_aux: str = "none",
+                  chunked: bool = False, collect_qkv: bool = False,
+                  collect_mass: bool = False, mass_q_len=None
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens: (b, s) integer. Returns (logits (b, s, V), aux) with
+    aux['layers'] the per-layer aux selected by ``collect_aux``, stacked on
+    a leading L axis.
+    ``chunked`` sends every attention over more than 1024 keys through the
+    ``lowrank_flash`` kernel. Rank modes 'off', 'fixed' and 'adaptive'."""
+    dtype = nn.dt(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    rank_ctx = make_rank_ctx(cfg, compute_fidelity=compute_fidelity,
+                             collect_qkv=collect_qkv,
+                             collect_mass=collect_mass, mass_q_len=mass_q_len)
+    aux_layers = []
+    for li in range(cfg.num_layers):
+        x, _, aux = _block(cfg, _layer(params, li), x, positions, rank_ctx,
+                           None, chunked)
+        aux_layers.append(_aux_slim(aux, collect_aux))
+    x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    return _logits(params, x), {"layers": _stack(aux_layers)}
+
+
+def loss_dense(cfg: ModelConfig, params, batch, **kw):
+    """Mean next-token cross-entropy of ``batch`` {'tokens', 'labels'[,
+    'mask']} over the last ``labels.shape[1]`` positions; returns
+    (loss, aux)."""
+    logits, aux = forward_dense(cfg, params, batch["tokens"], **kw)
+    n_txt = batch["labels"].shape[1]
+    loss = nn.softmax_cross_entropy(logits[:, -n_txt:], batch["labels"],
+                                    batch.get("mask"))
+    return loss, aux
+
+
+# ---------------------------------------------------------------------------
+# Dense-cache decode (caches stacked over layers)
+# ---------------------------------------------------------------------------
+
+def init_cache_dense(cfg: ModelConfig, batch: int, max_len: int, *,
+                     device="cuda") -> dict:
+    """{'k', 'v': (L, batch, max_len, hkv, dh) zeros, 'len': 0}."""
+    dtype = nn.dt(cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": 0}
+
+
+def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
+                      positions=None, chunked: bool = False):
+    """One decode step: tokens (b, s_new) appended at cache['len'].
+    Returns (logits (b, s_new, V), new_cache); the cache tensors are
+    updated in place."""
+    dtype = nn.dt(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    b, s, _ = x.shape
+    start = int(cache["len"])
+    if positions is None:
+        positions = (start + torch.arange(s, device=x.device))[None].expand(b, s)
+    rank_ctx = make_rank_ctx(cfg)
+    for li in range(cfg.num_layers):
+        layer_cache = {"k": cache["k"][li], "v": cache["v"][li], "len": start}
+        x, _, _ = _block(cfg, _layer(params, li), x, positions, rank_ctx,
+                         layer_cache, chunked)
+    x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    return _logits(params, x), {"k": cache["k"], "v": cache["v"],
+                                "len": start + s}
 
 
 def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
@@ -214,8 +350,7 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
                 probs = None if probs is None else probs[:, :, None]
             o = o.transpose(1, 2)                             # (ns, C, hq, dh)
         else:
-            res = attend(q_use, repeat_kv(k_use, n_rep), repeat_kv(vg, n_rep),
-                         scale=scale, causal=False,
+            res = attend(q_use, k_use, vg, scale=scale, causal=False,
                          kv_len=kv_len_q[:, None, :, None],
                          score_dtype=score_dtype, return_probs=want_probs)
             o, probs = res if want_probs else (res, None)
@@ -237,9 +372,7 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
         # only each row's last valid query feeds the LM head
         x = x.gather(1, (q_lens - 1)[:, None, None].expand(ns, 1, d))
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    head = params.get("lm_head")
-    logits = (x @ head.to(x.dtype) if head is not None
-              else x @ params["embed"].to(x.dtype).T)
+    logits = _logits(params, x)
     pools = {"k": pool_k, "v": pool_v}
     if kt_pool is not None:
         pools["kt"] = kt_pool

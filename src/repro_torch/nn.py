@@ -53,3 +53,16 @@ def rms_norm(x, gamma, eps: float = 1e-5):
 
 def swiglu(x, w_gate, w_up, w_down):
     return linear(F.silu(linear(x, w_gate)) * linear(x, w_up), w_down)
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy of (..., V) logits in f32 against integer
+    ``labels`` (...); with ``mask`` (...), the mask-weighted mean."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -9,11 +9,12 @@ SamplingParams, ``Engine.submit() -> RequestHandle``.
         ...
     # or: eng.run(); h.result()
 
-``EngineConfig`` keeps the JAX field names and defaults. Knobs this port
-does not serve yet raise ``NotImplementedError`` naming the ROADMAP item:
-one-shot prefill (``prefill_chunk=None``), speculation, the prefix cache,
-the drift trigger, traces, obs tracing, flight dumps, nucleus sampling,
-and any request with temperature, top-k or top-p set. Greedy serving is
+``EngineConfig`` keeps the JAX field names and defaults; both chunked
+prefill and one-shot prefill (``prefill_chunk=None``) are served. Knobs
+this port does not serve yet raise ``NotImplementedError`` naming the
+ROADMAP item: speculation, the prefix cache, the drift trigger, traces,
+obs tracing, flight dumps, nucleus sampling, and any request with
+temperature, top-k or top-p set. Greedy serving is
 exact: a greedy row is the argmax whether or not sampling is compiled in.
 """
 from __future__ import annotations

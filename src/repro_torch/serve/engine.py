@@ -1,5 +1,5 @@
 """Continuous-batching serving engine of the port (``repro.serve.engine.
-ServeEngine``, the chunked-prefill greedy path).
+ServeEngine``, the greedy path).
 
 One engine = one slot-paged KV cache + one scheduler + two fused steps:
 
@@ -11,7 +11,11 @@ One engine = one slot-paged KV cache + one scheduler + two fused steps:
     decode_step_paged) with per-row kv_len, per-row rank, in-graph
     attention-mass accumulation and greedy selection; prompts are
     consumed ``prefill_chunk`` tokens at a time inside the **mixed** form
-    of that step, alongside the live decode rows.
+    of that step, alongside the live decode rows. With
+    ``prefill_chunk=None`` a prompt is instead prefilled in one shot at
+    admission (a full-rank ``forward_dense`` over its length bucket that
+    also captures the per-layer K/V and the prompt's attention mass), and
+    only the plain decode step runs.
 
 Lengths, ranks and tokens stay on the device between steps; the host
 fetches token values only when a live request carries an ``eos_id`` or a
@@ -33,16 +37,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import get_model
+from repro_torch.models.transformer import forward_dense
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.policy import make_decide_fn
 from repro_torch.serve.scheduler import Request, Scheduler, prefill_buckets
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"{item})")
 
 
 def params_to(params, device):
@@ -69,10 +70,7 @@ class ServeEngine:
                  record_traces: Optional[str] = None,
                  obs_trace: bool = False, flight_dir: Optional[str] = None,
                  device="cuda"):
-        if prefill_chunk is None:
-            raise _not_ported("one-shot prefill (prefill_chunk=None)",
-                              "item 5: forward_dense / mhsa")
-        if prefill_chunk < 1:
+        if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         for flag, what, item in (
                 (speculative, "speculative decoding", "item 12"),
@@ -84,7 +82,7 @@ class ServeEngine:
                 (flight_dir, "the flight recorder", "item 14"),
                 (nucleus, "nucleus sampling", "item 8: sampling")):
             if flag:
-                raise _not_ported(what, item)
+                raise not_ported(what, item)
         self.device = torch.device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -107,10 +105,13 @@ class ServeEngine:
         self.fns = get_model(cfg)
         if self.fns.decode_step_paged is None:
             raise ValueError(f"family {cfg.family!r} has no paged decode step")
+        # one-shot prefill runs the full-rank forward of the prompt
+        self._pf_cfg = cfg.with_(rank=cfg.rank.__class__(mode="off"))
         self._decide = (make_decide_fn(cfg, policy_params)
                         if cfg.rank.mode != "off" else None)
         self._step = self._step_impl
-        self._step_mixed = self._step_mixed_impl
+        self._step_mixed = (self._step_mixed_impl if self.chunk is not None
+                            else None)
         self._reset_state()
 
     def _reset_state(self):
@@ -168,8 +169,8 @@ class ServeEngine:
                 f"request needs {len(req.tokens) + req.max_new} cache "
                 f"positions but a slot holds only {self.cache.max_len}")
         if req.temperature > 0 or req.top_k > 0 or req.top_p < 1.0:
-            raise _not_ported("sampling (temperature / top_k / top_p)",
-                              "item 8: _select_token")
+            raise not_ported("sampling (temperature / top_k / top_p)",
+                             "item 8: _select_token")
         with self._lock:
             self.sched.submit(req)
 
@@ -198,7 +199,9 @@ class ServeEngine:
                 self._pt_dev, self._lens_dev, self.cache.ranks,
                 self.cache.basis, self.cache.spectra, 0, False, 0)
         idle = torch.zeros((ns,), dtype=torch.bool, device=self.device)
-        runs = [(self._step, ()), (self._step_mixed, (self.prompt_buf,))]
+        runs = [(self._step, ())] + (
+            [(self._step_mixed, (self.prompt_buf,))]
+            if self._step_mixed is not None else [])
         for fn, extra in runs:
             pools, tok, ob, _ = fn(
                 self.params, self.cache.k_pool, self.cache.v_pool,
@@ -219,6 +222,18 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     # -- data plane ------------------------------------------------------
+
+    def _prefill(self, params, tokens, q_len: int):
+        """Full-rank prefill over the padded bucket that also captures the
+        per-layer k/v and, when the rank path reads the mass pool, the
+        prompt's per-key attention mass off the forward's own softmax chain
+        (queries beyond ``q_len`` are padding and excluded from the mass)."""
+        with_mass = self.cache.rank_on
+        logits, aux = forward_dense(self._pf_cfg, params, tokens,
+                                    collect_aux="rl", collect_qkv=True,
+                                    collect_mass=with_mass, mass_q_len=q_len)
+        qkv = aux["layers"]["qkv"]
+        return logits, qkv["k"], qkv["v"], aux["layers"]["mass"] if with_mass else None
 
     def _select_token(self, logits):
         """Greedy next token per row from (ns, V) logits (first index of
@@ -304,20 +319,53 @@ class ServeEngine:
             return self._admit_locked()
 
     def _admit_locked(self) -> List[int]:
-        """Chunked admission: stage each placed prompt on the device; the
-        mixed fused steps consume it, so admission does no model work."""
+        """Chunked admission stages each placed prompt on the device (the
+        mixed fused steps consume it, so admission does no model work);
+        one-shot admission prefills the prompt and emits its token 0."""
         placed = self.sched.admit(self.now, self.cache.allocate)
-        for slot, req, _bucket in placed:
+        any_other_live = self.sched.n_live() > len(placed)
+        for slot, req, bucket in placed:
             st = self.sched.slots[slot]
             st.admit_s = time.perf_counter()
             # a recycled slot must not inherit its previous occupant's
             # rank state: first decision is veto-free, fresh clock
             self.has_rank[slot] = False
             self.force_decide[slot] = False
-            buf = np.zeros((self.cache.max_len,), np.int64)
-            buf[:len(req.tokens)] = req.tokens
-            self.prompt_buf[slot] = torch.as_tensor(buf, device=self.device)
-            self.stats["prefill_tokens"] += st.prompt_len
+            if self.chunk is not None:
+                buf = np.zeros((self.cache.max_len,), np.int64)
+                buf[:len(req.tokens)] = req.tokens
+                self.prompt_buf[slot] = torch.as_tensor(buf, device=self.device)
+                self.stats["prefill_tokens"] += st.prompt_len
+                continue
+            t0 = time.perf_counter()
+            s = len(req.tokens)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :s] = req.tokens
+            logits, k_l, v_l, mass_l = self._prefill(
+                self.params, torch.as_tensor(padded, device=self.device), s)
+            tok0 = self._select_token(logits[0, s - 1])
+            mass = (None if mass_l is None
+                    else mass_l[:, 0].transpose(1, 2)[:, :s])  # (L, s, hkv)
+            self.cache.write_prefill(slot, k_l[:, 0, :s], v_l[:, 0, :s],
+                                     mass_layers=mass)
+            self.tokens[slot, 0] = tok0
+            self.out_buf[slot, 0] = tok0
+            st.prefilled = s
+            if req.eos_id is not None:
+                st.last_tok = int(tok0)
+            if self._stream_sync:
+                # token 0 is emitted outside the fused step: a streaming
+                # consumer must still see it in order
+                self.last_emitted.append((req.rid, 0, int(tok0)))
+            self._sync_device()
+            dt = time.perf_counter() - t0
+            self.stats["prefill_s"] += dt
+            self.stats["prefill_tokens"] += s
+            if any_other_live:
+                # blocking admission: this prefill ran while other streams
+                # had decode work pending (the stall chunked mode removes)
+                self.stats["stall_s"] += dt
+            self._stamp_first_token(slot, st, time.perf_counter(), dt)
         if placed:
             self._dirty = True
         return [slot for slot, _, _ in placed]

@@ -1,8 +1,8 @@
 """Slot-paged KV cache for the continuous-batching engine (port of
 ``repro.serve.kv_cache.PagedKVCache``).
 
-Device pools are torch tensors; the page table, refcounts and lengths stay
-host numpy, as in the reference:
+Device pools are torch tensors, written in place; the page table,
+refcounts and lengths stay host numpy, as in the reference:
 
     k_pool, v_pool: (L, n_pages, page_size, hkv, dh)
 
@@ -133,6 +133,29 @@ class PagedKVCache:
         self.unref(int(p) for p in self.page_table[slot] if p != 0)
         self.page_table[slot, :] = 0
         self.lens[slot] = 0
+
+    def write_prefill(self, slot: int, k_layers: torch.Tensor,
+                      v_layers: torch.Tensor,
+                      mass_layers: Optional[torch.Tensor] = None) -> None:
+        """Scatter a prefilled (L, s, hkv, dh) K/V run into the slot's pages
+        and set its length. The slot's attention-mass row is zeroed (a
+        recycled slot must not keep its previous occupant's mass) and,
+        when ``mass_layers`` (L, s, hkv) is given, re-seeded with the
+        prompt's per-key causal attention mass. The pools are written in
+        place."""
+        s = k_layers.shape[1]
+        pos = np.arange(s)
+        phys = torch.as_tensor(self.page_table[slot][pos // self.page_size],
+                               dtype=torch.long, device=self.device)
+        off = torch.as_tensor(pos % self.page_size, dtype=torch.long,
+                              device=self.device)
+        self.k_pool[:, phys, off] = k_layers.to(self.k_pool.dtype)
+        self.v_pool[:, phys, off] = v_layers.to(self.v_pool.dtype)
+        if self.mass_pool is not None:
+            self.mass_pool[:, slot] = 0.0
+            if mass_layers is not None:
+                self.mass_pool[:, slot, :s] = mass_layers.to(self.mass_pool.dtype)
+        self.lens[slot] = s
 
     def check_refs(self, tree_pages: Iterable[int] = ()) -> None:
         """Assert the refcount invariant: every page's refcount equals its

@@ -3,7 +3,8 @@ reduced drrl-paper on ``benchmarks/serve_bench.py``'s mixed staggered
 workload (prompts 8..32 tokens, arrivals every 2 steps, 6 requests through
 3 slots so slots recycle), chunked prefill (chunk 8), rank modes
 'adaptive' and 'fixed', factor cache on and off, ``use_kernel`` off and
-on. Greedy tokens and ``ranks_per_step()`` must be IDENTICAL.
+on; and one-shot prefill (``prefill_chunk=None``). Greedy tokens and
+``ranks_per_step()`` must be IDENTICAL.
 
 The JAX runs are shared through a module-scoped cache so the file stays
 well under a minute on a CPU.
@@ -44,16 +45,17 @@ def models():
 
 @pytest.fixture(scope="module")
 def jax_runs(models):
-    """(mode, factor_cache, use_kernel) -> (tokens per request, ranks per
-    step) of the JAX engine, computed once per module."""
+    """(mode, factor_cache, use_kernel, prefill_chunk) -> (tokens per
+    request, ranks per step) of the JAX engine, computed once per module."""
     cache = {}
 
-    def run(mode, factor, use_kernel):
-        key = (mode, factor, use_kernel)
+    def run(mode, factor, use_kernel, chunk=KNOBS["prefill_chunk"]):
+        key = (mode, factor, use_kernel, chunk)
         if key not in cache:
             cfg, _, jparams, _ = models[mode]
             eng = JaxEngine(cfg, jparams, config=JaxEngineConfig(
-                **KNOBS, factor_cache=factor, use_kernel=use_kernel))
+                **{**KNOBS, "prefill_chunk": chunk}, factor_cache=factor,
+                use_kernel=use_kernel))
             hs = [eng.submit(w["tokens"], JaxSamplingParams(max_new=w["max_new"]),
                              arrival=w["arrival"]) for w in WORKLOAD]
             eng.warmup()
@@ -91,6 +93,66 @@ def test_engine_matches_jax(case, models, jax_runs):
     eng.core.cache.check_refs()
 
 
+def _serve(tcfg, tparams, **knobs):
+    eng = Engine(tcfg, tparams, device="cpu", config=EngineConfig(**{**KNOBS, **knobs}))
+    hs = [eng.submit(w["tokens"], SamplingParams(max_new=w["max_new"]),
+                     arrival=w["arrival"]) for w in WORKLOAD]
+    eng.warmup()
+    eng.run()
+    return eng, [h.result() for h in hs]
+
+
+ONESHOT = [(m, f) for m in ("adaptive", "fixed") for f in (False, True)]
+
+
+@pytest.mark.parametrize("case", ONESHOT, ids=["%s-factor%s" % c for c in ONESHOT])
+def test_oneshot_engine_matches_jax(case, models, jax_runs):
+    """One-shot prefill (``prefill_chunk=None``): each prompt is prefilled
+    at admission by a full-rank ``forward_dense`` over its length bucket;
+    tokens and rank history must equal the JAX engine's."""
+    mode, factor = case
+    _, tcfg, _, tparams = models[mode]
+    want_toks, want_ranks = jax_runs(mode, factor, False, None)
+    eng, outs = _serve(tcfg, tparams, prefill_chunk=None, factor_cache=factor)
+    for i, (got, want) in enumerate(zip(outs, want_toks)):
+        np.testing.assert_array_equal(got, want, err_msg=f"request {i} diverged")
+    got_ranks = eng.ranks_per_step()
+    assert len(got_ranks) == len(want_ranks)
+    for t, (g, w) in enumerate(zip(got_ranks, want_ranks)):
+        np.testing.assert_array_equal(g, w, err_msg=f"step {t}")
+    stats = eng.stats
+    assert stats["mixed_steps"] == 0 and stats["prefills"] == len(WORKLOAD)
+    assert stats["prefill_tokens"] == sum(len(w["tokens"]) for w in WORKLOAD)
+    assert stats["stall_s"] > 0      # staggered arrivals: admissions block decode
+    assert eng.core.cache.free_pages == eng.core.cache.n_pages - 1
+    eng.core.cache.check_refs()
+
+
+@pytest.mark.parametrize("mode", ["adaptive", "fixed"])
+def test_oneshot_and_chunked_give_the_same_tokens(mode, models):
+    _, tcfg, _, tparams = models[mode]
+    _, oneshot = _serve(tcfg, tparams, prefill_chunk=None)
+    _, chunked = _serve(tcfg, tparams)
+    for i, (a, b) in enumerate(zip(oneshot, chunked)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i} diverged")
+
+
+def test_oneshot_streams_token_zero_in_order(models):
+    """One-shot admission emits token 0 outside the fused step; a streaming
+    consumer still sees every token in order, ending at EOS."""
+    _, tcfg, _, tparams = models["adaptive"]
+    eng = Engine(tcfg, tparams, device="cpu",
+                 config=EngineConfig(**{**KNOBS, "prefill_chunk": None}))
+    w = WORKLOAD[1]
+    h = eng.submit(w["tokens"], SamplingParams(max_new=10))
+    streamed = list(h.tokens())
+    np.testing.assert_array_equal(streamed, h.result())
+    assert h.ttft_s is not None
+    eos = int(streamed[0])
+    h2 = eng.submit(w["tokens"], SamplingParams(max_new=10, eos_id=eos))
+    assert list(h2.result()) == [eos]
+
+
 def test_streaming_tokens_match_result(models):
     """The handle iterator streams the same tokens ``result()`` returns,
     and an EOS id stops a stream early."""
@@ -107,7 +169,7 @@ def test_streaming_tokens_match_result(models):
 
 
 UNPORTED = [
-    dict(prefill_chunk=None), dict(speculative=True), dict(prefix_cache=True),
+    dict(speculative=True), dict(prefix_cache=True),
     dict(drift_threshold=0.5), dict(record_traces="traces"), dict(obs_trace=True),
     dict(flight_dir="flight"), dict(nucleus=True),
 ]

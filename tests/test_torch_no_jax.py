@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` and the ``repro`` package made
 unimportable, every module of ``repro_torch`` and ``chip_smoke.py`` import,
-and the engine serves two requests on the CPU."""
+the engine serves two requests on the CPU, chunked and one-shot, and a
+chunked ``forward_dense`` runs its flash branch at s = 1040."""
 import os
 import subprocess
 import sys
@@ -33,6 +34,16 @@ eng = Engine(cfg, params, device="cpu", config=EngineConfig(
 hs = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [len(h.result()) for h in hs] == [5, 5]
+eng = Engine(cfg, params, device="cpu", config=EngineConfig(
+    n_slots=2, max_len=64, prefill_chunk=None))
+hs2 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
+eng.run()
+assert [list(a.result()) for a in hs2] == [list(a.result()) for a in hs]
+loss, aux = get_model(cfg).loss(params, {
+    "tokens": torch.arange(2 * 1040).reshape(2, 1040) % 256,
+    "labels": torch.arange(2 * 1040).reshape(2, 1040) % 251},
+    chunked=True, collect_aux="ranks", compute_fidelity=True)
+assert torch.isfinite(loss) and aux["layers"]["rank"].shape == (2, 2, 4)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("modules", len(names))
