@@ -8,7 +8,10 @@ Phases (one line each, plus detail lines):
      both CUDA kernels built from src/repro_torch/kernels/csrc, one nvcc
      per source, started together;
   2. the flash-decode kernel against its plain PyTorch version on the card,
-     at the CPU tests' shapes and at the serving path's shapes;
+     f32 (2e-5, and the exact zero pattern of the probabilities) and bf16
+     (two bf16 steps of each output element): the CPU tests' shapes, cases
+     at the key splits the kernel's host plan picks on this card, and the
+     serving path's shapes;
   3. full-width serving of the drrl-paper model (12 layers, d_model 768,
      seeded random weights) through ``repro_torch.serve.Engine`` with the
      kernel on: adaptive rank, again with the factor cache, again in fixed
@@ -16,9 +19,11 @@ Phases (one line each, plus detail lines):
      CPU without it must give identical greedy tokens;
   4. one full-width mixed engine step with the kernel and with the plain
      attention on the same inputs: logits must agree;
-  5. times at the serving shapes: kernel, plain version, one PyTorch
-     library call for the same attention, and the kernel's bound; then
-     the adaptive serving run under torch.profiler, device time by kernel;
+  5. times at the serving shapes, L2 flushed before each timed call:
+     kernel and plain version with and without probabilities, one PyTorch
+     library call for the same attention (no probabilities), and the
+     kernel's bound for each; then the adaptive serving run under
+     torch.profiler, device time by kernel;
   6. the lowrank_flash kernel against its plain version on the card, f32
      (2e-5) and bf16 (two bf16 steps of each element): the CPU tests' six
      cases, the q_offset case, and the forward path's shapes (b = 2, 12
@@ -44,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,11 +71,11 @@ from repro_torch.serve import Engine, EngineConfig, SamplingParams  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# lowrank_flash and its plain version both stay in f32 up to the one rounding
+TOL = 2e-5                     # f32 kernel vs plain version
+# each kernel and its plain version both stay in f32 up to the one rounding
 # of the output, so in bf16 they may differ by one bf16 step (at most 2^-7 of
 # the value): hold them to two steps, relative to each element
-FLASH_BF16_REL = 2 ** -6
+BF16_REL = 2 ** -6
 LOGIT_TOL = 1e-3               # f32 engine step / forward, kernel vs plain attention
 GRID = (16, 24, 32, 40, 48, 56, 64)
 DEV = "cuda"
@@ -84,6 +90,21 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas=-v report: its
+    (mangled) name and template arguments, registers, spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "entry function" in line:
+            m = re.search(r"((?:flash_decode|lowrank_flash)_kernel\w*?)I(\w*?)E+v", line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1][:60]
+        elif "spill stores" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
 
 
 def ints(x):
@@ -114,7 +135,32 @@ MAIN_CHUNK = (8, 12, 12, 128, 2048, 64, 64,
               (0, 1920, 172, 872, 1, 572, 1372, 63), None)
 
 
-def make_inputs(case, dtype, seed):
+def split_cases():
+    """Cases at the key splits that ``decode_attn.split_plan`` picks on this
+    card: kv_len equal to a split's size, one less and one more, rows of
+    kv_len 1 and M, a GQA group of 4, and chunks in which some queries see
+    no key of a whole split, on the decode path (C = 8) and the chunk path
+    (C = 80, two query tiles)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def split(b, hq, hkv, C, M):
+        return decode_attn.split_plan(b, hq, hkv, C, M, sms)[1]
+
+    L = split(6, 8, 8, 1, 2048)
+    G = split(4, 16, 4, 1, 1024)
+    D = split(3, 4, 2, 8, 1024)
+    K = split(3, 4, 2, 80, 1024)
+    return [
+        (6, 8, 8, 1, 2048, 64, 64, (L, L - 1, L + 1, 1, 2048, min(2 * L + 3, 2048)),
+         None, None),
+        (4, 16, 4, 1, 1024, 64, 64, (G, G - 1, G + 1, 1024), None, None),
+        (3, 4, 2, 8, 1024, 40, 24, (D + 4, D + 8, 8), (D - 4, D, 0), (8, 8, 5)),
+        (3, 4, 2, 80, 1024, 32, 48, (K + 40, min(2 * K + 80, 1024), 80),
+         (K - 40, min(2 * K, 944), 0), (80, 80, 70)),
+    ]
+
+
+def make_inputs(case, dtype, seed, return_probs=True):
     b, hq, hkv, C, M, r, dv, kl, qs, ql = case
     g = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((b, hq, C, r), generator=g, device=DEV).to(dtype)
@@ -122,14 +168,18 @@ def make_inputs(case, dtype, seed):
     v = torch.randn((b, hkv, M, dv), generator=g, device=DEV).to(dtype)
     if C == 1:
         q = q[:, :, 0]
-    return (q, k, v, ints(kl)), dict(scale=r ** -0.5, return_probs=True,
+    return (q, k, v, ints(kl)), dict(scale=r ** -0.5, return_probs=return_probs,
                                      q_start=ints(qs), q_lens=ints(ql))
 
 
 def check_kernel() -> float:
+    """Every case in f32 and bf16. Outputs: f32 within 2e-5 + 2e-5 |plain|,
+    bf16 within 2e-5 + two bf16 steps of |plain|. Probabilities are f32 on
+    both sides, computed in f32 from the same inputs: 2e-5 + 2e-5 |plain|
+    in both types, and in f32 the plain version's exact zero pattern."""
     worst = 0.0
-    cases = [(c, dt) for c in CHECK_CASES for dt in (torch.float32, torch.bfloat16)]
-    cases += [(MAIN_DECODE, torch.float32), (MAIN_CHUNK, torch.float32)]
+    cases = [(c, dt) for c in CHECK_CASES + split_cases() + [MAIN_DECODE, MAIN_CHUNK]
+             for dt in (torch.float32, torch.bfloat16)]
     for i, (case, dtype) in enumerate(cases):
         args, kw = make_inputs(case, dtype, seed=i)
         o, p = decode_attn.flash_decode(*args, **kw)
@@ -137,18 +187,21 @@ def check_kernel() -> float:
         ro, rp = decode_attn.flash_decode_plain(*args, **kw)
         err_o = (o.float() - ro.float()).abs().max().item()
         err_p = (p - rp).abs().max().item()
-        tol = TOL[dtype]
-        bad_o = ((o.float() - ro.float()).abs() > tol + tol * ro.float().abs()).any().item()
-        bad_p = ((p - rp).abs() > tol + tol * rp.abs()).any().item()
+        rel = TOL if dtype == torch.float32 else BF16_REL
+        bad_o = ((o.float() - ro.float()).abs() > TOL + rel * ro.float().abs()).any().item()
+        bad_p = ((p - rp).abs() > TOL + TOL * rp.abs()).any().item()
         zeros = torch.equal(p == 0, rp == 0) if dtype == torch.float32 else True
-        if bad_o or bad_p or not zeros:
+        finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(p).all())
+        if bad_o or bad_p or not zeros or not finite:
             raise AssertionError(f"flash_decode disagrees with its plain version at "
-                                 f"{case[:7]} {dtype}: out {err_o:.3g}, probs "
-                                 f"{err_p:.3g} (tol {tol}), zero pattern {zeros}")
+                                 f"{case} {dtype}: out {err_o:.3g} (tol {TOL:g} + "
+                                 f"{rel:.3g}*|plain|), probs {err_p:.3g}, zero pattern "
+                                 f"{zeros}, finite {finite}")
         if dtype == torch.float32:
             worst = max(worst, err_o, err_p)
-        log(f"  {str(dtype)[6:]:8s} b,hq,hkv,C,M,r,dv={case[:7]}: max|out-plain| "
-            f"{err_o:.3g}, max|probs-plain| {err_p:.3g} (tol {tol})")
+        log(f"  {str(dtype)[6:]:8s} b,hq,hkv,C,M,r,dv={case[:7]} kv_len={case[7]}: "
+            f"max|out-plain| {err_o:.3g} (tol {TOL:g} + {rel:.3g}*|plain|), "
+            f"max|probs-plain| {err_p:.3g}")
     return worst
 
 
@@ -262,12 +315,31 @@ def check_engine_step(cfg, params):
 
 # -- phase 5 ---------------------------------------------------------------
 
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Evict the 50 MB L2 before a timed call, outside its event pair: write
+    a 256 MB buffer, then read another one, so that the written lines are
+    written back here and not inside the timed call. Then hold the device
+    for about half a millisecond, so that the host has queued the whole
+    timed call before its first event fires: the events time the device,
+    not the wrapper's host-side launch overhead."""
+    if not _FLUSH:
+        _FLUSH.extend(torch.empty(64 << 20, device=DEV) for _ in range(2))
+    _FLUSH[0].zero_()
+    _FLUSH[1].sum()
+    torch.cuda._sleep(1_000_000)
+
+
 def time_ms(fn, n=25) -> float:
-    """Median of n individually event-timed calls after warm-up."""
+    """Median of n individually event-timed calls after warm-up, each on a
+    cold L2 (the serving caller's K/V do not stay in L2 between layers)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
+        flush_l2()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -278,16 +350,17 @@ def time_ms(fn, n=25) -> float:
     return statistics.median(times)
 
 
-def bound_ms(case) -> tuple:
+def bound_ms(case, probs=True) -> tuple:
     """Least time for the work these inputs need: bytes (q, the K/V rows
-    up to each row's kv_len, out, probs) over HBM bandwidth, and the f32
-    operations (2 (r + dv) per visible query-key pair) over the f32 peak."""
+    up to each row's kv_len, out, and probs when asked for) over HBM
+    bandwidth, and the f32 operations (2 (r + dv) per visible query-key
+    pair) over the f32 peak."""
     b, hq, hkv, C, M, r, dv, kl, qs, ql = case
     kl = np.minimum(np.asarray(kl), M)
     qs = np.asarray(kl) - C if qs is None else np.asarray(qs)
     ql = np.full(b, C) if ql is None else np.asarray(ql)
     nbytes = 4 * (b * hq * C * r + hkv * kl.sum() * (r + dv)
-                  + b * hq * C * dv + b * hq * C * M) + 12 * b
+                  + b * hq * C * dv + (b * hq * C * M if probs else 0)) + 12 * b
     j = np.arange(C)[None, :]
     vis = np.clip(np.minimum(kl[:, None], qs[:, None] + j + 1), 0, None) * (j < ql[:, None])
     flops = 2 * (r + dv) * hq * vis.sum()
@@ -311,15 +384,26 @@ def library_call(case, q, k, v):
 
 
 def time_kernel(case, card_name):
-    (q, k, v, kl), kw = make_inputs(case, torch.float32, seed=7)
-    ms = time_ms(lambda: decode_attn.flash_decode(q, k, v, kl, **kw))
-    plain_ms = time_ms(lambda: decode_attn.flash_decode_plain(q, k, v, kl, **kw))
-    lib_ms = time_ms(library_call(case, q, k, v))
-    bnd, by = bound_ms(case)
-    log(f"  flash_decode C={case[3]} (b=8, hq=hkv=12, r=dv=64, M=2048, f32, probs): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound [{card_name}]")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+    """The kernel and its plain version without probabilities (the library
+    call's output) and with them (the serving path's call), SDPA, bounds.
+    The first five keys are the no-probabilities numbers."""
+    res = {}
+    for probs in (False, True):
+        (q, k, v, kl), kw = make_inputs(case, torch.float32, seed=7, return_probs=probs)
+        ms = time_ms(lambda: decode_attn.flash_decode(q, k, v, kl, **kw))
+        plain_ms = time_ms(lambda: decode_attn.flash_decode_plain(q, k, v, kl, **kw))
+        bnd, by = bound_ms(case, probs)
+        if not probs:
+            lib_ms = time_ms(library_call(case, q, k, v))
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                       bound_by=by)
+        else:
+            res.update(ms_probs=ms, plain_ms_probs=plain_ms, bound_ms_probs=bnd)
+        log(f"  flash_decode C={case[3]} (b=8, hq=hkv=12, r=dv=64, M=2048, f32, "
+            f"{'with' if probs else 'no'} probs, L2 flushed): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound"
+            + ("" if probs else f", sdpa (no probs) {lib_ms:.4f} ms") + f" [{card_name}]")
+    return res
 
 
 # CUPTI's own buffer handling, reported beside the kernels: not device work
@@ -441,8 +525,8 @@ def check_flash() -> float:
             ro = lowrank_flash.lowrank_flash_plain(*args, **kw)
             diff = (o.float() - ro.float()).abs()
             err = diff.max().item()
-            atol = TOL[torch.float32]
-            rtol = atol if dtype == torch.float32 else FLASH_BF16_REL
+            atol = TOL
+            rtol = atol if dtype == torch.float32 else BF16_REL
             tol = f"{atol:g} + {rtol:.3g}*|plain|"
             if (diff > atol + rtol * ro.float().abs()).any().item():
                 raise AssertionError(f"lowrank_flash disagrees with its plain version "
@@ -653,9 +737,8 @@ def main() -> int:
     secs = build.build(sources)
     for name in sources:
         log(f"  built {name}.cu in {secs[name]:.1f} s")
-        for line in build.build_log.get(name, (0, ""))[1].splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:" + line.split(":", 1)[-1])
+        for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
+            log("  ptxas: " + line)
 
     log("[2/9] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
@@ -682,7 +765,7 @@ def main() -> int:
 
     log("[5/9] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
-    time_kernel(MAIN_CHUNK, card_name)
+    t_chunk = time_kernel(MAIN_CHUNK, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
     log("[6/9] lowrank_flash kernel vs its plain version on the card")
@@ -703,7 +786,8 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:122",
-         "launches": launches, "max_abs_err": max_err, **t_dec},
+         "launches": launches, "max_abs_err": max_err, **t_dec,
+         "chunk": t_chunk},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",

@@ -5,247 +5,695 @@
 //
 //   q (b, hq, C, r), k (b, hkv, M, r), v (b, hkv, M, dv), per-row int32
 //   kv_len / q_start / q_lens. Query j of row b sees key position p iff
-//   p < kv_len[b], p <= q_start[b] + j and j < q_lens[b]. GQA maps q head h
-//   to kv head h / (hq / hkv). out (b, hq, C, dv) in v's type; optional
-//   normalised probability rows probs (b, hq, C, M) in f32. A masked score
-//   contributes exactly 0 (never exp(0)); a query with no visible key gives
-//   an all-zero output row and an all-zero probability row.
+//   p < kv_len[b], p <= q_start[b] + j and j < q_lens[b]; so its visible
+//   keys are exactly [0, key_end) with key_end = min(kv_len, q_start + j + 1,
+//   M), or none when j >= q_lens. GQA maps q head h to kv head
+//   h / (hq / hkv). out (b, hq, C, dv) in v's type; optional normalised
+//   probability rows probs (b, hq, C, M) in f32. A masked score contributes
+//   exactly 0 (never exp(0)); a query with no visible key gives an all-zero
+//   output row and an all-zero probability row. r, dv in 1 .. 128.
 //
-// What bounds it on an H100: bytes. A decode call (C = 1) does about
-// 2 (r + dv) flops per key against 4 (r + dv) bytes of K and V in f32,
-// far below the card's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/B).
-// A prefill chunk (C = 128) with probs writes C * M * 4 bytes of
-// probabilities, which then outweigh the K/V reads; its f32 arithmetic
-// (no TF32, for parity with the f32 reference) sits near the ridge.
+// What bounds it on an H100. At C = 1 (decode): bytes. A query does about
+// 2 (r + dv) flops per key against 4 (r + dv) bytes of K and V in f32, far
+// below the card's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/B). At
+// C = 128 (the mixed prefill + decode step) with probs: still bytes, now
+// the probability rows (C * M * 4 bytes per head, 100 MB at the serving
+// shape), which outweigh the K/V reads; the f32 arithmetic (no TF32, for
+// parity with the f32 reference) sits just below that bound.
 //
-// Design. The Pallas kernel walks the kv axis as a sequential grid axis
-// and carries m / l / acc and a (C, M) probability strip in VMEM scratch.
-// A CUDA block cannot hold that strip (1 MB at C = 128, M = 2048) and
-// blocks run in no order, so this kernel has no sequential grid axis:
-//   * one block of 4 warps per (row b, q head, tile of 16 queries); the
-//     block loops over 128-key tiles itself and stops at the last key any
-//     of its queries can see, so keys past kv_len are never read;
-//   * warp w takes keys w*32 .. w*32+31 of each tile, one key per lane,
-//     staged in its own shared-memory slice as f32 (K rows padded to r+1
-//     floats so the lane-per-key reads are free of bank conflicts);
-//   * pass 1 streams K and keeps an online max and denominator per query
-//     (lane j of a warp holds query j's pair); the four warps' partial
-//     (m, l) merge through shared memory;
-//   * pass 2 streams K again and V, writes p = exp(s - m) / l straight to
-//     probs (32 consecutive keys per warp store) and accumulates P.V into
-//     a per-warp f32 accumulator in shared memory (lane-private columns);
-//     the warps' partial outputs are summed in a fixed order, so the
-//     result does not change from run to run;
-//   * probability columns past the streamed tiles are written as zeros.
-// Cost of this design: K is read twice, so a decode call moves about
-// 1.5x its bound's bytes; a GQA kv head is re-read once per q head; at
-// C = 1 three of the four warps' query slots idle. Splitting the keys of
-// one (row, head) across blocks and sharing K/V over the q heads of a kv
-// group are the obvious next steps.
+// Design: split the keys across blocks, then combine. Blocks run in no
+// order and nothing carries over between them, so the Pallas kernel's
+// sequential kv grid axis becomes a split of the key axis into n_split
+// ranges of split_len keys, chosen on the host from shapes alone (about 8
+// blocks per SM in total; the wrapper never reads kv_len). A block whose
+// range lies past the last key its queries can see exits at once. Each
+// block makes ONE pass over its K and V rows with an online softmax and
+// writes its partial (m, l, acc) per query to a workspace; with probs it
+// also writes each visible key's scaled score s into the probability row.
+// The combine kernel then merges a query's partials in split order (no
+// atomics, so results repeat run to run), writes out = sum_s acc_s
+// exp(m_s - m) / l, and turns the scores into exp(s - m) / l, writing
+// exact zeros past the window. A split in which a query sees no key holds
+// m = -inf, l = 0, acc = 0; the combine reads only the splits below
+// ceil(key_end / split_len), each of which holds a visible key, and weighs
+// an m = -inf partial by 0 all the same.
+//   * decode path (C <= 16; flash_decode_kernel_split): one block of 4
+//     warps per (key split, b * hkv, tile of query rows). The rows are
+//     the (q head of the kv head's group, query) pairs, 1 per block when
+//     hq = hkv and C = 1, else 4, so a GQA group's q heads share one read
+//     of each K/V row. Eight lanes own one key: each loads its slice of
+//     the K row and of the V row with 16-byte (f32) or 8-byte (bf16)
+//     vector loads where width and pointer allow (scalar tail otherwise),
+//     the next key's slices are loaded before the current key is used,
+//     a score is reduced with three xor shuffles, and each 8-lane group
+//     keeps its own online (m, l, acc); the 16 groups merge in a fixed
+//     order at the end.
+//   * chunk path (C > 16; flash_decode_kernel_chunk): the register tile
+//     of lowrank_flash.cu, fed by 128-bit shared loads. One block of 128
+//     threads per (key split, b * hq, tile of 64 queries) walks 64-key
+//     tiles staged as f32 in shared memory, Q and K transposed; thread
+//     (ty, tx) computes the 4 x 8 scores of queries ty * 4 + i and keys
+//     tx * 4 + c, 32 + tx * 4 + c from three float4 loads per step of r,
+//     a query's online softmax reduces its 8 lanes with three xor
+//     shuffles, and P.V takes each probability from its owner lane and
+//     four V columns per float4 load.
+//   * combine (flash_decode_kernel_combine): one warp per query row and
+//     512 probability columns.
+// Left for later: tensor cores for the chunk path (a bf16 or TF32
+// tolerance decision), TMA or cp.async rings, strided K/V reads that
+// would spare the caller its transposes, and a combine fused into the
+// last block of each query.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kQT = 16;            // queries per block
-constexpr int kKW = 32;            // keys per warp per tile: one per lane
-constexpr int kKT = kWarps * kKW;  // keys per block tile
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDim = 128;       // largest r and dv this kernel takes
-constexpr int kDvChunks = kMaxDim / 32;
+constexpr int kCombineRows = 4;      // combine: query rows per block, one warp each
+constexpr int kCombineKeys = 512;    // combine: probability columns per warp
+// decode path
+constexpr int kSlots = kThreads / 8;  // keys in flight per block: one per 8-lane group
+constexpr int kDecodeMaxC = 16;       // larger chunks take the chunk path
+constexpr int kRowTile = 4;           // query rows per decode block (unless 1 in all)
+// chunk path
+constexpr int kBQ = 64;            // queries per block
+constexpr int kBK = 64;            // keys per tile
+constexpr int kRows = 4;           // queries per thread: ty * 4 + i
+constexpr int kCols = 8;           // keys per thread and tile
+constexpr int kTS = kBQ + 4;       // row stride of the transposed Q and K tiles
+constexpr int kLoads = 4;          // tile loads in flight per thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Elements e .. e + 3 of a row of `width` as f32, zero past the width. With
+// vec (width % 4 == 0 and the row aligned) a full group is one vector load.
+__device__ __forceinline__ float4 load4(const float* row, int e, int width, bool vec) {
+  if (vec && e + 4 <= width) return __ldg(reinterpret_cast<const float4*>(row + e));
+  return make_float4(e < width ? row[e] : 0.f, e + 1 < width ? row[e + 1] : 0.f,
+                     e + 2 < width ? row[e + 2] : 0.f, e + 3 < width ? row[e + 3] : 0.f);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows row0 .. row0 + kKW - 1 of a row-major (rows, width) matrix into
-// shared memory as f32 with row stride `stride`; rows >= row_hi become 0
-// and are never read from device memory.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int stride, const T* src, int row0,
-                                          int row_hi, int width, int lane) {
-  const T* base = src + (size_t)row0 * width;
-  const int n = kKW * width;
-  for (int i = lane; i < n; i += 32) {
-    const int row = i / width;
-    const int col = i - row * width;
-    dst[row * stride + col] = (row0 + row < row_hi) ? to_f32(base[i]) : 0.f;
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int e, int width, bool vec) {
+  if (vec && e + 4 <= width) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + e));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
   }
+  return make_float4(e < width ? to_f32(row[e]) : 0.f, e + 1 < width ? to_f32(row[e + 1]) : 0.f,
+                     e + 2 < width ? to_f32(row[e + 2]) : 0.f,
+                     e + 3 < width ? to_f32(row[e + 3]) : 0.f);
 }
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int n) {
-  float s = 0.f;
-  for (int d = 0; d < n; ++d) s = fmaf(a[d], b[d], s);
-  return s;
+// one past the last key query j of a row sees (0 when it sees none)
+__device__ __forceinline__ int key_end(int j, int len, int qs, int ql, int M) {
+  return j < ql ? max(0, min(min(len, qs + j + 1), M)) : 0;
 }
 
-template <typename T>
+// ---------------------------------------------------------------- decode path
+
+// NV: 4-element groups per lane (lane li of an 8-lane group owns elements
+// 4 (li + 8 c) .. + 3, c < NV), so r, dv <= 32 NV. QR: query rows per block.
+template <typename T, int NV, int QR>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ kv_len, const int* __restrict__ q_start,
-                    const int* __restrict__ q_lens, T* __restrict__ out,
-                    float* __restrict__ probs, int hq, int hkv, int C, int M, int r, int dv,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int j0 = blockIdx.x * kQT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t bh = (size_t)b * hq + h;
-  const size_t bkv = (size_t)b * hkv + h / (hq / hkv);
+flash_decode_kernel_split(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ kv_len,
+                          const int* __restrict__ q_start, const int* __restrict__ q_lens,
+                          float* __restrict__ probs, float* __restrict__ ws_m,
+                          float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq, int hkv,
+                          int C, int M, int r, int dv, int split_len, int n_split, int vec_k,
+                          int vec_v, float scale) {
+  __shared__ float red_m[kWarps][QR], red_l[kWarps][QR];
+  __shared__ float red_acc[kWarps][QR][32 * NV];
 
-  const int qs = q_start[b];
-  const int n_q = max(0, min(kQT, min(C, q_lens[b]) - j0));  // valid queries of the tile
-  const int n_rows = min(kQT, C - j0);                         // query rows the block writes
-  // one past the last key any valid query of the tile can see
-  int key_hi = n_q > 0 ? min(kv_len[b], qs + j0 + n_q) : 0;
-  key_hi = max(0, min(key_hi, M));
-  const int n_tiles = (key_hi + kKT - 1) / kKT;
+  const int s = blockIdx.x;
+  const int bkv = blockIdx.y;
+  const int b = bkv / hkv;
+  const int group = hq / hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 3, li = lane & 7;
+  const int len = kv_len[b], qs = q_start[b], ql = q_lens[b];
 
-  const int rs = r + 1;
-  float* q_s = smem;                                            // kQT x r
-  float* k_s = q_s + kQT * r + warp * kKW * (rs + dv);          // this warp: kKW x rs
-  float* v_s = k_s + kKW * rs;                                  //            kKW x dv
-  float* acc_all = q_s + kQT * r + kWarps * kKW * (rs + dv);    // kWarps x kQT x dv
-  float* acc_s = acc_all + warp * kQT * dv;
-  float* red_m = acc_all + kWarps * kQT * dv;                   // kWarps x kQT
-  float* red_l = red_m + kWarps * kQT;                          // kWarps x kQT
+  // this block's query rows: (q head g of the group, query j) pairs
+  int end[QR];
+  size_t row_id[QR];     // (b * hq + h) * C + j
+  int tile_hi = 0;
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    const int ri = blockIdx.z * QR + i;
+    const int g = ri / C, j = ri - (ri / C) * C;
+    const bool ok = ri < group * C;
+    row_id[i] = ok ? ((size_t)b * hq + (size_t)(bkv - b * hkv) * group + g) * C + j : 0;
+    end[i] = ok ? key_end(j, len, qs, ql, M) : 0;
+    tile_hi = max(tile_hi, end[i]);
+  }
+  const int k0 = s * split_len;
+  const int k1 = min(k0 + split_len, tile_hi);
+  if (k0 >= k1) return;  // no query of the tile sees a key of this split
 
-  for (int i = threadIdx.x; i < n_q * r; i += kThreads)
-    q_s[i] = to_f32(q[(bh * C + j0) * r + i]);
-  for (int i = lane; i < kQT * dv; i += 32) acc_s[i] = 0.f;
-  __syncthreads();
+  float qv[QR][NV][4];
+#pragma unroll
+  for (int i = 0; i < QR; ++i)
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const float4 x = end[i] > 0 ? load4(q + row_id[i] * r, 4 * (li + 8 * c), r, false)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      qv[i][c][0] = x.x; qv[i][c][1] = x.y; qv[i][c][2] = x.z; qv[i][c][3] = x.w;
+    }
 
-  const T* k_bh = k + bkv * M * r;
-  const T* v_bh = v + bkv * M * dv;
+  float m[QR], l[QR], acc[QR][NV][4];
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][c][t] = 0.f;
+  }
 
-  // pass 1: online max and denominator per query over this warp's keys;
-  // lane qi keeps query qi's running (m, l)
-  float m_own = -INFINITY, l_own = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int base = t * kKT + warp * kKW;
-    load_rows(k_s, rs, k_bh, base, key_hi, r, lane);
-    __syncwarp();
-    const int key = base + lane;
-#pragma unroll 1
-    for (int qi = 0; qi < n_q; ++qi) {
-      const bool vis = key < key_hi && key <= qs + j0 + qi;
-      const float s = vis ? dot(q_s + qi * r, k_s + lane * rs, r) * scale : -INFINITY;
-      const float m_old = __shfl_sync(0xffffffffu, m_own, qi);
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float e = vis ? expf(s - m_new) : 0.f;
-      const float corr = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-      const float l_tile = warp_sum(e);
-      if (lane == qi) {
-        l_own = l_own * corr + l_tile;
-        m_own = m_new;
+  const T* k_bh = k + (size_t)bkv * M * r;
+  const T* v_bh = v + (size_t)bkv * M * dv;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // warp w takes keys base + grp, base = k0 + 4 w + 16 t: the trip count is
+  // uniform across the warp, so full-warp shuffles are safe
+  float4 kr[NV], vr[NV];
+  {
+    const int key = k0 + 4 * warp + grp;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      kr[c] = key < k1 ? load4(k_bh + (size_t)key * r, 4 * (li + 8 * c), r, vec_k) : zero;
+      vr[c] = key < k1 ? load4(v_bh + (size_t)key * dv, 4 * (li + 8 * c), dv, vec_v) : zero;
+    }
+  }
+  for (int base = k0 + 4 * warp; base < k1; base += kSlots) {
+    const int key = base + grp;
+    const int nxt = key + kSlots;
+    float4 kn[NV], vn[NV];   // the next key's slices, loaded before this key is used
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      kn[c] = nxt < k1 ? load4(k_bh + (size_t)nxt * r, 4 * (li + 8 * c), r, vec_k) : zero;
+      vn[c] = nxt < k1 ? load4(v_bh + (size_t)nxt * dv, 4 * (li + 8 * c), dv, vec_v) : zero;
+    }
+#pragma unroll
+    for (int i = 0; i < QR; ++i) {
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        d = fmaf(qv[i][c][0], kr[c].x, d);
+        d = fmaf(qv[i][c][1], kr[c].y, d);
+        d = fmaf(qv[i][c][2], kr[c].z, d);
+        d = fmaf(qv[i][c][3], kr[c].w, d);
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      d += __shfl_xor_sync(0xffffffffu, d, 4);
+      if (key < end[i]) {   // uniform within the 8-lane group
+        const float sc = d * scale;
+        if (probs != nullptr && li == 0) probs[row_id[i] * M + key] = sc;
+        const float mn = fmaxf(m[i], sc);
+        const float corr = expf(m[i] - mn);   // 0 while m is -inf
+        const float p = expf(sc - mn);
+        l[i] = fmaf(l[i], corr, p);
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          acc[i][c][0] = fmaf(p, vr[c].x, acc[i][c][0] * corr);
+          acc[i][c][1] = fmaf(p, vr[c].y, acc[i][c][1] * corr);
+          acc[i][c][2] = fmaf(p, vr[c].z, acc[i][c][2] * corr);
+          acc[i][c][3] = fmaf(p, vr[c].w, acc[i][c][3] * corr);
+        }
+        m[i] = mn;
       }
     }
-    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      kr[c] = kn[c];
+      vr[c] = vn[c];
+    }
   }
-  if (lane < kQT) {
-    red_m[warp * kQT + lane] = m_own;
-    red_l[warp * kQT + lane] = l_own;
+
+  // merge the warp's four groups (lanes xor 8, 16), then the four warps
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    float mw = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 8));
+    mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, 16));
+    const float f = m[i] == -INFINITY ? 0.f : expf(m[i] - mw);
+    float lw = l[i] * f;
+    lw += __shfl_xor_sync(0xffffffffu, lw, 8);
+    lw += __shfl_xor_sync(0xffffffffu, lw, 16);
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float a = acc[i][c][t] * f;
+        a += __shfl_xor_sync(0xffffffffu, a, 8);
+        a += __shfl_xor_sync(0xffffffffu, a, 16);
+        if (grp == 0) red_acc[warp][i][4 * (li + 8 * c) + t] = a;
+      }
+    if (lane == 0) {
+      red_m[warp][i] = mw;
+      red_l[warp][i] = lw;
+    }
   }
   __syncthreads();
-  // merge the four warps' (m, l); lane qi holds query qi's final pair
-  float m_fin = -INFINITY, l_fin = 0.f;
-  if (lane < kQT) {
-    for (int w = 0; w < kWarps; ++w) m_fin = fmaxf(m_fin, red_m[w * kQT + lane]);
+  for (int idx = threadIdx.x; idx < QR * dv; idx += kThreads) {
+    const int i = idx / dv, e = idx - (idx / dv) * dv;
+    const int ri = blockIdx.z * QR + i;
+    if (ri >= group * C) continue;
+    const int g = ri / C, j = ri - (ri / C) * C;
+    const size_t row = ((size_t)b * hq + (size_t)(bkv - b * hkv) * group + g) * C + j;
+    float mb = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, red_m[w][i]);
+    float o = 0.f, lb = 0.f;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float mw = red_m[w * kQT + lane];
-      l_fin += mw == -INFINITY ? 0.f : red_l[w * kQT + lane] * expf(mw - m_fin);
+      const float f = red_m[w][i] == -INFINITY ? 0.f : expf(red_m[w][i] - mb);
+      o = fmaf(f, red_acc[w][i][e], o);
+      lb = fmaf(f, red_l[w][i], lb);
+    }
+    const size_t part = row * n_split + s;
+    ws_acc[part * dv + e] = o;
+    if (e == 0) {
+      ws_m[part] = mb;
+      ws_l[part] = lb;
     }
   }
+}
 
-  // pass 2: normalised probabilities and P.V (this warp's keys)
-  for (int t = 0; t < n_tiles; ++t) {
-    const int base = t * kKT + warp * kKW;
-    load_rows(k_s, rs, k_bh, base, key_hi, r, lane);
-    load_rows(v_s, dv, v_bh, base, key_hi, dv, lane);
-    __syncwarp();
-    const int key = base + lane;
-#pragma unroll 1
-    for (int qi = 0; qi < n_q; ++qi) {
-      const bool vis = key < key_hi && key <= qs + j0 + qi;
-      const float m = __shfl_sync(0xffffffffu, m_fin, qi);
-      const float l = __shfl_sync(0xffffffffu, l_fin, qi);
-      const float p = vis ? expf(dot(q_s + qi * r, k_s + lane * rs, r) * scale - m) / l : 0.f;
-      if (probs != nullptr && key < M) probs[(bh * C + j0 + qi) * M + key] = p;
-      float acc[kDvChunks];
+// ----------------------------------------------------------------- chunk path
+
+// NC: output columns per thread, c4 * 32 + tx * 4 + t for c4 < NC / 4 and
+// t < 4, so 8 * NC >= dv (NC = 4, 8 or 16).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel_chunk(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ kv_len,
+                          const int* __restrict__ q_start, const int* __restrict__ q_lens,
+                          float* __restrict__ probs, float* __restrict__ ws_m,
+                          float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq, int hkv,
+                          int C, int M, int r, int dv, int split_len, int n_split, int vec_k,
+                          int vec_v, float scale) {
+  constexpr int kVS = 8 * NC;      // V tile row stride (zero-padded columns)
+  extern __shared__ __align__(16) float smem[];
+  float* q_t = smem;               // r x kTS: Q tile, transposed (query-minor)
+  float* k_t = q_t + r * kTS;      // r x kTS: K tile, transposed (key-minor)
+  float* v_s = k_t + r * kTS;      // kBK x kVS
+
+  const int s = blockIdx.x;
+  const int bh = blockIdx.y;                         // b * hq + h
+  const int b = bh / hq;
+  const int q0 = blockIdx.z * kBQ;
+  const size_t kv_row = (size_t)b * hkv + (bh - b * hq) / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int grp = lane & ~7;                         // first lane of the row group
+  const int len = kv_len[b], qs = q_start[b], ql = q_lens[b];
+
+  const int n_q = min(kBQ, C - q0);
+  // key_end grows with j, so the tile's last valid query bounds it
+  const int n_valid = max(0, min(n_q, ql - q0));
+  const int tile_hi = n_valid > 0 ? key_end(q0 + n_valid - 1, len, qs, ql, M) : 0;
+  const int k0 = s * split_len;
+  const int k1 = min(k0 + split_len, tile_hi);
+  if (k0 >= k1) return;  // no query of the tile sees a key of this split
+
+  const T* q_bh = q + ((size_t)bh * C + q0) * r;
+  const T* k_bh = k + kv_row * M * r;
+  const T* v_bh = v + kv_row * M * dv;
+  for (int row = warp; row < kBQ; row += kWarps)
+    for (int d = lane; d < r; d += 32)
+      q_t[d * kTS + row] = row < n_q ? to_f32(q_bh[(size_t)row * r + d]) : 0.f;
+
+  // thread (ty, tx) owns queries ty * 4 + i and, in each tile, keys
+  // tx * 4 + c and 32 + tx * 4 + c (c < 4): all 128-bit shared loads
+  int end[kRows];
+  float m[kRows], l[kRows], o[kRows][NC];
 #pragma unroll
-      for (int c = 0; c < kDvChunks; ++c) {
-        const int d = lane + 32 * c;
-        acc[c] = d < dv ? acc_s[qi * dv + d] : 0.f;
+  for (int i = 0; i < kRows; ++i) {
+    const int row = ty * 4 + i;
+    end[i] = row < n_q ? key_end(q0 + row, len, qs, ql, M) : 0;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) o[i][cc] = 0.f;
+  }
+  float* p_base = probs == nullptr ? nullptr : probs + ((size_t)bh * C + q0 + ty * 4) * M;
+  const bool vec_p = (M & 3) == 0;
+
+  const int r4 = (r + 3) / 4;
+  for (int t0 = k0; t0 < k1; t0 += kBK) {
+    __syncthreads();               // the previous tile is consumed
+    // K, then V, kLoads vector loads in flight per thread before their
+    // stores. K: lanes take consecutive keys of one 4-element column
+    // group, so the transposed stores are free of bank conflicts.
+    for (int base = tid; base < kBK * r4; base += kLoads * kThreads) {
+      float4 x[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int idx = base + u * kThreads;
+        const int key = idx & (kBK - 1), e = 4 * (idx / kBK);
+        x[u] = idx < kBK * r4 && t0 + key < k1
+                   ? load4(k_bh + (size_t)(t0 + key) * r, e, r, vec_k)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      for (int kk = 0; kk < kKW; ++kk) {
-        const float pk = __shfl_sync(0xffffffffu, p, kk);
 #pragma unroll
-        for (int c = 0; c < kDvChunks; ++c) {
-          const int d = lane + 32 * c;
-          if (d < dv) acc[c] = fmaf(pk, v_s[kk * dv + d], acc[c]);
+      for (int u = 0; u < kLoads; ++u) {
+        const int idx = base + u * kThreads;
+        if (idx >= kBK * r4) break;
+        const int key = idx & (kBK - 1), e = 4 * (idx / kBK);
+        float* dst = k_t + e * kTS + key;
+        dst[0] = x[u].x;
+        if (e + 1 < r) dst[kTS] = x[u].y;
+        if (e + 2 < r) dst[2 * kTS] = x[u].z;
+        if (e + 3 < r) dst[3 * kTS] = x[u].w;
+      }
+    }
+    for (int base = tid; base < kBK * (kVS / 4); base += kLoads * kThreads) {
+      float4 x[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int idx = base + u * kThreads;
+        const int row = idx / (kVS / 4), e = 4 * (idx - row * (kVS / 4));
+        x[u] = idx < kBK * (kVS / 4) && t0 + row < k1
+                   ? load4(v_bh + (size_t)(t0 + row) * dv, e, dv, vec_v)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int idx = base + u * kThreads;
+        if (idx >= kBK * (kVS / 4)) break;
+        *reinterpret_cast<float4*>(v_s + idx * 4) = x[u];   // row * kVS + e
+      }
+    }
+    __syncthreads();
+
+    // scores: a 4 x 8 register tile per thread, three 128-bit loads per d
+    float sc[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) sc[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < r; ++d) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_t + d * kTS + ty * 4);
+      const float4 ka = *reinterpret_cast<const float4*>(k_t + d * kTS + tx * 4);
+      const float4 kb = *reinterpret_cast<const float4*>(k_t + d * kTS + 32 + tx * 4);
+      const float qv[kRows] = {qa.x, qa.y, qa.z, qa.w};
+      const float kv[kCols] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) sc[i][c] = fmaf(qv[i], kv[c], sc[i][c]);
+    }
+
+    // masks, the scores into probs, the online softmax; sc becomes p
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int key = t0 + (c >> 2) * 32 + tx * 4 + (c & 3);
+        sc[i][c] = key < end[i] ? sc[i][c] * scale : -INFINITY;
+        mx = fmaxf(mx, sc[i][c]);
+      }
+      if (p_base != nullptr) {
+        float* p_row = p_base + (size_t)i * M;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = t0 + h * 32 + tx * 4;
+          if (vec_p && key + 3 < end[i]) {
+            *reinterpret_cast<float4*>(p_row + key) =
+                make_float4(sc[i][4 * h], sc[i][4 * h + 1], sc[i][4 * h + 2], sc[i][4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (key + c < end[i]) p_row[key + c] = sc[i][4 * h + c];
+          }
         }
       }
 #pragma unroll
-      for (int c = 0; c < kDvChunks; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dv) acc_s[qi * dv + d] = acc[c];
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        sc[i][c] = sc[i][c] == -INFINITY ? 0.f : expf(sc[i][c] - m_new);
+        sum += sc[i][c];
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) o[i][cc] *= corr;
+    }
+
+    // P.V: key (c >> 2) * 32 + src * 4 + (c & 3) is sc[.][c] of lane grp + src
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+#pragma unroll
+      for (int src = 0; src < 8; ++src) {
+        float p[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) p[i] = __shfl_sync(0xffffffffu, sc[i][c], grp + src);
+        const float* v_row = v_s + ((c >> 2) * 32 + src * 4 + (c & 3)) * kVS + tx * 4;
+#pragma unroll
+        for (int c4 = 0; c4 < NC / 4; ++c4) {
+          const float4 vv = *reinterpret_cast<const float4*>(v_row + 32 * c4);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            o[i][4 * c4] = fmaf(p[i], vv.x, o[i][4 * c4]);
+            o[i][4 * c4 + 1] = fmaf(p[i], vv.y, o[i][4 * c4 + 1]);
+            o[i][4 * c4 + 2] = fmaf(p[i], vv.z, o[i][4 * c4 + 2]);
+            o[i][4 * c4 + 3] = fmaf(p[i], vv.w, o[i][4 * c4 + 3]);
+          }
+        }
       }
     }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // sum the warps' partial outputs in a fixed order; rows past n_q are
-  // exact zeros (their accumulators were never touched)
-  for (int i = threadIdx.x; i < n_rows * dv; i += kThreads) {
-    float o = 0.f;
-    for (int w = 0; w < kWarps; ++w) o += acc_all[w * kQT * dv + i];
-    store(out + (bh * C + j0) * dv + i, o);
   }
 
-  if (probs != nullptr) {
-    const int streamed = min(n_tiles * kKT, M);
-    for (int qi = warp; qi < n_rows; qi += kWarps) {
-      float* row = probs + (bh * C + j0 + qi) * M;
-      for (int kk = (qi < n_q ? streamed : 0) + lane; kk < M; kk += 32) row[kk] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = ty * 4 + i;
+    if (row >= n_q) continue;
+    const size_t part = ((size_t)bh * C + q0 + row) * n_split + s;
+    if (tx == 0) {
+      ws_m[part] = m[i];
+      ws_l[part] = l[i];
+    }
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      const int col = (cc >> 2) * 32 + tx * 4 + (cc & 3);
+      if (col < dv) ws_acc[part * dv + col] = o[i][cc];
     }
   }
 }
 
+// ---------------------------------------------------------------- combine
+
+// One warp per query row (b * hq + h) * C + j, kCombineRows rows per block;
+// blockIdx.y picks the row's kCombineKeys probability columns. Each warp
+// merges the row's partials in split order (fixed-order reductions, so the
+// result repeats run to run); the first column block writes out, and every
+// block turns its columns' scores into probabilities.
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len,
-                   const int* q_start, const int* q_lens, void* out, float* probs, int b,
-                   int hq, int hkv, int C, int M, int r, int dv, float scale,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kQT * r + (size_t)kWarps * kKW * (r + 1 + dv) +
-                       (size_t)kWarps * kQT * dv + 2 * kWarps * kQT);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<T>,
+__global__ void __launch_bounds__(32 * kCombineRows)
+flash_decode_kernel_combine(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
+                            const float* __restrict__ ws_acc, const int* __restrict__ kv_len,
+                            const int* __restrict__ q_start, const int* __restrict__ q_lens,
+                            T* __restrict__ out, float* __restrict__ probs, int hq, int C, int M,
+                            int dv, int split_len, int n_split, size_t n_rows) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * kCombineRows + (threadIdx.x >> 5);
+  if (row >= n_rows) return;    // the whole warp
+  const int b = (int)(row / ((size_t)hq * C));
+  const int j = (int)(row % C);
+  const int end = key_end(j, kv_len[b], q_start[b], q_lens[b], M);
+  const int n_used = (end + split_len - 1) / split_len;  // each holds a visible key
+  const float* pm = ws_m + row * n_split;
+  const float* pl = ws_l + row * n_split;
+
+  // lane t merges splits t, t + 32, ... online (the loads of m and l go out
+  // together), then the lanes merge in a fixed xor order; lane s keeps its
+  // first split's m for that split's weight
+  float m_first = -INFINITY, mf = -INFINITY, lf = 0.f;
+  for (int s = lane; s < n_used; s += 32) {
+    const float ms = pm[s], ls = pl[s];
+    if (s == lane) m_first = ms;
+    const float mn = fmaxf(mf, ms);
+    if (mn != -INFINITY)
+      lf = (mf == -INFINITY ? 0.f : lf * expf(mf - mn)) +
+           (ms == -INFINITY ? 0.f : ls * expf(ms - mn));
+    mf = mn;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, mf, off);
+    const float lx = __shfl_xor_sync(0xffffffffu, lf, off);
+    const float mn = fmaxf(mf, mo);
+    if (mn != -INFINITY)
+      lf = (mf == -INFINITY ? 0.f : lf * expf(mf - mn)) +
+           (mo == -INFINITY ? 0.f : lx * expf(mo - mn));
+    mf = mn;
+  }
+
+  if (blockIdx.y == 0) {
+    // lane s holds split s's weight exp(m_s - m), 0 for an empty split
+    const float w_lane = m_first != -INFINITY ? expf(m_first - mf) : 0.f;
+    const float* acc = ws_acc + row * n_split * dv;
+    for (int d0 = 0; d0 < dv; d0 += 32) {   // uniform trip count: shuffles below
+      const int d = d0 + lane;
+      float o = 0.f;
+      for (int s0 = 0; s0 < n_used; s0 += 8) {
+        float a[8];   // eight splits' loads in flight before any is used
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          a[u] = s0 + u < n_used && d < dv ? acc[(size_t)(s0 + u) * dv + d] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int s = s0 + u;
+          float w = __shfl_sync(0xffffffffu, w_lane, s & 31);
+          if (s >= 32) w = s < n_used && pm[s] != -INFINITY ? expf(pm[s] - mf) : 0.f;
+          o = fmaf(w, a[u], o);
+        }
+      }
+      if (d < dv) store(out + row * dv + d, lf > 0.f ? o / lf : 0.f);
+    }
+  }
+
+  if (probs == nullptr) return;
+  float* p_row = probs + row * M;
+  const int lo = blockIdx.y * kCombineKeys, hi = min(M, lo + kCombineKeys);
+  if ((M & 3) == 0) {   // rows start 16-byte aligned: float4 loads and stores
+    constexpr int kPer = kCombineKeys / 128;   // float4 groups per lane
+    float4 x[kPer];       // all of the lane's scores loaded before any is used
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = lo + 4 * lane + 128 * u;
+      x[u] = e < end ? *reinterpret_cast<const float4*>(p_row + e)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = lo + 4 * lane + 128 * u;
+      if (e >= hi) break;
+      if (e < end) {
+        x[u].x = expf(x[u].x - mf) / lf;
+        x[u].y = e + 1 < end ? expf(x[u].y - mf) / lf : 0.f;
+        x[u].z = e + 2 < end ? expf(x[u].z - mf) / lf : 0.f;
+        x[u].w = e + 3 < end ? expf(x[u].w - mf) / lf : 0.f;
+      }
+      *reinterpret_cast<float4*>(p_row + e) = x[u];
+    }
+  } else {
+    for (int e = lo + lane; e < hi; e += 32)
+      p_row[e] = e < end ? expf(p_row[e] - mf) / lf : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+template <typename T, int NV, int QR>
+cudaError_t launch_split(const T* q, const T* k, const T* v, const int* kv_len,
+                         const int* q_start, const int* q_lens, float* probs, float* ws_m,
+                         float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
+                         int dv, int split_len, int n_split, int vec_k, int vec_v, float scale,
+                         cudaStream_t stream) {
+  const int rows = hq / hkv * C;
+  const dim3 grid(n_split, b * hkv, (rows + QR - 1) / QR);
+  flash_decode_kernel_split<T, NV, QR><<<grid, kThreads, 0, stream>>>(
+      q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
+      split_len, n_split, vec_k, vec_v, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int NV>
+cudaError_t dispatch_split(const T* q, const T* k, const T* v, const int* kv_len,
+                           const int* q_start, const int* q_lens, float* probs, float* ws_m,
+                           float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M,
+                           int r, int dv, int split_len, int n_split, int vec_k, int vec_v,
+                           float scale, cudaStream_t s) {
+  if (hq / hkv * C == 1)
+    return launch_split<T, NV, 1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc,
+                                  b, hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v,
+                                  scale, s);
+  return launch_split<T, NV, kRowTile>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l,
+                                       ws_acc, b, hq, hkv, C, M, r, dv, split_len, n_split,
+                                       vec_k, vec_v, scale, s);
+}
+
+template <typename T, int NC>
+cudaError_t launch_chunk(const T* q, const T* k, const T* v, const int* kv_len,
+                         const int* q_start, const int* q_lens, float* probs, float* ws_m,
+                         float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
+                         int dv, int split_len, int n_split, int vec_k, int vec_v, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * (size_t)r * kTS + (size_t)kBK * 8 * NC);
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel_chunk<T, NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + kQT - 1) / kQT, hq, b);
-  flash_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
-      q_start, q_lens, static_cast<T*>(out), probs, hq, hkv, C, M, r, dv, scale);
+  const dim3 grid(n_split, b * hq, (C + kBQ - 1) / kBQ);
+  flash_decode_kernel_chunk<T, NC><<<grid, kThreads, smem, stream>>>(
+      q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
+      split_len, n_split, vec_k, vec_v, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run(const void* q_, const void* k_, const void* v_, const int* kv_len,
+                const int* q_start, const int* q_lens, void* out_, float* probs, float* ws,
+                int b, int hq, int hkv, int C, int M, int r, int dv, int split_len, int n_split,
+                float scale, cudaStream_t s) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const size_t n_part = (size_t)b * hq * C * n_split;
+  float* ws_m = ws;
+  float* ws_l = ws + n_part;
+  float* ws_acc = ws + 2 * n_part;
+  // vector loads need rows of whole 4-element groups on a vector boundary
+  const uintptr_t align = 4 * sizeof(T);
+  const int vec_k = r % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0;
+  const int vec_v = dv % 4 == 0 && reinterpret_cast<uintptr_t>(v) % align == 0;
+  cudaError_t err;
+  if (C <= kDecodeMaxC) {
+    const int w = max(r, dv);
+    if (w <= 32)
+      err = dispatch_split<T, 1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
+                                 hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+    else if (w <= 64)
+      err = dispatch_split<T, 2>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
+                                 hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+    else
+      err = dispatch_split<T, 4>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
+                                 hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+  } else {
+#define CHUNK(NC)                                                                             \
+  launch_chunk<T, NC>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b, hq, hkv, \
+                      C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s)
+    err = dv <= 32 ? CHUNK(4) : dv <= 64 ? CHUNK(8) : CHUNK(16);
+#undef CHUNK
+  }
+  if (err != cudaSuccess) return err;
+  const size_t n_rows = (size_t)b * hq * C;
+  const dim3 grid((unsigned)((n_rows + kCombineRows - 1) / kCombineRows),
+                  probs == nullptr ? 1 : (M + kCombineKeys - 1) / kCombineKeys);
+  flash_decode_kernel_combine<T><<<grid, 32 * kCombineRows, 0, s>>>(
+      ws_m, ws_l, ws_acc, kv_len, q_start, q_lens, static_cast<T*>(out_), probs, hq, C, M, dv,
+      split_len, n_split, n_rows);
   return cudaGetLastError();
 }
 
@@ -253,25 +701,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_le
 
 // Plain C entry point (loaded with ctypes). All tensors are contiguous and
 // on the current device; dtype 0 = float32, 1 = bfloat16 for q, k, v and
-// out; probs may be null. Returns a cudaError_t value (0 = launched).
+// out; probs may be null. The key axis is cut into n_split ranges of
+// split_len keys (a multiple of 16 when C <= 16, of 64 otherwise); the f32
+// workspace holds b * hq * C * n_split * (dv + 2) floats. Launches the path
+// kernel and the combine on `stream`. Returns a cudaError_t value (0 =
+// both launched).
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* kv_len, const void* q_start, const void* q_lens,
-                                   void* out, void* probs, int b, int hq, int hkv, int C, int M,
-                                   int r, int dv, float scale, int dtype, void* stream) {
+                                   void* out, void* probs, void* workspace, int b, int hq, int hkv,
+                                   int C, int M, int r, int dv, int split_len, int n_split,
+                                   float scale, int dtype, void* stream) {
+  const int unit = C <= kDecodeMaxC ? kSlots : kBK;
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || C < 1 || M < 1 || r < 1 ||
-      r > kMaxDim || dv < 1 || dv > kMaxDim || b > 65535 || hq > 65535)
+      r > kMaxDim || dv < 1 || dv > kMaxDim || split_len < unit || split_len % unit != 0 ||
+      n_split < 1 || n_split > 65535 || (long long)split_len * n_split < M ||
+      (long long)split_len * (n_split - 1) >= M || (long long)b * hq > 65535 ||
+      (long long)b * hq * C > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int* lens = static_cast<const int*>(kv_len);
   const int* starts = static_cast<const int*>(q_start);
   const int* qlens = static_cast<const int*>(q_lens);
   float* p = static_cast<float*>(probs);
+  float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(q, k, v, lens, starts, qlens, out, p, b, hq, hkv, C, M, r, dv, scale, s);
+    err = run<float>(q, k, v, lens, starts, qlens, out, p, ws, b, hq, hkv, C, M, r, dv,
+                     split_len, n_split, scale, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, lens, starts, qlens, out, p, b, hq, hkv, C, M, r, dv,
-                                scale, s);
+    err = run<__nv_bfloat16>(q, k, v, lens, starts, qlens, out, p, ws, b, hq, hkv, C, M, r, dv,
+                             split_len, n_split, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

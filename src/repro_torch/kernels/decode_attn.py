@@ -25,7 +25,9 @@ accumulator.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -36,6 +38,15 @@ LAUNCHES: Dict[str, int] = {"flash_decode": 0}
 
 MAX_DIM = 128          # largest r and dv the CUDA kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's two paths (csrc/decode_attn.cu): chunks of at most
+# DECODE_MAX_C queries take the decode path, larger ones the chunk path
+DECODE_MAX_C = 16
+DECODE_ROW_TILE = 4    # query rows per decode block, unless there is 1 in all
+CHUNK_QUERIES = 64     # queries per chunk block
+# a key split is a whole number of these keys: 16 on the decode path (one
+# key per 8-lane group of a 128-thread block), one 64-key tile on the chunk
+SPLIT_UNIT = {"decode": 16, "chunk": 64}
+BLOCKS_PER_SM = 8      # blocks the key split aims at, counted over the grid
 
 
 def _row_vector(x, b: int, device, name: str) -> torch.Tensor:
@@ -88,6 +99,50 @@ def flash_decode_plain(q, k, v, kv_len, *, scale: float,
     return (o, p) if return_probs else o
 
 
+def split_plan(b: int, hq: int, hkv: int, C: int, M: int,
+               sm_count: int) -> Tuple[str, int, int]:
+    """The kernel's path and key split, from shapes alone: ``(path,
+    split_len, n_split)``. Split s covers keys [s * split_len,
+    min((s + 1) * split_len, M)), so the splits cover every key position
+    once. The split aims at BLOCKS_PER_SM blocks per SM over the whole grid;
+    blocks whose keys lie past their rows' ``kv_len`` exit at once, so the
+    plan never needs to read the lengths (a device-to-host sync)."""
+    if C <= DECODE_MAX_C:
+        path = "decode"
+        rows = hq // hkv * C
+        blocks = b * hkv * (1 if rows == 1 else math.ceil(rows / DECODE_ROW_TILE))
+    else:
+        path = "chunk"
+        blocks = b * hq * math.ceil(C / CHUNK_QUERIES)
+    unit = SPLIT_UNIT[path]
+    n_split = max(1, min(math.ceil(BLOCKS_PER_SM * sm_count / blocks),
+                         math.ceil(M / unit)))
+    split_len = unit * math.ceil(math.ceil(M / n_split) / unit)
+    return path, split_len, math.ceil(M / split_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _prepare(q, k, v, kv_len, q_start, q_lens, return_probs: bool,
+             sm_count: int):
+    """Everything the launch needs, made on q's device without reading
+    any of it on the host: per-row int32 lengths, the outputs, the split
+    plan and the f32 workspace of per-split partials (m, l, acc)."""
+    b, hq, C, _ = q.shape
+    hkv, M, dv = k.shape[1], k.shape[2], v.shape[3]
+    lens, qs, ql = _defaults(q, kv_len, q_start, q_lens)
+    plan = split_plan(b, hq, hkv, C, M, sm_count)
+    out = torch.empty((b, hq, C, dv), dtype=v.dtype, device=q.device)
+    probs = (torch.empty((b, hq, C, M), dtype=torch.float32, device=q.device)
+             if return_probs else None)
+    work = torch.empty(b * hq * C * plan[2] * (dv + 2), dtype=torch.float32,
+                       device=q.device)
+    return (lens, qs, ql), out, probs, work, plan
+
+
 def _check(q, k, v):
     dev = q.device
     if dev.type != "cuda":
@@ -121,7 +176,7 @@ def _library():
     lib = build.load("decode_attn")
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -129,25 +184,25 @@ def _library():
 
 def flash_decode(q, k, v, kv_len, *, scale: float, return_probs: bool = False,
                  q_start=None, q_lens=None):
-    """Launch the CUDA kernel on the current stream (no fallback)."""
+    """Launch the CUDA kernels on the current stream (no fallback): the
+    path's split kernel, then the combine. One call is one launch in
+    ``LAUNCHES``."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, :, None, :]
     _check(q, k, v)
     b, hq, C, r = q.shape
     hkv, M, dv = k.shape[1], k.shape[2], v.shape[3]
-    lens, qs, ql = _defaults(q, kv_len, q_start, q_lens)
-    out = torch.empty((b, hq, C, dv), dtype=v.dtype, device=q.device)
-    probs = (torch.empty((b, hq, C, M), dtype=torch.float32, device=q.device)
-             if return_probs else None)
+    (lens, qs, ql), out, probs, work, (_, split_len, n_split) = _prepare(
+        q, k, v, kv_len, q_start, q_lens, return_probs, _sm_count(q.device))
     launch = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                      qs.data_ptr(), ql.data_ptr(), out.data_ptr(),
                      None if probs is None else probs.data_ptr(),
-                     b, hq, hkv, C, M, r, dv, float(scale),
-                     _DTYPE_CODE[q.dtype], stream)
+                     work.data_ptr(), b, hq, hkv, C, M, r, dv, split_len,
+                     n_split, float(scale), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1

@@ -215,3 +215,109 @@ def test_cuda_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(p, rp, atol=tol, rtol=tol)
     assert torch.equal(p == 0, rp == 0)
+
+
+# (b, hq, hkv, C, M) swept by the split-plan tests: decode and chunk paths,
+# GQA, M not a multiple of the split unit, one row and many
+PLAN_SHAPES = [(b, hq, hkv, C, M)
+               for b in (1, 3, 8) for hq, hkv in ((12, 12), (16, 4), (8, 1))
+               for C in (1, 5, 16, 17, 128) for M in (1, 37, 64, 1000, 2048, 4099)]
+
+
+@pytest.mark.parametrize("sm_count", [1, 8, 132])
+def test_split_plan_covers_every_key_once(sm_count):
+    """Split s covers [s * split_len, min((s + 1) * split_len, M)): across
+    the sweep, every key position of a row lies in exactly one split, and
+    each split is a whole number of the path's units."""
+    for b, hq, hkv, C, M in PLAN_SHAPES:
+        path, split_len, n_split = decode_attn.split_plan(b, hq, hkv, C, M, sm_count)
+        assert path == ("decode" if C <= decode_attn.DECODE_MAX_C else "chunk")
+        assert split_len % decode_attn.SPLIT_UNIT[path] == 0 and n_split >= 1
+        hits = np.zeros(M, np.int64)
+        for s in range(n_split):
+            lo, hi = s * split_len, min((s + 1) * split_len, M)
+            assert lo < hi, f"split {s} of {(b, hq, hkv, C, M)} is empty"
+            hits[lo:hi] += 1
+        assert np.all(hits == 1), (b, hq, hkv, C, M, split_len, n_split)
+
+
+def test_split_plan_aims_at_blocks_per_sm():
+    """At the serving shapes the grid holds about BLOCKS_PER_SM = 8 blocks
+    per SM of a 132-SM card: 11 key splits at C = 1, 6 at C = 128."""
+    assert decode_attn.BLOCKS_PER_SM == 8
+    assert decode_attn.split_plan(8, 12, 12, 1, 2048, 132) == ("decode", 192, 11)
+    assert decode_attn.split_plan(8, 12, 12, 128, 2048, 132) == ("chunk", 384, 6)
+    # more rows than the card can hold at once: no split
+    assert decode_attn.split_plan(64, 32, 8, 128, 512, 132)[2] == 1
+
+
+@pytest.mark.parametrize("C", [1, 6, 40])
+def test_launch_plan_reads_nothing_on_the_host(C):
+    """The wrapper's preparation works on tensors that cannot be read on the
+    host (the meta device): it depends on shapes alone, so it never syncs
+    with the device to read kv_len, q_start or q_lens."""
+    b, hq, hkv, M, r, dv = 3, 8, 2, 300, 24, 40
+    meta = torch.device("meta")
+    q = torch.empty((b, hq, C, r), device=meta)
+    k = torch.empty((b, hkv, M, r), device=meta)
+    v = torch.empty((b, hkv, M, dv), device=meta)
+    lens = torch.empty((b,), dtype=torch.int32, device=meta)
+    with pytest.raises(Exception):
+        lens.tolist()                  # what a host read of kv_len would do
+    (kl, qs, ql), out, probs, work, plan = decode_attn._prepare(
+        q, k, v, lens, None, torch.empty((b,), dtype=torch.int64, device=meta),
+        True, 132)
+    assert plan == decode_attn.split_plan(b, hq, hkv, C, M, 132)
+    assert all(t.dtype == torch.int32 and t.shape == (b,) for t in (kl, qs, ql))
+    assert out.shape == (b, hq, C, dv) and probs.shape == (b, hq, C, M)
+    assert work.numel() == b * hq * C * plan[2] * (dv + 2)
+
+
+def split_boundary_cases(sm_count):
+    """Cases at the key splits of the card's plan: kv_len equal to a split's
+    size, one less and one more, rows of kv_len 1 and M, a GQA group of 4,
+    and chunks in which some queries see no key of a whole split (decode
+    and chunk paths). Rows: b, hq, hkv, C, M, r, dv, kv_len, q_start, q_lens."""
+    def split(b, hq, hkv, C, M):
+        return decode_attn.split_plan(b, hq, hkv, C, M, sm_count)[1]
+
+    L = split(6, 8, 8, 1, 2048)
+    G = split(4, 16, 4, 1, 1024)
+    D = split(3, 4, 2, 8, 1024)
+    K = split(3, 4, 2, 80, 1024)
+    return [
+        (6, 8, 8, 1, 2048, 64, 64, (L, L - 1, L + 1, 1, 2048, min(2 * L + 3, 2048)),
+         None, None),
+        (4, 16, 4, 1, 1024, 64, 64, (G, G - 1, G + 1, 1024), None, None),
+        (3, 4, 2, 8, 1024, 40, 24, (D + 4, D + 8, 8), (D - 4, D, 0), (8, 8, 5)),
+        (3, 4, 2, 80, 1024, 32, 48, (K + 40, min(2 * K + 80, 1024), 80),
+         (K - 40, min(2 * K, 944), 0), (80, 80, 70)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case_index", range(4))
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_kernel_at_split_boundaries(case_index, dtype):
+    """On the card: the split-boundary cases against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, hq, hkv, C, M, r, dv, kl, qs, ql = split_boundary_cases(sms)[case_index]
+    _, (q, k, v) = _inputs([(b, hq, C, r), (b, hkv, M, r), (b, hkv, M, dv)],
+                           dtype, seed=5)
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+
+    def ints(x):
+        return None if x is None else torch.tensor(x, dtype=torch.int32).cuda()
+
+    args = dict(scale=r ** -0.5, return_probs=True, q_start=ints(qs),
+                q_lens=ints(ql))
+    o, p = decode_attn.flash_decode(q, k, v, ints(kl), **args)
+    torch.cuda.synchronize()
+    ro, rp = decode_attn.flash_decode_plain(q, k, v, ints(kl), **args)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(p, rp, atol=TOL[F32], rtol=TOL[F32])
+    assert torch.equal(p == 0, rp == 0)
+    assert torch.isfinite(o.float()).all()
