@@ -25,10 +25,13 @@ Phases (one line each, plus detail lines):
      kernel's bound for each; then the adaptive serving run under
      torch.profiler, device time by kernel;
   6. the lowrank_flash kernel against its plain version on the card, f32
-     (2e-5) and bf16 (two bf16 steps of each element): the CPU tests' six
-     cases, the q_offset case, and the forward path's shapes (b = 2, 12
-     heads, 4096 tokens, causal; r = dv = 64 masked, r = 32 / dv = 64
-     static);
+     (2e-5) and bf16 (two bf16 steps of each element): the CPU tests'
+     eleven cases, their two q_offset cases (one shaped like decode_step_dense's
+     call) and that call at full width, and the forward path's shapes
+     (b = 2, 12 heads, 4096 tokens, causal; r = dv = 64 masked, r = 32 /
+     dv = 64 static); then one f32 case with q and k scaled by 4, which
+     the kernel (split TF32) must meet and the plain version with TF32
+     matrix products must miss;
   7. the full-width cache-free forward ``forward_dense(chunked=True)`` at
      2 x 4096 tokens, adaptive/masked with fidelity and fixed/static:
      kernel launches (12 per attention call site), logits and ranks against
@@ -37,8 +40,10 @@ Phases (one line each, plus detail lines):
   8. one-shot serving (``prefill_chunk=None``) of phase 3's adaptive
      workload: greedy tokens equal to the chunked run's;
   9. times of lowrank_flash at both forward shapes (kernel, plain version,
-     ``scaled_dot_product_attention`` and the backend it picked, bound),
-     and each forward's wall time and device time by layer.
+     ``scaled_dot_product_attention`` and the backend it picked; CUDA
+     events, and device time per call by torch.profiler), its CUDA-core and
+     tensor-core bounds, and each forward's wall time and device time by
+     layer.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -71,6 +76,7 @@ from repro_torch.serve import Engine, EngineConfig, SamplingParams  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 on the tensor cores
 TOL = 2e-5                     # f32 kernel vs plain version
 # each kernel and its plain version both stay in f32 up to the one rounding
 # of the output, so in bf16 they may differ by one bf16 step (at most 2^-7 of
@@ -433,6 +439,24 @@ def device_kernels(prof):
     return kern
 
 
+def kernel_us(fn, n=10) -> dict:
+    """Mean device microseconds per call of each kernel fn launches
+    (torch.profiler, L2 flushed before each call; flush_l2's own kernels
+    left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    flush = ("spin_kernel", "FillFunctor<float>", "reduce_kernel")
+    return {e.key: dev_us(e) / n for e in device_kernels(prof)
+            if not any(f in e.key for f in flush)}
+
+
 def by_layer(kern) -> dict:
     """Device microseconds summed by LAYERS, the rest under OTHER."""
     out = {name: 0.0 for name, _ in LAYERS}
@@ -491,8 +515,10 @@ def profile_serving(cfg, params, card_name, plain_wall_s):
 
 # -- phase 6 ---------------------------------------------------------------
 
-# tests/test_torch_flash.py:FLASH_CASES plus the q_offset case and the
-# forward path's shapes: b, hq, hkv, sq, skv, r, dv, causal, q_offset
+# tests/test_torch_flash.py:FLASH_CASES plus its q_offset cases (the last
+# one shaped like decode_step_dense's call: one query after a dense cache of
+# more than 1024 keys), that call at full width, and the forward path's
+# shapes: b, hq, hkv, sq, skv, r, dv, causal, q_offset
 FLASH_CASES = [
     (2, 4, 2, 64, 64, 16, 32, True, 0),
     (1, 4, 4, 128, 128, 64, 64, True, 0),
@@ -500,10 +526,20 @@ FLASH_CASES = [
     (1, 8, 2, 37, 37, 24, 16, True, 0),
     (1, 2, 2, 16, 16, 128, 128, True, 0),
     (2, 6, 3, 33, 65, 40, 48, True, 0),
+    (1, 4, 2, 40, 40, 12, 16, True, 0),
+    (2, 2, 2, 24, 24, 4, 8, True, 0),
+    (1, 2, 1, 17, 17, 16, 16, True, 0),
+    (1, 8, 2, 40, 40, 128, 128, True, 0),
+    (1, 2, 2, 20, 20, 6, 10, True, 0),
     (1, 2, 2, 4, 32, 16, 16, True, 28),
+    (1, 4, 2, 1, 1100, 16, 16, True, 1099),
+    (2, 12, 12, 1, 1100, 64, 64, True, 1099),
 ]
 PATH_MASKED = (2, 12, 12, 4096, 4096, 64, 64, True, 0)   # adaptive/masked: r = dh
 PATH_STATIC = (2, 12, 12, 4096, 4096, 32, 64, True, 0)   # static_rank 32
+# f32, q and k scaled by 4 (scores 16 times larger): one pass of TF32 (a
+# 10-bit mantissa) misses 2e-5 here, so the check tells split TF32 from it
+TF32_CASE = (1, 4, 4, 256, 256, 64, 64, True, 0)
 
 
 def flash_inputs(case, dtype, seed):
@@ -535,7 +571,35 @@ def check_flash() -> float:
                 worst = max(worst, err)
             log(f"  {str(dtype)[6:]:8s} b,hq,hkv,sq,skv,r,dv,causal,q_offset={case}: "
                 f"max|out-plain| {err:.3g} (tol {tol})")
-    return worst
+    return max(worst, check_tf32_case())
+
+
+def check_tf32_case() -> float:
+    """TF32_CASE in f32: the kernel within 2e-5 + 2e-5 |plain| of the plain
+    version, and the plain version run with TF32 matrix products outside
+    it (else the case could not catch a kernel that took one pass)."""
+    (q, k, v), kw = flash_inputs(TF32_CASE, torch.float32, seed=200)
+    q, k = 4 * q, 4 * k
+    o = lowrank_flash.lowrank_flash(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ro = lowrank_flash.lowrank_flash_plain(q, k, v, **kw)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ro_tf32 = lowrank_flash.lowrank_flash_plain(q, k, v, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    lim = TOL + TOL * ro.abs()
+    err, err_tf32 = ((o - ro).abs().max().item(), (ro_tf32 - ro).abs().max().item())
+    if ((o - ro).abs() > lim).any().item():
+        raise AssertionError(f"lowrank_flash disagrees with its plain version at "
+                             f"{TF32_CASE} (q, k x 4): {err:.3g} (tol {TOL:g} + {TOL:g}*|plain|)")
+    if not ((ro_tf32 - ro).abs() > lim).any().item():
+        raise AssertionError(f"TF32 products stay within the tolerance at {TF32_CASE} "
+                             f"(q, k x 4; {err_tf32:.3g}): the case cannot tell TF32 from f32")
+    log(f"  float32  b,hq,hkv,sq,skv,r,dv,causal,q_offset={TF32_CASE}, q and k x 4: "
+        f"max|out-plain| {err:.3g}; the plain version with TF32 products {err_tf32:.3g} "
+        f"(tol {TOL:g} + {TOL:g}*|plain|: the kernel meets it, one TF32 pass would not)")
+    return err
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -665,15 +729,18 @@ def check_oneshot(cfg, params, chunked_outs, card_name):
 
 def flash_bound_ms(case) -> tuple:
     """Least time for the work: q, k, v and out once over HBM bandwidth, and
-    the f32 operations (2 (r + dv) per visible query-key pair) over the f32
-    peak; returns (ms, what binds)."""
+    the f32 operations (2 (r + dv) per visible query-key pair) over a peak:
+    on the f32 CUDA cores, and on the tensor cores as three TF32 products
+    each (split TF32). Returns (CUDA-core ms, what binds it, tensor-core
+    ms), each the larger of its operation time and the byte time."""
     b, hq, hkv, sq, skv, r, dv, causal, off = case
     n_bytes = 4 * (b * hq * sq * r + b * hkv * skv * (r + dv) + b * hq * sq * dv)
     i = np.arange(sq)
     pairs = np.minimum(skv, off + i + 1).sum() if causal else sq * skv
     flops = 2.0 * b * hq * pairs * (r + dv)
     t_bytes, t_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_tc = max(t_bytes, 1e3 * 3 * flops / TF32_FLOPS)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_tc,)
 
 
 def sdpa_backend(q, k, v, scale) -> str:
@@ -696,11 +763,17 @@ def time_flash(case, label, card_name) -> dict:
                                               enable_gqa=True)
     lib_ms = time_ms(lib, n=15)
     backend = sdpa_backend(q, k, v, kw["scale"])
-    bnd, by = flash_bound_ms(case)
+    bnd, by, bnd_tc = flash_bound_ms(case)
+    per_call = kernel_us(lambda: lowrank_flash.lowrank_flash(q, k, v, **kw))
+    prof_ms = sum(us for name, us in per_call.items() if "lowrank_flash_kernel" in name) / 1e3
+    lib_prof_ms = sum(kernel_us(lib).values()) / 1e3
     log(f"  lowrank_flash {label} (b=2, hq=hkv=12, sq=skv=4096, causal, f32): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {lib_ms:.4f} ms, bound "
-        f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound [{card_name}]")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {lib_ms:.4f} ms; CUDA-core "
+        f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of it; tensor-core bound (3 TF32 "
+        f"passes) {bnd_tc:.4f} ms, {bnd_tc / ms:.1%} of it; torch.profiler per call: "
+        f"kernel {prof_ms:.4f} ms, sdpa {lib_prof_ms:.4f} ms [{card_name}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                bound_tc_ms=bnd_tc, profiler_ms=prof_ms, library_profiler_ms=lib_prof_ms)
 
 
 def profile_forwards(cfg_base, params, card_name) -> None:
@@ -779,7 +852,7 @@ def main() -> int:
 
     log("[9/9] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
-    time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
+    t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
 
     print(json.dumps({"kernels": [
@@ -791,7 +864,8 @@ def main() -> int:
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
-         "launches": flash_launches, "max_abs_err": flash_err, **t_flash}]}))
+         "launches": flash_launches, "max_abs_err": flash_err, **t_flash,
+         "r32": t_static}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -86,9 +86,11 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _library():
+def _library(defines: tuple = ()):
+    """The kernel's C entry point; ``defines`` (-D flags) load a variant
+    built for the profiling tool, the wrapper always loads the default."""
     from repro_torch.kernels import build
-    lib = build.load("lowrank_flash")
+    lib = build.load("lowrank_flash", defines)
     fn = lib.lowrank_flash_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9

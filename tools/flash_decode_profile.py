@@ -27,22 +27,6 @@ from repro_torch.kernels import decode_attn  # noqa: E402
 SWEEP = (4, 8, 16)
 
 
-def kernel_us(fn, n=10) -> dict:
-    """Mean device microseconds per call of each kernel fn launches."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            cs.flush_l2()
-            fn()
-        torch.cuda.synchronize()
-    flush = ("spin_kernel", "FillFunctor<float>", "reduce_kernel")   # flush_l2's kernels
-    return {e.key: cs.dev_us(e) / n for e in cs.device_kernels(prof)
-            if not any(f in e.key for f in flush)}
-
-
 def host_us(fn, n=200) -> float:
     """Host microseconds per call to queue fn's work (no sync inside)."""
     torch.cuda.synchronize()
@@ -74,7 +58,7 @@ def main() -> int:
             for bps in SWEEP:
                 decode_attn.BLOCKS_PER_SM = bps
                 plan = decode_attn.split_plan(b, hq, hkv, C, M, sms)
-                per = kernel_us(call)
+                per = cs.kernel_us(call)
                 print(f"C={C} {'with' if probs else 'no'} probs, BLOCKS_PER_SM={bps} "
                       f"{plan}: device {sum(per.values()):.2f} us [{card}]")
                 for name, us in sorted(per.items(), key=lambda kv: -kv[1]):
