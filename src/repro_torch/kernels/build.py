@@ -5,9 +5,7 @@ into its own shared library for Hopper (``sm_90a``), loaded with
 ``ctypes``. Libraries land in ``src/repro_torch/_build/`` (git-ignored)
 under a name keyed by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused. :func:`build` starts one
-``nvcc`` per source, all at once, and waits for them together. ``defines``
-(``-D`` flags) build a variant of a source beside the default one, for the
-profiling tools that compare tile sizes; the port loads only the default.
+``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine that has no CUDA toolkit.
@@ -30,9 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
-_libs: Dict[tuple, ctypes.CDLL] = {}
-# name (and -D flags, if any) -> (seconds, nvcc's stderr: ptxas register /
-# shared-memory report)
+_libs: Dict[str, ctypes.CDLL] = {}
+# name -> (seconds, nvcc's stderr: ptxas register / shared-memory report)
 build_log: Dict[str, tuple] = {}
 
 
@@ -48,13 +45,13 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str, defines: tuple = ()) -> Path:
+def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + defines).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str], defines: tuple = ()) -> Dict[str, float]:
+def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every named source whose library is missing, one ``nvcc``
     each, all started together. Returns the wall seconds per source
     (0.0 when it was already built)."""
@@ -62,11 +59,11 @@ def build(names: Iterable[str], defines: tuple = ()) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = library_path(name, defines)
+        out = library_path(name)
         if out.is_file():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -75,7 +72,7 @@ def build(names: Iterable[str], defines: tuple = ()) -> Dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
-        build_log[" ".join((name, *defines))] = (secs[name], log)
+        build_log[name] = (secs[name], log)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
@@ -85,12 +82,12 @@ def build(names: Iterable[str], defines: tuple = ()) -> Dict[str, float]:
     return secs
 
 
-def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _lock:
-        lib = _libs.get((name, defines))
+        lib = _libs.get(name)
         if lib is None:
-            build([name], defines)
-            lib = ctypes.CDLL(str(library_path(name, defines)))
-            _libs[(name, defines)] = lib
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
         return lib

@@ -27,8 +27,8 @@
 // (tools/lowrank_flash_profile.py). bf16 inputs are exact in TF32, so for
 // them Q.K^T takes one pass and P.V two.
 //
-// Design. One block of kWarps warps owns one (b * hq + h, tile of
-// 16 kWarps queries) and loops over 64-key tiles itself, up to the tile's
+// Design. One block of four warps owns one (b * hq + h, tile of 64
+// queries) and loops over 64-key tiles itself, up to the tile's
 // causal edge, heaviest query tiles first. Each warp owns 16 queries and
 // runs mma.sync.m16n8k8 (TF32 in, f32 accumulate; fragments per the PTX
 // ISA, g = lane / 4, t = lane % 4: A a0 (g, t) a1 (g+8, t) a2 (g, t+4)
@@ -68,13 +68,9 @@
 
 #include <type_traits>
 
-#ifndef LOWRANK_FLASH_WARPS
-#define LOWRANK_FLASH_WARPS 4
-#endif
-
 namespace {
 
-constexpr int kWarps = LOWRANK_FLASH_WARPS;  // warps per block, 16 queries each
+constexpr int kWarps = 4;                    // warps per block, 16 queries each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;             // queries per block
 constexpr int kBK = 64;                      // keys per tile

@@ -86,11 +86,9 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _library(defines: tuple = ()):
-    """The kernel's C entry point; ``defines`` (-D flags) load a variant
-    built for the profiling tool, the wrapper always loads the default."""
+def _library():
     from repro_torch.kernels import build
-    lib = build.load("lowrank_flash", defines)
+    lib = build.load("lowrank_flash")
     fn = lib.lowrank_flash_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9

@@ -6,10 +6,9 @@ how close its split-TF32 products come to float64.
 At ``chip_smoke.py``'s forward shapes (``PATH_MASKED``, r = 64, and
 ``PATH_STATIC``, r = 32; b = 2, 12 heads, 4096 tokens, causal, f32): the
 device time per call (torch.profiler, mean of 10 calls, L2 flushed before
-each) of the kernel built with 4 (the port's build) and with 8 warps per
-block (``-DLOWRANK_FLASH_WARPS``), of its plain
-version and of ``scaled_dot_product_attention``, in turns (kernel, SDPA,
-SDPA, kernel). Then, on ``chip_smoke.TF32_CASE`` (q and k x 4) and at
+each) of the kernel, of its plain version and of
+``scaled_dot_product_attention``, in turns (kernel, SDPA, SDPA, kernel).
+Then, on ``chip_smoke.TF32_CASE`` (q and k x 4) and at
 ``PATH_MASKED``, the largest error against the same attention in float64:
 of the kernel, of the plain version in f32 and of the plain version with
 TF32 products. Last, the tensor cores' rate for the one instruction the
@@ -24,7 +23,6 @@ import ctypes
 import os
 import subprocess
 import sys
-import threading
 
 import torch
 
@@ -33,25 +31,6 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import build, lowrank_flash  # noqa: E402
-
-# the kernel's builds compared: -D flags by name
-VARIANTS = {"4 warps (default)": (), "8 warps": ("-DLOWRANK_FLASH_WARPS=8",)}
-
-
-def variant_fn(defines: tuple):
-    """The kernel built with ``defines``, called through the port's own
-    wrapper."""
-    entry = lowrank_flash._library(defines)
-    default = lowrank_flash._library
-
-    def call(q, k, v, **kw):
-        lowrank_flash._library = lambda: entry
-        try:
-            return lowrank_flash.lowrank_flash(q, k, v, **kw)
-        finally:
-            lowrank_flash._library = default
-    return call
-
 
 def attention_f64(q, k, v, *, scale, causal, q_offset):
     """The kernel's function in float64 (the plain version's steps)."""
@@ -66,11 +45,11 @@ def attention_f64(q, k, v, *, scale, causal, q_offset):
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vr)
 
 
-def errors(case, label, card, calls, q_k_scale=1.0):
+def errors(case, label, card, q_k_scale=1.0):
     (q, k, v), kw = cs.flash_inputs(case, torch.float32, seed=200)
     q, k = q_k_scale * q, q_k_scale * k
     want = attention_f64(q, k, v, **kw)
-    out = {f"kernel, {name}": fn(q, k, v, **kw) for name, fn in calls.items()}
+    out = {"kernel": lowrank_flash.lowrank_flash(q, k, v, **kw)}
     out["plain f32"] = lowrank_flash.lowrank_flash_plain(q, k, v, **kw)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -125,13 +104,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card()
     print(card)
-    builds = [threading.Thread(target=build.build, args=(["lowrank_flash"], d))
-              for d in VARIANTS.values()]    # one nvcc each, started together
-    for th in builds:
-        th.start()
-    for th in builds:
-        th.join()
-    calls = {name: variant_fn(d) for name, d in VARIANTS.items()}
+    build.build(["lowrank_flash"])
     for case, label in ((cs.PATH_MASKED, "r=64"), (cs.PATH_STATIC, "r=32")):
         (q, k, v), kw = cs.flash_inputs(case, torch.float32, seed=9)
 
@@ -139,10 +112,11 @@ def main() -> int:
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=kw["scale"], enable_gqa=True)
 
-        _, _, bound_tc = cs.flash_bound_ms(case)
-        runs = [(f"kernel, {name}", lambda fn=fn: fn(q, k, v, **kw))
-                for name, fn in calls.items()]
-        runs = runs + [("sdpa", sdpa), ("sdpa", sdpa)] + runs[::-1]
+        bound_tc, _, _ = cs.flash_bound_ms(case)
+        def kernel():
+            return lowrank_flash.lowrank_flash(q, k, v, **kw)
+
+        runs = [("kernel", kernel), ("sdpa", sdpa), ("sdpa", sdpa), ("kernel", kernel)]
         runs.append(("plain", lambda: lowrank_flash.lowrank_flash_plain(q, k, v, **kw)))
         for name, fn in runs:
             per = cs.kernel_us(fn)
@@ -151,8 +125,8 @@ def main() -> int:
                   f"({bound_tc / ms:.1%} of the tensor-core bound {bound_tc:.4f} ms) [{card}]")
             for kname, us in sorted(per.items(), key=lambda kv: -kv[1])[:4]:
                 print(f"    {us:9.2f} us  {kname[:100]}")
-    errors(cs.TF32_CASE, "q, k x 4", card, calls, q_k_scale=4.0)
-    errors(cs.PATH_MASKED, "forward r=64", card, calls)
+    errors(cs.TF32_CASE, "q, k x 4", card, q_k_scale=4.0)
+    errors(cs.PATH_MASKED, "forward r=64", card)
     mma_peak(card)
     return 0
 
