@@ -43,7 +43,19 @@ Phases (one line each, plus detail lines):
      ``scaled_dot_product_attention`` and the backend it picked; CUDA
      events, and device time per call by torch.profiler), its bound on the
      tensor cores (three TF32 passes: ``bound_ms``) and on the f32 CUDA
-     cores, and each forward's wall time and device time by layer.
+     cores, and each forward's wall time and device time by layer;
+ 10. the full-width forward in drrl-paper's own rank mode 'drrl' (masked,
+     with fidelity) at 2 x 4096 tokens, the agent from ``init_agent`` on a
+     seeded generator: 24 lowrank_flash launches, logits, ranks, the
+     agent's logits and delta_a_rel against the same forward through the
+     kernel's plain version; ranks per layer, actions the Eq. 11 mask
+     removed, wall time and device time by layer with the agent's parts
+     (policy network, Eq. 6 features, weight_stats, conv_features) named;
+ 11. full-width serving in rank mode 'drrl' (phase 3's engine settings and
+     workload): flash_decode launches, decisions, vetoes, tokens/s, device
+     time per decision in eigh and in the policy; a reduced model in 'drrl'
+     served on the card with the kernel and on the CPU without it must give
+     identical greedy tokens and ranks.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -68,6 +80,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RankConfig  # noqa: E402
+from repro_torch.core import drrl  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
@@ -213,25 +226,34 @@ def check_kernel() -> float:
 
 # -- phase 3 ---------------------------------------------------------------
 
-def serve(cfg, params, *, n_req=8, max_new=64, seed=1, **knobs):
+def serve(cfg, params, agent=None, *, n_req=8, max_new=64, seed=1, **knobs):
     rng = np.random.default_rng(seed)
-    eng = Engine(cfg, params, device=DEV, config=EngineConfig(**knobs))
+    eng = Engine(cfg, params, agent, device=DEV, config=EngineConfig(**knobs))
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(256, 1537, n_req)]
     hs = [eng.submit(p, SamplingParams(max_new=max_new), arrival=2 * i)
           for i, p in enumerate(prompts)]
     reset_launches()
     eng.warmup()
+    # bank each decision's veto flag (a device bool) as the run goes
+    vetoes, decide = [], eng.core._decide
+
+    def banked(*args):
+        out = decide(*args)
+        vetoes.append(out[4])
+        return out
+    if decide is not None:
+        eng.core._decide = banked
     eng.run()
     launches = decode_attn.LAUNCHES["flash_decode"]
     outs = [h.result() for h in hs]
-    return eng, outs, launches
+    return eng, outs, launches, int(sum(bool(v) for v in vetoes))
 
 
-def check_serving(cfg, params, label, card_name, **knobs):
+def check_serving(cfg, params, label, card_name, agent=None, **knobs):
     knobs = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
                  use_kernel=True, **knobs)
-    eng, outs, launches = serve(cfg, params, **knobs)
+    eng, outs, launches, vetoes = serve(cfg, params, agent, **knobs)
     st = eng.stats
     n_req = len(outs)
     for i, o in enumerate(outs):
@@ -247,24 +269,31 @@ def check_serving(cfg, params, label, card_name, **knobs):
     tok_s = st["tokens_decoded"] / st["decode_s"]
     ms_step = 1e3 * st["decode_s"] / st["steps"]
     log(f"  {label}: {n_req} requests x 64 tokens, {st['steps']} fused steps "
-        f"({st['mixed_steps']} mixed), {st['decides']} decisions, ranks "
-        f"{sorted(ranks)}, kernel launches {launches} = {cfg.num_layers} layers "
+        f"({st['mixed_steps']} mixed), {st['decides']} decisions ({vetoes} vetoed), "
+        f"ranks {sorted(ranks)}, kernel launches {launches} = {cfg.num_layers} layers "
         f"x {n_steps} steps (warmup's 2 included); {tok_s:.1f} decoded tokens/s, "
         f"{ms_step:.2f} ms/step [{card_name}]")
     return outs, launches, st
 
 
-def check_small_reference():
-    """Reduced drrl-paper: the card with the kernel vs the CPU without it."""
-    cfg = get_config("drrl-paper", reduced=True).with_(
-        rank=RankConfig(mode="adaptive", rank_grid=(4, 8, 12, 16), segment_len=8))
+def check_small_reference(mode="adaptive"):
+    """Reduced drrl-paper: the card with the kernel vs the CPU without it.
+    In rank mode 'drrl' (the reduced model's own), with a seeded agent."""
+    cfg = get_config("drrl-paper", reduced=True)
+    agent = None
+    if mode == "drrl":
+        agent = drrl.init_agent(torch.Generator().manual_seed(7), cfg.rank,
+                                cfg.d_model, device="cpu")
+    else:
+        cfg = cfg.with_(rank=RankConfig(mode=mode, rank_grid=(4, 8, 12, 16),
+                                        segment_len=8))
     params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     knobs = dict(n_slots=3, max_len=64, page_size=16, segment_len=8,
                  max_new_cap=12, prefill_chunk=8)
     outs = {}
     for device, use_kernel in ((DEV, True), ("cpu", False)):
         rng = np.random.default_rng(0)
-        eng = Engine(cfg, params, device=device,
+        eng = Engine(cfg, params, agent, device=device,
                      config=EngineConfig(use_kernel=use_kernel, **knobs))
         hs = [eng.submit(rng.integers(0, 256, int(n)), SamplingParams(max_new=12),
                          arrival=2 * i) for i, n in enumerate(rng.integers(8, 33, 6))]
@@ -275,8 +304,9 @@ def check_small_reference():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(rk_gpu, rk_cpu):
         np.testing.assert_array_equal(a, b)
-    log(f"  reduced model: 6 requests, GPU kernel tokens and ranks == CPU plain "
-        f"tokens and ranks ({len(rk_gpu)} steps)")
+    ranks = sorted({int(r) for step in rk_gpu for r in step if r >= 0})
+    log(f"  reduced model, {mode}: 6 requests, GPU kernel tokens and ranks == CPU "
+        f"plain tokens and ranks ({len(rk_gpu)} steps, ranks {ranks})")
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -709,8 +739,8 @@ def _to(tree, device):
 def check_oneshot(cfg, params, chunked_outs, card_name):
     """Phase 3's adaptive workload with one-shot prefill: the tokens of the
     chunked run, request by request."""
-    eng, outs, launches = serve(cfg, params, n_slots=8, max_len=2048, page_size=16,
-                                prefill_chunk=None, use_kernel=True)
+    eng, outs, launches, _ = serve(cfg, params, n_slots=8, max_len=2048, page_size=16,
+                                   prefill_chunk=None, use_kernel=True)
     st = eng.stats
     n_steps = st["steps"] + st["warmup_steps"]
     assert launches == cfg.num_layers * n_steps, f"{launches} flash_decode launches"
@@ -799,6 +829,154 @@ def profile_forwards(cfg_base, params, card_name) -> None:
         log_layers(by_layer(kern), busy)
 
 
+# -- phases 10 and 11 --------------------------------------------------------
+
+# agent logits (O(0.01) at init) and delta_a_rel (the Eq. 9 bound already
+# relative to ||A||), absolute: the forward through the kernel vs its plain version
+AGENT_TOL = 1e-4
+# the agent's parts, named in the profiles: (module, function, range name)
+AGENT_PARTS = (("drrl", "policy_apply", "policy network"),
+               ("drrl", "build_features", "Eq. 6 features"),
+               ("drrl", "weight_stats", "weight_stats (w_t)"),
+               ("drrl", "conv_features", "conv_features (h_t)"),
+               ("policy", "policy_apply", "policy network"),
+               ("policy", "build_features", "Eq. 6 features"))
+
+
+@contextlib.contextmanager
+def agent_ranges():
+    """Wrap the agent's parts in torch.profiler ranges for a profiled run
+    (the functions are looked up through their modules at call time)."""
+    from torch.profiler import record_function
+    from repro_torch.serve import policy
+    mods = {"drrl": drrl, "policy": policy}
+    saved = []
+    for mod, fn, label in AGENT_PARTS:
+        inner = getattr(mods[mod], fn)
+
+        def ranged(*a, _inner=inner, _label=label, **kw):
+            with record_function(_label):
+                return _inner(*a, **kw)
+        saved.append((mods[mod], fn, inner))
+        setattr(mods[mod], fn, ranged)
+    try:
+        yield
+    finally:
+        for mod, fn, inner in saved:
+            setattr(mod, fn, inner)
+
+
+def profile_with_agent(fn):
+    """Run fn under torch.profiler (CPU and CUDA activity) with the agent's
+    ranges: (device kernels outside the ranges' own entries, device µs per
+    range name: the kernels launched inside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = {label for _, _, label in AGENT_PARTS}
+    with agent_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in device_kernels(prof) if e.key not in names]
+    parts = {e.key: getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0.0)
+             for e in prof.key_averages()
+             if e.key in names and e.device_type == DeviceType.CPU}
+    return kern, parts
+
+
+def check_drrl_forward(cfg, params, agent, card_name) -> int:
+    """drrl-paper's own rank mode at full width, 2 x 4096 tokens: returns
+    the kernel's launches in the counted run."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 4096), generator=g, device=DEV)
+
+    def run(collect):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = forward_dense(cfg, params, tokens, policy_params=agent,
+                                    chunked=True, collect_aux=collect,
+                                    compute_fidelity=True)
+        torch.cuda.synchronize()
+        return logits, aux["layers"], time.perf_counter() - t0
+
+    reset_launches()
+    logits, aux, wall_first = run("ranks")
+    launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+    want = 2 * cfg.num_layers
+    assert launches == want, f"drrl forward: {launches} lowrank_flash launches, expected {want}"
+    assert logits.shape == (*tokens.shape, cfg.vocab_size) and torch.isfinite(logits).all()
+    # kernel vs plain, with the agent's logits ('rl' keeps them)
+    logits_k, aux_k, _ = run("rl")
+    with plain_flash():
+        logits_p, aux_p, _ = run("rl")
+    assert lowrank_flash.LAUNCHES["lowrank_flash"] == 2 * launches
+    assert torch.equal(aux["rank"], aux_k["rank"]), "drrl forward: ranks differ between runs"
+    err = (logits_k - logits_p).abs().max().item()
+    top = logits_p.abs().max().item()
+    assert err <= LOGIT_TOL * max(1.0, top), f"drrl forward: kernel vs plain logits differ by {err}"
+    assert torch.equal(aux_k["rank"], aux_p["rank"]), "drrl forward: ranks differ from plain"
+    assert torch.equal(aux_k["action_mask"], aux_p["action_mask"]), "drrl forward: masks differ"
+    legal = aux_p["action_mask"]
+    a_err = (aux_k["logits"] - aux_p["logits"])[legal].abs().max().item()
+    d_err = (aux_k["delta_a_rel"] - aux_p["delta_a_rel"]).abs().max().item()
+    assert a_err <= AGENT_TOL and d_err <= AGENT_TOL, \
+        f"drrl forward: agent logits differ by {a_err}, delta_a_rel by {d_err}"
+    mask = aux_k["action_mask"]
+    lg = aux_k["logits"].sort(dim=-1).values
+    two = lg[..., -2] > -1e29
+    gap = (lg[..., -1] - lg[..., -2])[two].min().item() if two.any() else float("inf")
+    log(f"  drrl/masked + fidelity: {launches} lowrank_flash launches = {cfg.num_layers} "
+        f"layers x 2; max|logits - plain| {err:.3g} (tol {LOGIT_TOL}), ranks and Eq. 11 "
+        f"masks identical, agent logits {a_err:.3g}, delta_a_rel {d_err:.3g} (tol "
+        f"{AGENT_TOL}); fidelity {aux['fidelity'].mean().item():.4f}")
+    per_layer = []
+    for li in range(cfg.num_layers):
+        r, c = torch.unique(aux["rank"][li], return_counts=True)
+        per_layer.append("/".join(f"{int(a)}x{int(b)}" for a, b in zip(r, c)))
+    log(f"  ranks per layer (rank x heads over b = 2): {', '.join(per_layer)}")
+    log(f"  Eq. 11 mask (eps0 {cfg.rank.epsilon0}, rl_t 0) removed {int((~mask).sum())} of "
+        f"{mask.numel()} actions; smallest top-two gap of legal logits {gap:.3g}")
+    wall = statistics.median(run("ranks")[2] for _ in range(3))
+    kern, parts = profile_with_agent(lambda: run("ranks"))
+    busy = sum(dev_us(e) for e in kern)
+    log(f"  drrl forward, 2 x 4096 tokens: wall {wall * 1e3:.2f} ms (median of 3; first "
+        f"call {wall_first * 1e3:.1f} ms), device busy {busy / 1e3:.2f} ms (idle "
+        f"{1 - busy / (wall * 1e6):.1%}) [{card_name}]")
+    log_layers(by_layer(kern), busy)
+    log("  of which the agent's parts (device time of the kernels each launched):")
+    for name, us in parts.items():
+        log(f"    {us / 1e3:9.3f} ms {us / busy:6.2%}  {name}")
+    return launches
+
+
+def check_drrl_serving(cfg, params, agent, card_name) -> int:
+    """Phase 3's workload and engine settings in rank mode 'drrl'; returns
+    the kernel's launches."""
+    _, launches, st = check_serving(cfg, params, "drrl", card_name, agent,
+                                    segment_len=32)
+    eng = Engine(cfg, params, agent, device=DEV, config=EngineConfig(
+        n_slots=8, max_len=2048, page_size=16, prefill_chunk=128, use_kernel=True,
+        segment_len=32))
+    rng = np.random.default_rng(1)
+    for i, n in enumerate(rng.integers(256, 1537, 8)):
+        eng.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                   SamplingParams(max_new=64), arrival=2 * i)
+    eng.warmup()
+    kern, parts = profile_with_agent(eng.run)
+    n_dec = eng.stats["decides"]
+    layers = by_layer(kern)
+    busy = sum(dev_us(e) for e in kern)
+    log(f"  profiled drrl serving run: {n_dec} decisions, device busy {busy / 1e3:.1f} ms; "
+        f"per decision {layers['eigh (cuSOLVER)'] / 1e3 / n_dec:.3f} ms of eigh, "
+        f"{parts.get('policy network', 0.0) / 1e3 / n_dec:.3f} ms of policy network, "
+        f"{parts.get('Eq. 6 features', 0.0) / 1e3 / n_dec:.3f} ms of Eq. 6 features "
+        f"(device time) [{card_name}]")
+    log_layers(layers, busy)
+    check_small_reference("drrl")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -808,7 +986,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    log(f"[1/9] card and build: {torch.cuda.get_device_name(0)}, torch "
+    log(f"[1/11] card and build: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -817,10 +995,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    log("[2/9] flash_decode kernel vs its plain version on the card")
+    log("[2/11] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    log("[3/9] full-width drrl-paper serving through Engine, kernel on")
+    log("[3/11] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -837,39 +1015,49 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    log("[4/9] full-width engine step: kernel vs plain attention")
+    log("[4/11] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    log("[5/9] times at the serving shapes")
+    log("[5/11] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    log("[6/9] lowrank_flash kernel vs its plain version on the card")
+    log("[6/11] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    log("[7/9] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    log("[7/11] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    log("[8/9] one-shot serving (prefill_chunk=None) vs the chunked run")
+    log("[8/11] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    log("[9/9] lowrank_flash times at the forward shapes; the forwards by layer")
+    log("[9/11] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
+
+    # drrl-paper's own config: rank mode 'drrl', masked, grid 16..64
+    paper = get_config("drrl-paper")
+    agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
+                            paper.d_model, device=DEV)
+    log("[10/11] full-width forward_dense(chunked=True) in rank mode 'drrl', 2 x 4096 tokens")
+    drrl_flash = check_drrl_forward(paper, params, agent, card_name)
+
+    log("[11/11] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
     print(json.dumps({"kernels": [
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:122",
-         "launches": launches, "max_abs_err": max_err, **t_dec,
-         "chunk": t_chunk},
+         "launches": launches, "drrl_launches": drrl_decode, "max_abs_err": max_err,
+         **t_dec, "chunk": t_chunk},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
-         "launches": flash_launches, "max_abs_err": flash_err, **t_flash,
-         "r32": t_static}]}))
+         "launches": flash_launches, "drrl_launches": drrl_flash,
+         "max_abs_err": flash_err, **t_flash, "r32": t_static}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

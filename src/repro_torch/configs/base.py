@@ -13,8 +13,10 @@ class RankConfig:
     """DR-RL dynamic low-rank attention configuration.
 
     mode: 'off' (full rank), 'fixed' (``fixed_rank``), 'adaptive' (NER
-    energy threshold, median over heads, snapped to the grid); the modes
-    'random', 'drrl' and 'learned' are not ported yet."""
+    energy threshold, median over heads, snapped to the grid), 'drrl' (the
+    agent's policy under the Eq. 9-11 guardrail) and, in serving, 'learned'
+    (the same inference path with offline-trained params); the mode
+    'random' is not ported yet."""
     mode: str = "off"
     realisation: str = "masked"
     rank_grid: Tuple[int, ...] = (16, 24, 32, 40, 48, 56, 64)

@@ -8,7 +8,7 @@ projectors ``B_r B_r^T``, never raw bases.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -81,3 +81,88 @@ def mixing_matrix(eq: torch.Tensor, ek: torch.Tensor, r: int) -> torch.Tensor:
     """M = Eq[:, :r]^T Ek[:, :r] (..., r, r), so that
     Q_r K_r^T == (Q Eq_r) M (K Ek_r)^T with rank-r factors on both sides."""
     return torch.einsum("...dr,...ds->...rs", eq[..., :, :r], ek[..., :, :r])
+
+
+# ---------------------------------------------------------------------------
+# Matmul-only spectral routines (subspace / power iteration). Each starts
+# from a random draw: pass it (``q0`` / ``v0``, before any orthonormalisation)
+# or a ``generator`` to draw it from. The reference draws from fixed
+# jax.random keys, whose bits torch cannot reproduce.
+# ---------------------------------------------------------------------------
+
+def _start(shape, start: Optional[torch.Tensor], generator, device):
+    if start is not None:
+        return start.float().to(device)
+    if generator is None:
+        raise ValueError("pass the start draw or a torch.Generator")
+    return torch.randn(shape, generator=generator, device=generator.device
+                       ).to(device)
+
+
+def subspace_iteration(g: torch.Tensor, r: int, iters: int = 3,
+                       q0: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       oversample: int = 4
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-r eigenpairs of PSD g (..., d, d) by subspace (block power)
+    iteration on an oversampled block of r + p columns, p = min(oversample,
+    d - r), then Rayleigh-Ritz. ``q0`` (..., d, r + p) is the start block.
+    Returns (evals_desc (..., r) clamped at 0, basis (..., d, r))."""
+    d = g.shape[-1]
+    p = min(oversample, d - r)
+    g = g.float()
+    q, _ = torch.linalg.qr(_start(g.shape[:-2] + (d, r + p), q0, generator,
+                                  g.device))
+    for _ in range(iters):
+        q, _ = torch.linalg.qr(g @ q)
+    h = q.transpose(-1, -2) @ g @ q
+    evals, u = torch.linalg.eigh(h)
+    evals = torch.flip(evals, dims=(-1,))[..., :r]
+    u = torch.flip(u, dims=(-1,))[..., :r]
+    return evals.clamp_min(0.0), q @ u
+
+
+def incremental_extend(g: torch.Tensor, basis_r: torch.Tensor, extra: int,
+                       iters: int = 3, q0: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Incremental rank update (paper Eq. 12): given the cached top-r
+    eigenbasis ``basis_r`` (..., d, r) of g, ``extra`` further eigenpairs by
+    subspace iteration on the deflated operator (I - B B^T) g (I - B B^T).
+    ``q0`` (..., d, extra) is the start block. Returns (new_evals
+    (..., extra) clamped at 0, extended basis (..., d, r + extra))."""
+    d = g.shape[-1]
+    g = g.float()
+    b = basis_r.float()
+
+    def deflate(v):
+        return v - b @ (b.transpose(-1, -2) @ v)
+
+    q, _ = torch.linalg.qr(deflate(_start(g.shape[:-2] + (d, extra), q0,
+                                          generator, g.device)))
+    for _ in range(iters):
+        q, _ = torch.linalg.qr(deflate(g @ q))
+    h = q.transpose(-1, -2) @ g @ q
+    evals, u = torch.linalg.eigh(h)
+    evals = torch.flip(evals, dims=(-1,))
+    u = torch.flip(u, dims=(-1,))
+    return evals.clamp_min(0.0), torch.cat([b, q @ u], dim=-1)
+
+
+def power_iteration_specnorm(m: torch.Tensor, iters: int = 3,
+                             v0: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+    """Spectral norm of (..., a, b) by power iteration on M^T M (paper
+    Eq. 16). ``v0`` (..., b) is the start vector. A few iterations do not
+    converge, so the estimate depends on the start."""
+    mf = m.float()
+    v = _start(m.shape[:-2] + (m.shape[-1],), v0, generator, m.device)
+    v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-30)
+    for _ in range(iters):
+        mv = torch.einsum("...ab,...b->...a", mf, v)
+        mtmv = torch.einsum("...ab,...a->...b", mf, mv)
+        v = mtmv / (torch.linalg.vector_norm(mtmv, dim=-1, keepdim=True)
+                    + 1e-30)
+    mv = torch.einsum("...ab,...b->...a", mf, v)
+    return torch.linalg.vector_norm(mv, dim=-1)

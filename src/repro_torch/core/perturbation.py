@@ -1,10 +1,42 @@
-"""Online matrix perturbation bounds (paper section 3.3 / 4.2): the Eq. 9
-guardrail and the Eq. 11 annealed threshold, on singular-value spectra."""
+"""Online matrix perturbation bounds (paper section 3.3 / 4.2): the
+Eq. 3-5 truncation bounds, the Eq. 9 guardrail and the Eq. 11 annealed
+threshold and safety mask, all on singular-value spectra."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+
+def eckart_young_tail(sigmas_sq: torch.Tensor, r) -> torch.Tensor:
+    """||A - A_r||_F = sqrt(sum_{i>r} sigma_i^2)   (paper Eq. 3).
+
+    sigmas_sq: (..., d) descending; ``r`` an int or a 0-d integer tensor."""
+    d = sigmas_sq.shape[-1]
+    tail = (torch.arange(d, device=sigmas_sq.device) >= r).to(sigmas_sq.dtype)
+    return torch.sqrt((sigmas_sq * tail).sum(dim=-1))
+
+
+def rank_transition_norm(sigmas_sq: torch.Tensor, r, r_new) -> torch.Tensor:
+    """||A_{r'} - A_r||_F = sqrt(sum_{k in (r, r']} sigma_k^2)  (paper Eq. 4)."""
+    d = sigmas_sq.shape[-1]
+    idx = torch.arange(d, device=sigmas_sq.device)
+    lo = torch.minimum(torch.as_tensor(r), torch.as_tensor(r_new))
+    hi = torch.maximum(torch.as_tensor(r), torch.as_tensor(r_new))
+    band = ((idx >= lo) & (idx < hi)).to(sigmas_sq.dtype)
+    return torch.sqrt((sigmas_sq * band).sum(dim=-1))
+
+
+def output_sensitivity(sigmas_sq: torch.Tensor, r,
+                       v_fro: torch.Tensor) -> torch.Tensor:
+    """||Y_{r'} - Y_r||_F <= sigma_{r+1} ||V||_F   (paper Eq. 5 / 10).
+
+    ``r`` an int or an integer tensor broadcastable to sigmas_sq's batch
+    shape (...)."""
+    d = sigmas_sq.shape[-1]
+    idx = torch.as_tensor(r, device=sigmas_sq.device).long().clamp(0, d - 1)
+    idx = idx.expand(sigmas_sq.shape[:-1])[..., None]
+    return torch.sqrt(sigmas_sq.gather(-1, idx))[..., 0] * v_fro
 
 
 def delta_a_bound(q_sigmas_sq: torch.Tensor, k_sigmas_sq: torch.Tensor, r,
@@ -41,3 +73,18 @@ def guardrail_report(q_sigmas_sq: torch.Tensor, k_sigmas_sq: torch.Tensor,
     norm = (torch.sqrt(q_sigmas_sq[..., 0]) * torch.sqrt(k_sigmas_sq[..., 0])
             / float(d_head) ** 0.5)
     return bounds, norm
+
+
+def safety_mask(bounds_per_action: torch.Tensor, eps_t,
+                normaliser: torch.Tensor = None) -> torch.Tensor:
+    """Boolean mask over the rank grid, True = action allowed (paper
+    4.3.1, Eq. 11): the bound per candidate rank (..., n_actions), divided
+    by ``normaliser`` (...) when given, must not exceed ``eps_t``. The last
+    (largest-rank, lowest-bound) action is always allowed, so the guardrail
+    never leaves the agent without a legal action."""
+    b = bounds_per_action
+    if normaliser is not None:
+        b = b / normaliser[..., None].clamp_min(1e-30)
+    ok = b <= eps_t
+    ok[..., -1] = True
+    return ok

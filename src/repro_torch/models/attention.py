@@ -152,8 +152,10 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     """Standard/GQA MHSA with optional dynamic low-rank scores.
 
     rank_ctx (None = full rank): {'cfg': RankConfig, 'compute_fidelity',
-    'collect_qkv', 'collect_mass', 'mass_q_len'} (see
-    :func:`repro_torch.models.transformer.make_rank_ctx`). ``cache`` is a
+    'collect_qkv', 'collect_mass', 'mass_q_len'} and, in rank mode 'drrl',
+    'action_fn' with the per-layer 'prev_rank', 'layer_id', 'w_t' and 't'
+    it reads (see :func:`repro_torch.models.transformer.make_rank_ctx`);
+    the agent's outputs join ``aux``. ``cache`` is a
     dense layer cache {'k', 'v', 'len'} (updated in place).
     Returns (output, new_cache, aux)."""
     rcfg = rank_ctx["cfg"] if rank_ctx else None
@@ -161,8 +163,6 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         raise not_ported("M-RoPE", "item 18")
     if rcfg is not None and rcfg.mode in ("performer", "nystrom"):
         raise not_ported(f"rank mode {rcfg.mode!r}", "item 11")
-    if rcfg is not None and rcfg.mode == "drrl":
-        raise not_ported("rank mode 'drrl'", "item 9")
     b, s, d = x.shape
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim()
@@ -198,7 +198,11 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     else:
         ctx = spectral_ctx(q, k_full)
         aux["k_s2"] = ctx["k_s2"]
-        rank_k = heuristic_rank(rcfg, ctx)
+        if rcfg.mode == "drrl":
+            rank_k, drrl_aux = rank_ctx["action_fn"](ctx, rank_ctx)
+            aux.update(drrl_aux)
+        else:
+            rank_k = heuristic_rank(rcfg, ctx)
         n_rep = hq // hkv
         rank_q = rank_k.repeat_interleave(n_rep, dim=1) if n_rep > 1 else rank_k
         aux["rank"] = rank_k

@@ -4,13 +4,14 @@ the dense-cache decode step, and the fused paged decode step of the
 continuous-batching engine."""
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import drrl
 from repro_torch.kernels.ops import decode_attention
 from repro_torch.models.attention import attend, mhsa
 from repro_torch.models.common import apply_rope, kv_group_mean
@@ -80,13 +81,16 @@ def _block(cfg: ModelConfig, lp, x, positions, rank_ctx, cache, chunked):
 
 def _aux_slim(aux: Dict[str, Any], collect: str) -> Dict[str, Any]:
     """Select which per-layer aux to keep.
-    collect: 'none' | 'ranks' | 'rl' (also the spectra, bounds and the serve
-    prefill's qkv and mass)."""
+    collect: 'none' | 'ranks' | 'rl' (also the agent's actions, logits,
+    values, masks and features, the spectra, bounds and the serve prefill's
+    qkv and mass)."""
     if collect == "none":
         return {}
-    keep = {"rank", "fidelity"}
+    keep = {"rank", "delta_a_rel", "fidelity"}
     if collect == "rl":
-        keep |= {"delta_a_grid", "delta_a_norm", "k_s2", "qkv", "mass"}
+        keep |= {"action_idx", "logp", "value", "action_mask", "features",
+                 "logits", "delta_a_grid", "delta_a_norm", "k_s2", "qkv",
+                 "mass"}
     return {k: v for k, v in aux.items() if k in keep}
 
 
@@ -111,20 +115,59 @@ def _logits(params, x):
     return x @ head.to(x.dtype) if head is not None else x @ params["embed"].to(x.dtype).T
 
 
-def make_rank_ctx(cfg: ModelConfig, *, compute_fidelity=False,
+def make_rank_ctx(cfg: ModelConfig, *, policy_params=None, h_t=None, t=0,
+                  greedy=True, generator=None, compute_fidelity=False,
                   collect_qkv=False, collect_mass=False, mass_q_len=None):
     """Build the per-forward rank context (None when mode == 'off', unless
     qkv/mass capture is requested: the serve prefill collects per-layer
-    k/v and the per-key attention mass from the full-rank forward)."""
+    k/v and the per-key attention mass from the full-rank forward). Rank
+    mode 'drrl' needs the agent's ``policy_params`` and its h_t features;
+    ``t`` (the RL step) anneals the guardrail, ``greedy=False`` samples
+    actions from ``generator``."""
     rcfg = cfg.rank
     if rcfg.mode == "off" and not (collect_qkv or collect_mass):
         return None
-    return {"cfg": rcfg, "compute_fidelity": compute_fidelity,
-            "collect_qkv": collect_qkv, "collect_mass": collect_mass,
-            "mass_q_len": mass_q_len}
+    ctx = {"cfg": rcfg, "t": t, "compute_fidelity": compute_fidelity,
+           "collect_qkv": collect_qkv, "collect_mass": collect_mass,
+           "mass_q_len": mass_q_len}
+    if rcfg.mode == "drrl":
+        if policy_params is None:
+            raise ValueError("rank mode 'drrl' needs policy params (the "
+                             "agent of repro_torch.core.drrl.init_agent)")
+        if h_t is None:
+            raise ValueError("rank mode 'drrl': pass h_t (conv features)")
+        ctx["action_fn"] = drrl.make_action_fn(policy_params, rcfg, h_t=h_t,
+                                               greedy=greedy,
+                                               generator=generator)
+    return ctx
+
+
+def _rank_layer_ctx(cfg: ModelConfig, rank_ctx, lp, li: int, prev_rank,
+                    power_v0):
+    """Layer ``li``'s rank context: the agent's prev_rank carry, layer
+    index and (rank mode 'drrl') the layer's weight statistics w_t."""
+    if rank_ctx is None:
+        return None
+    w_t = (drrl.weight_stats(lp["attn"], cfg.rank.power_iters, v0=power_v0)
+           if cfg.rank.mode == "drrl" else None)
+    return dict(rank_ctx, prev_rank=prev_rank, layer_id=li, w_t=w_t)
+
+
+def _drrl_setup(cfg: ModelConfig, params, x, policy_params, power_v0):
+    """h_t from the embeddings ``x`` and the power-iteration start vectors,
+    both once per call (rank mode 'drrl'; (None, None) otherwise)."""
+    if cfg.rank.mode != "drrl" or policy_params is None:
+        return None, None
+    h_t = drrl.conv_features(x, policy_params["conv"])
+    if power_v0 is None:
+        power_v0 = drrl.power_starts(_layer(params, 0)["attn"])
+    return h_t, power_v0
 
 
 def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
+                  policy_params=None, rl_t=0, greedy: bool = True,
+                  rank_generator: Optional[torch.Generator] = None,
+                  power_v0: Optional[Dict[str, torch.Tensor]] = None,
                   compute_fidelity=False, collect_aux: str = "none",
                   chunked: bool = False, collect_qkv: bool = False,
                   collect_mass: bool = False, mass_q_len=None
@@ -133,19 +176,33 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
     aux['layers'] the per-layer aux selected by ``collect_aux``, stacked on
     a leading L axis.
     ``chunked`` sends every attention over more than 1024 keys through the
-    ``lowrank_flash`` kernel. Rank modes 'off', 'fixed' and 'adaptive'."""
+    ``lowrank_flash`` kernel. Rank modes 'off', 'fixed', 'adaptive' and
+    'drrl'. In 'drrl' the agent (``policy_params``) picks each layer's
+    ranks from h_t (once, from the embeddings), the layer's w_t and the
+    previous layer's ranks (r_max before layer 0); ``rl_t`` anneals its
+    guardrail and ``greedy=False`` samples from ``rank_generator``.
+    ``power_v0`` {'wq', 'wk', 'wv': start vector} overrides the start
+    vectors of w_t's power iterations (default ``drrl.power_starts``)."""
     dtype = nn.dt(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    rank_ctx = make_rank_ctx(cfg, compute_fidelity=compute_fidelity,
+    h_t, power_v0 = _drrl_setup(cfg, params, x, policy_params, power_v0)
+    rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t,
+                             t=rl_t, greedy=greedy, generator=rank_generator,
+                             compute_fidelity=compute_fidelity,
                              collect_qkv=collect_qkv,
                              collect_mass=collect_mass, mass_q_len=mass_q_len)
+    prev = torch.full((b, cfg.num_kv_heads), cfg.rank.rank_grid[-1],
+                      dtype=torch.int32, device=x.device)
     aux_layers = []
     for li in range(cfg.num_layers):
-        x, _, aux = _block(cfg, _layer(params, li), x, positions, rank_ctx,
-                           None, chunked)
+        lp = _layer(params, li)
+        x, _, aux = _block(cfg, lp, x, positions,
+                           _rank_layer_ctx(cfg, rank_ctx, lp, li, prev,
+                                           power_v0), None, chunked)
+        prev = aux.get("rank", prev)
         aux_layers.append(_aux_slim(aux, collect_aux))
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
     return _logits(params, x), {"layers": _stack(aux_layers)}
@@ -178,21 +235,30 @@ def init_cache_dense(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
-                      positions=None, chunked: bool = False):
+                      positions=None, policy_params=None,
+                      power_v0: Optional[Dict[str, torch.Tensor]] = None,
+                      chunked: bool = False):
     """One decode step: tokens (b, s_new) appended at cache['len'].
     Returns (logits (b, s_new, V), new_cache); the cache tensors are
-    updated in place."""
+    updated in place. Rank mode 'drrl' takes the agent's greedy actions,
+    h_t from this step's embeddings (``power_v0`` as in forward_dense)."""
     dtype = nn.dt(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
     b, s, _ = x.shape
     start = int(cache["len"])
     if positions is None:
         positions = (start + torch.arange(s, device=x.device))[None].expand(b, s)
-    rank_ctx = make_rank_ctx(cfg)
+    h_t, power_v0 = _drrl_setup(cfg, params, x, policy_params, power_v0)
+    rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t)
+    prev = torch.full((b, cfg.num_kv_heads), cfg.rank.rank_grid[-1],
+                      dtype=torch.int32, device=x.device)
     for li in range(cfg.num_layers):
+        lp = _layer(params, li)
         layer_cache = {"k": cache["k"][li], "v": cache["v"][li], "len": start}
-        x, _, _ = _block(cfg, _layer(params, li), x, positions, rank_ctx,
-                         layer_cache, chunked)
+        x, _, aux = _block(cfg, lp, x, positions,
+                           _rank_layer_ctx(cfg, rank_ctx, lp, li, prev,
+                                           power_v0), layer_cache, chunked)
+        prev = aux.get("rank", prev)
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
     return _logits(params, x), {"k": cache["k"], "v": cache["v"],
                                 "len": start + s}

@@ -3,7 +3,8 @@
 - api:       EngineConfig + SamplingParams + Engine.submit -> RequestHandle.
 - kv_cache:  slot-paged KV cache (device pools, host page tables).
 - scheduler: request queue, admission, eviction (numpy only).
-- policy:    slot-indexed segment-level rank decision ('fixed', 'adaptive').
+- policy:    slot-indexed segment-level rank decision ('fixed', 'adaptive',
+             'drrl', 'learned').
 - engine:    the step loop core: one fused step over all live slots with
              chunked prefill interleaved.
 """

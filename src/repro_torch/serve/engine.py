@@ -47,9 +47,12 @@ from repro_torch.serve.scheduler import Request, Scheduler, prefill_buckets
 
 
 def params_to(params, device):
-    """The parameter tree with every tensor on ``device``."""
+    """The parameter tree (nested dicts and lists) with every tensor on
+    ``device``."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device) for v in params]
     return params.to(device)
 
 
@@ -86,6 +89,8 @@ class ServeEngine:
         self.device = torch.device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
+        self.policy = (None if policy_params is None
+                       else params_to(policy_params, self.device))
         self.seg = int(segment_len or cfg.rank.segment_len)
         self.n_slots = n_slots
         self.max_new_cap = max_new_cap
@@ -107,7 +112,7 @@ class ServeEngine:
             raise ValueError(f"family {cfg.family!r} has no paged decode step")
         # one-shot prefill runs the full-rank forward of the prompt
         self._pf_cfg = cfg.with_(rank=cfg.rank.__class__(mode="off"))
-        self._decide = (make_decide_fn(cfg, policy_params)
+        self._decide = (make_decide_fn(cfg, self.policy)
                         if cfg.rank.mode != "off" else None)
         self._step = self._step_impl
         self._step_mixed = (self._step_mixed_impl if self.chunk is not None

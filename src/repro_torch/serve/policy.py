@@ -1,6 +1,6 @@
 """Per-slot segment-level rank decision (port of
-``repro.serve.policy.make_decide_fn`` for the 'fixed' and 'adaptive'
-modes).
+``repro.serve.policy.make_decide_fn`` for the 'fixed', 'adaptive', 'drrl'
+and 'learned' modes).
 
 The eigenbasis comes from the softmax-weighted Gram G = K^T diag(w) K, with
 w the slot's accumulated per-key attention mass (zero mass degrades to
@@ -11,6 +11,11 @@ uniform weights, i.e. the plain Gram). Decision rules per slot:
                              (the mean of the two middle values for an even
                              head count, as ``jnp.median``), snapped to the
                              grid (ties to the first grid entry)
+  * mode == 'drrl'        -> policy logits per head with the Eq. 11 safety
+                             mask (masked logits -1e30), argmax of their
+                             head mean
+  * mode == 'learned'     -> the same inference path as 'drrl' (params
+                             trained offline come from the caller)
   * transition veto       -> Eq. 9 relative bound at the chosen bucket vs
                              the slot's annealed eps_t, the "before" side
                              taken from the slot's persisted spectra
@@ -26,6 +31,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lowrank as lr
 from repro_torch.core import perturbation as pert
+from repro_torch.core.drrl import build_features
+from repro_torch.core.policy import policy_apply
 
 
 def median_mean(x: torch.Tensor) -> torch.Tensor:
@@ -46,15 +53,18 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
     engine's rank history keeps the old one); basis, spectra and kt_pool
     are rewritten in place and returned (the JAX version donates them,
     policy.py:102, so no caller reads their old values). ``vetoed`` is a
-    device bool: True iff the Eq. 9 veto overrode the choice."""
+    device bool: True iff the Eq. 9 veto overrode the choice.
+    ``policy_params`` (rank modes 'drrl' and 'learned') is the agent's
+    tree on the pools' device."""
     rcfg = cfg.rank
     if rcfg.mode == "off":
         raise ValueError("decide fn is undefined for rank mode 'off'")
-    if rcfg.mode in ("drrl", "learned"):
-        raise NotImplementedError(
-            f"rank mode {rcfg.mode!r} is not ported yet (ROADMAP queue 1, "
-            "item 9: the DR-RL policy)")
-    if rcfg.mode != "fixed" and rcfg.mode != "adaptive":
+    if rcfg.mode in ("drrl", "learned") and policy_params is None:
+        raise ValueError(
+            f"rank mode {rcfg.mode!r} needs policy params: pass them as the "
+            "third positional arg (ServeEngine(cfg, params, policy_params) "
+            "/ Engine(cfg, params, policy_params, config=...))")
+    if rcfg.mode not in ("fixed", "adaptive", "drrl", "learned"):
         raise NotImplementedError(
             f"rank mode {rcfg.mode!r} is not ported yet (ROADMAP queue 1, "
             "item 7: serve/policy.py)")
@@ -96,10 +106,25 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
         if rcfg.mode == "fixed":
             chosen = torch.tensor(rcfg.fixed_rank, dtype=torch.int32,
                                   device=dev)
-        else:
+        elif rcfg.mode == "adaptive":
             r = lr.rank_for_energy(s2, rcfg.energy_threshold, g_lo, g_hi)
             med = median_mean(r.float())
             chosen = grid[torch.argmin((grid.float() - med).abs())]
+        else:
+            # 'drrl' / 'learned': zero h_t and w_t, layer 0, spectra-only
+            # state (the recipe the serving-policy trainer records)
+            h = s2.shape[0]
+            h_dim = policy_params["embed"]["h_t"]["w"].shape[0]
+            feats, (_, _, bounds_rel, _) = build_features(
+                rcfg, {"k_s2": s2[None], "q_s2": prev_s2[None]},
+                torch.zeros((1, h_dim), device=dev),
+                torch.zeros((9,), device=dev), 0,
+                prev_rank.expand(1, h))
+            logits, _ = policy_apply(policy_params, feats)      # (h, G)
+            G = logits.shape[-1]
+            ok = pert.safety_mask(bounds_rel.reshape(-1, G), eps_t)
+            logits = torch.where(ok, logits, -1e30)
+            chosen = grid[torch.argmax(logits.mean(dim=0))]
 
         # transition veto (Eq. 9): head-mean relative bound at the chosen
         # bucket must clear the slot's annealed threshold

@@ -1,7 +1,9 @@
 """The port stands alone: with ``jax`` and the ``repro`` package made
 unimportable, every module of ``repro_torch`` and ``chip_smoke.py`` import,
-the engine serves two requests on the CPU, chunked and one-shot, and a
-chunked ``forward_dense`` runs its flash branch at s = 1040."""
+the engine serves two requests on the CPU, chunked and one-shot, a chunked
+``forward_dense`` runs its flash branch at s = 1040, and the reduced
+drrl-paper model in its own rank mode 'drrl' runs the forward and serves
+with the port's own seeded agent."""
 import os
 import subprocess
 import sys
@@ -44,6 +46,19 @@ loss, aux = get_model(cfg).loss(params, {
     "labels": torch.arange(2 * 1040).reshape(2, 1040) % 251},
     chunked=True, collect_aux="ranks", compute_fidelity=True)
 assert torch.isfinite(loss) and aux["layers"]["rank"].shape == (2, 2, 4)
+from repro_torch.core.drrl import init_agent
+cfg = get_config("drrl-paper", reduced=True)           # rank mode 'drrl'
+agent = init_agent(torch.Generator().manual_seed(7), cfg.rank, cfg.d_model, device="cpu")
+logits, aux = get_model(cfg).loss(params, {
+    "tokens": torch.arange(2 * 40).reshape(2, 40) % 256,
+    "labels": torch.arange(2 * 40).reshape(2, 40) % 251},
+    policy_params=agent, collect_aux="ranks")
+assert set(aux["layers"]["rank"].flatten().tolist()) <= {4, 8, 12, 16}
+eng = Engine(cfg, params, agent, device="cpu", config=EngineConfig(
+    n_slots=2, max_len=64, prefill_chunk=8, segment_len=8))
+hs3 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
+eng.run()
+assert [len(h.result()) for h in hs3] == [5, 5] and eng.stats["decides"] >= 2
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("modules", len(names))

@@ -1,6 +1,7 @@
 """The port's segment decision (``repro_torch.serve.policy``) against JAX
-``make_decide_fn`` on the same serving state, in 'fixed' and 'adaptive'
-modes, first decisions and veto-checked transitions.
+``make_decide_fn`` on the same serving state, in 'fixed', 'adaptive' and
+'drrl' modes (the agent: JAX ``init_agent(PRNGKey(7))`` through
+``agent_from_jax``), first decisions and veto-checked transitions.
 
 Ranks and the Eq. 9 ``vetoed`` flag must be equal. Spectra agree to 1e-4
 of the top eigenvalue and the rank-r projectors B_r B_r^T to 1e-4 (LAPACK
@@ -19,7 +20,7 @@ from repro.configs import get_config  # noqa: E402
 from repro.configs.base import RankConfig  # noqa: E402
 from repro.serve.policy import make_decide_fn as jax_make_decide  # noqa: E402
 from repro_torch.serve.policy import make_decide_fn, median_mean  # noqa: E402
-from torch_parity import torch_config  # noqa: E402
+from torch_parity import jax_and_torch_agent, torch_config  # noqa: E402
 
 NS, PS, PPS = 3, 8, 4
 M = PS * PPS
@@ -53,9 +54,12 @@ def _state(cfg, lens, seed, decay=0.75):
 def _run_both(cfg, st, slot, has_rank, t):
     order = ("k_pool", "mass_pool", "kt_pool", "page_table", "lens", "ranks",
              "basis", "spectra")
-    out_j = jax_make_decide(cfg)(*(jnp.asarray(st[k]) for k in order),
-                                 np.int32(slot), np.bool_(has_rank), np.int32(t))
-    out_t = make_decide_fn(torch_config(cfg))(
+    agent_j, agent_t = (jax_and_torch_agent(cfg) if cfg.rank.mode == "drrl"
+                        else (None, None))
+    out_j = jax_make_decide(cfg, agent_j)(*(jnp.asarray(st[k]) for k in order),
+                                          np.int32(slot), np.bool_(has_rank),
+                                          np.int32(t))
+    out_t = make_decide_fn(torch_config(cfg), agent_t)(
         *(torch.from_numpy(st[k].copy()) for k in order), slot, has_rank, t)
     return ([np.asarray(x) for x in out_j],
             [x.numpy() if isinstance(x, torch.Tensor) else x for x in out_t])
@@ -81,7 +85,7 @@ def _check(cfg, st, slot, has_rank, t, check_basis=True):
     return int(r_j[slot]), bool(v_j)
 
 
-@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive", "drrl"])
 @pytest.mark.parametrize("slot,lens", [(0, (20, 32, 3)), (1, (20, 32, 3)),
                                        (2, (20, 32, 3))])
 def test_first_decision(mode, slot, lens):
@@ -109,6 +113,23 @@ def test_transition_veto(mode, eps0):
         assert vetoed and rank == 16
     else:
         assert not vetoed and rank != 16
+
+
+@pytest.mark.parametrize("eps0", [1.0, 0.3, 1e-3])
+def test_drrl_transition_matches_jax(eps0):
+    """A second 'drrl' decision against persisted previous spectra: the
+    policy's masked head-mean argmax and the Eq. 9 veto, both frameworks
+    alike; at eps0 = 1e-3 the mask leaves only r_max and the veto holds the
+    previous rank."""
+    cfg = _cfg("drrl", epsilon0=eps0)
+    st = _state(cfg, (24, 24, 24), seed=5)
+    prev = _state(cfg, (24, 24, 24), seed=6, decay=0.9)
+    st["spectra"][1] = np.sort(np.abs(prev["k_pool"][0, 1:4, :, :, :]).sum(
+        axis=(0, 1)), axis=-1)[:, ::-1] ** 2
+    st["ranks"][1] = 8
+    rank, vetoed = _check(cfg, st, 1, True, 3)
+    if eps0 < 1e-2:
+        assert vetoed and rank == 8
 
 
 def test_even_head_median_between_two_ranks():

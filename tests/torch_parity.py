@@ -1,14 +1,16 @@
 """Shared helpers of the parity tests between the JAX package (``repro``)
-and its PyTorch port (``repro_torch``): config and parameter bridges, and
-the serving benchmark's mixed staggered workload."""
+and its PyTorch port (``repro_torch``): config, parameter and DR-RL agent
+bridges, and the serving benchmark's mixed staggered workload."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import RankConfig as TRankConfig
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import agent_from_jax, params_from_jax
 
 
 def torch_config(cfg):
@@ -26,6 +28,24 @@ def jax_and_torch_params(cfg, seed: int = 0):
     from repro.models.api import get_model
     params = get_model(cfg).init(jax.random.PRNGKey(seed))
     return params, params_from_jax(jax.device_get(params), device="cpu")
+
+
+def jax_and_torch_agent(cfg, seed: int = 7):
+    """JAX ``init_agent(PRNGKey(seed))`` for ``cfg`` and the same values
+    as the port's CPU tensors."""
+    from repro.core.drrl import init_agent
+    agent = init_agent(jax.random.PRNGKey(seed), cfg.rank, cfg.d_model)
+    return agent, agent_from_jax(jax.device_get(agent), device="cpu")
+
+
+def jax_power_v0(cfg):
+    """The start vectors JAX ``weight_stats`` draws (``PRNGKey(2)`` at each
+    matrix width), as the port's ``power_v0``."""
+    dh = cfg.resolved_head_dim()
+    widths = {"wq": cfg.num_heads * dh, "wk": cfg.num_kv_heads * dh,
+              "wv": cfg.num_kv_heads * dh}
+    return {name: torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(2), (n,), jnp.float32))) for name, n in widths.items()}
 
 
 def build_workload(n_requests: int, max_new: int, seed: int = 0):
