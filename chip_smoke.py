@@ -55,7 +55,19 @@ Phases (one line each, plus detail lines):
      workload): flash_decode launches, decisions, vetoes, tokens/s, device
      time per decision in eigh and in the policy; a reduced model in 'drrl'
      served on the card with the kernel and on the CPU without it must give
-     identical greedy tokens and ranks.
+     identical greedy tokens and ranks;
+ 12. the agent's training at full width (``train.rl.train_agent``, 2 x 4096
+     tokens of ``SyntheticLM``, chunked): 3 BC steps from the greedy oracle
+     (108 lowrank_flash launches each: 12 forward + 12 x 8 oracle), then 3
+     PPO steps of 2 epochs (24 launches per rollout); wall time per BC step,
+     rollout and update, bc_loss, the share of oracle actions the Eq. 11
+     mask forbids, reward, mean rank, fidelity and the first epoch's
+     ratio_mean (1 within 1e-5); the first BC step again through the
+     kernel's plain version (oracle rewards within 1e-4, actions equal where
+     the top-two gap exceeds it, bc_loss and gradients within 1e-4
+     relative); one BC step profiled by layer and part; the reduced model's
+     BC stage on the card with the kernel and on the CPU without it
+     (bc_loss within 1e-5 relative, identical oracle actions).
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -80,12 +92,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RankConfig  # noqa: E402
-from repro_torch.core import drrl  # noqa: E402
+from repro_torch import tree as tu  # noqa: E402
+from repro_torch.core import drrl, ppo  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, SamplingParams  # noqa: E402
+from repro_torch.serve.engine import params_to  # noqa: E402
+from repro_torch.train import rl  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -708,7 +725,7 @@ def check_forward_reference():
     the kernel vs the CPU with the plain version."""
     base = get_config("drrl-paper", reduced=True)
     params = get_model(base).init(torch.Generator().manual_seed(0), device="cpu")
-    params_dev = _to(params, DEV)
+    params_dev = params_to(params, DEV)
     tokens = torch.randint(0, base.vocab_size, (2, 1040),
                            generator=torch.Generator().manual_seed(6))
     for mode, real in (("adaptive", "masked"), ("fixed", "static")):
@@ -726,12 +743,6 @@ def check_forward_reference():
         assert (fd - fd_c).abs().max().item() <= 1e-5
         log(f"  reduced model, 2 x 1040 tokens, {mode}/{real}: card kernel vs CPU plain "
             f"max|logits| diff {err:.3g} (tol 1e-4), ranks and fidelity equal")
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -843,15 +854,20 @@ AGENT_PARTS = (("drrl", "policy_apply", "policy network"),
                ("policy", "build_features", "Eq. 6 features"))
 
 
-@contextlib.contextmanager
-def agent_ranges():
-    """Wrap the agent's parts in torch.profiler ranges for a profiled run
-    (the functions are looked up through their modules at call time)."""
-    from torch.profiler import record_function
+def _modules() -> dict:
     from repro_torch.serve import policy
-    mods = {"drrl": drrl, "policy": policy}
+    return {"drrl": drrl, "policy": policy, "rl": rl, "ppo": ppo, "adamw": adamw}
+
+
+@contextlib.contextmanager
+def agent_ranges(parts=AGENT_PARTS):
+    """Wrap ``parts`` (by default the agent's) in torch.profiler ranges for
+    a profiled run (the functions are looked up through their modules at
+    call time)."""
+    from torch.profiler import record_function
+    mods = _modules()
     saved = []
-    for mod, fn, label in AGENT_PARTS:
+    for mod, fn, label in parts:
         inner = getattr(mods[mod], fn)
 
         def ranged(*a, _inner=inner, _label=label, **kw):
@@ -866,23 +882,26 @@ def agent_ranges():
             setattr(mod, fn, inner)
 
 
-def profile_with_agent(fn):
-    """Run fn under torch.profiler (CPU and CUDA activity) with the agent's
-    ranges: (device kernels outside the ranges' own entries, device µs per
-    range name: the kernels launched inside it)."""
+def device_total_us(e) -> float:
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+
+def profile_with_agent(fn, parts=AGENT_PARTS):
+    """Run fn under torch.profiler (CPU and CUDA activity) with ranges
+    around ``parts``: (device kernels outside the ranges' own entries,
+    device µs per range name: the kernels launched inside it, the
+    profile)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    names = {label for _, _, label in AGENT_PARTS}
-    with agent_ranges(), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
+    names = {label for _, _, label in parts}
+    with agent_ranges(parts), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kern = [e for e in device_kernels(prof) if e.key not in names]
-    parts = {e.key: getattr(e, "device_time_total", None)
-             or getattr(e, "cuda_time_total", 0.0)
-             for e in prof.key_averages()
-             if e.key in names and e.device_type == DeviceType.CPU}
-    return kern, parts
+    ranges = {e.key: device_total_us(e) for e in prof.key_averages()
+              if e.key in names and e.device_type == DeviceType.CPU}
+    return kern, ranges, prof
 
 
 def check_drrl_forward(cfg, params, agent, card_name) -> int:
@@ -938,7 +957,7 @@ def check_drrl_forward(cfg, params, agent, card_name) -> int:
     log(f"  Eq. 11 mask (eps0 {cfg.rank.epsilon0}, rl_t 0) removed {int((~mask).sum())} of "
         f"{mask.numel()} actions; smallest top-two gap of legal logits {gap:.3g}")
     wall = statistics.median(run("ranks")[2] for _ in range(3))
-    kern, parts = profile_with_agent(lambda: run("ranks"))
+    kern, parts, _ = profile_with_agent(lambda: run("ranks"))
     busy = sum(dev_us(e) for e in kern)
     log(f"  drrl forward, 2 x 4096 tokens: wall {wall * 1e3:.2f} ms (median of 3; first "
         f"call {wall_first * 1e3:.1f} ms), device busy {busy / 1e3:.2f} ms (idle "
@@ -963,7 +982,7 @@ def check_drrl_serving(cfg, params, agent, card_name) -> int:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
                    SamplingParams(max_new=64), arrival=2 * i)
     eng.warmup()
-    kern, parts = profile_with_agent(eng.run)
+    kern, parts, _ = profile_with_agent(eng.run)
     n_dec = eng.stats["decides"]
     layers = by_layer(kern)
     busy = sum(dev_us(e) for e in kern)
@@ -977,6 +996,307 @@ def check_drrl_serving(cfg, params, agent, card_name) -> int:
     return launches
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+# the first BC step through the kernel vs through its plain version: the
+# oracle's rewards (absolute), bc_loss over the samples whose oracle action the
+# mask allows (relative) and each gradient leaf (relative to the leaf's
+# largest element)
+TRAIN_TOL = 1e-4
+# the same step's Eq. 6 features, elementwise: atol + rtol * |plain|; every
+# layer's features read that layer's attention output (the kernel's)
+FEAT_ATOL, FEAT_RTOL = 1e-5, 1e-5
+# the first PPO epoch's ratio_mean: logp_old stored by the rollout's policy
+# network vs the loss's fresh one, same agent and features
+RATIO_TOL = 1e-5
+# the reduced model's bc_loss history, card (kernel) vs CPU (plain), relative
+REDUCED_TOL = 1e-5
+# the reduced model's agent after 2 BC steps, card vs CPU: AdamW's first steps
+# move a leaf by about sign(g) * lr, so a gradient near 0 whose sign differs
+# between the two sides moves it by up to 2 lr. Every element is held to 2.5 x
+# the largest step's lr (1.2e-4 at step 2 of the 5-step warm-up), and 99 % of
+# the elements to 1e-6.
+AGENT_ATOL, AGENT_TIGHT, AGENT_TIGHT_SHARE = 2.5 * 3e-4 * 2 / 5, 1e-6, 0.99
+# the parts of a BC step named in its profile
+TRAIN_PARTS = (("rl", "oracle_actions", "oracle"),
+               ("drrl", "policy_apply", "policy network (forward's decisions)"),
+               ("ppo", "policy_apply", "policy network (bc_loss forward)"),
+               ("adamw", "update", "AdamW"))
+_PROBED = (("bc", "rl", "collect_bc_batch"), ("rollout", "rl", "collect_rollout"),
+           ("grad", "rl", "value_and_grad"), ("update", "adamw", "update"),
+           ("oracle", "rl", "oracle_actions"))
+
+
+@contextlib.contextmanager
+def train_probe():
+    """Record train_agent's parts as it runs (looked up through their
+    modules at call time): for each call of collect_bc_batch,
+    collect_rollout, value_and_grad, adamw.update and oracle_actions its
+    wall seconds (the device synchronised before and after), the
+    lowrank_flash launches inside it, its outputs and (value_and_grad) the
+    loss function's name."""
+    mods = _modules()
+    rec = {key: [] for key, _, _ in _PROBED}
+    saved = []
+    for key, mod, fn in _PROBED:
+        inner = getattr(mods[mod], fn)
+
+        def probed(*a, _inner=inner, _key=key, **kw):
+            torch.cuda.synchronize()
+            n0 = lowrank_flash.LAUNCHES["lowrank_flash"]
+            t0 = time.perf_counter()
+            out = _inner(*a, **kw)
+            torch.cuda.synchronize()
+            rec[_key].append({"s": time.perf_counter() - t0, "out": out,
+                              "launches": lowrank_flash.LAUNCHES["lowrank_flash"] - n0,
+                              "fn": getattr(a[0], "__name__", "")})
+            return out
+        saved.append((mods[mod], fn, inner))
+        setattr(mods[mod], fn, probed)
+    try:
+        yield rec
+    finally:
+        for mod, fn, inner in saved:
+            setattr(mod, fn, inner)
+
+
+def _finite(*tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def _top_two_gap(rewards):
+    r = rewards.sort(dim=-1).values
+    return r[..., -1] - r[..., -2]
+
+
+def _forbidden(ys, mask):
+    """Per sample: the oracle's action is one the Eq. 11 mask forbids."""
+    return ~mask.gather(1, ys[:, None].long())[:, 0]
+
+
+def check_grad_guard():
+    """Both wrappers refuse CUDA inputs that require grad while grad is
+    enabled (neither kernel has a backward), and launch under no_grad."""
+    g = torch.Generator(device=DEV).manual_seed(4)
+    q, k, v = (torch.randn((1, 2, 20, 16), generator=g, device=DEV) for _ in range(3))
+    kv_len = torch.tensor([12], dtype=torch.int32, device=DEV)
+    calls = {"flash_attention": lambda x: ops.flash_attention(x, k, v, scale=0.25),
+             "decode_attention": lambda x: ops.decode_attention(
+                 x[:, :, 0].contiguous(), k, v, kv_len, scale=0.25)}
+    for name, call in calls.items():
+        try:
+            call(q.clone().requires_grad_(True))
+        except RuntimeError as e:
+            assert "no backward" in str(e), e
+        else:
+            raise AssertionError(f"{name} took an input that requires grad")
+        with torch.no_grad():
+            assert torch.isfinite(call(q.clone().requires_grad_(True))).all()
+    log("  ops.flash_attention and ops.decode_attention refuse CUDA inputs that require "
+        "grad with grad enabled, and launch under torch.no_grad()")
+
+
+def check_training(cfg, params, agent, card_name) -> int:
+    """train_agent on the full-width drrl-paper model at 2 x 4096 tokens,
+    chunked: 3 BC steps, then 3 PPO steps of 2 epochs; the first BC step
+    against the kernel's plain version, one BC step profiled, and the
+    reduced model on the card against the CPU. Returns the kernel's
+    launches in the train_agent run."""
+    L, G = cfg.num_layers, len(cfg.rank.rank_grid)
+    bc_steps, ppo_steps, epochs = 3, 3, 2
+    data = SyntheticLM(cfg.vocab_size, 4096, 2, seed=0)
+    check_grad_guard()
+    reset_launches()
+    with train_probe() as rec:
+        t0 = time.perf_counter()
+        new_agent, hist = rl.train_agent(cfg, params, agent, data, bc_steps=bc_steps,
+                                         ppo_steps=ppo_steps, ppo_epochs=epochs,
+                                         chunked=True)
+        wall = time.perf_counter() - t0
+    launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+    per_bc = [r["launches"] for r in rec["bc"]]
+    per_roll = [r["launches"] for r in rec["rollout"]]
+    want_bc, want_roll = L * (2 + G), 2 * L
+    assert per_bc == [want_bc] * bc_steps, f"lowrank_flash launches per BC step {per_bc}"
+    assert per_roll == [want_roll] * ppo_steps, f"launches per rollout {per_roll}"
+    assert launches == sum(per_bc) + sum(per_roll), f"{launches} launches in train_agent"
+    scalars = hist["bc_loss"] + [h[k] for h in hist["ppo"] for k in sorted(h)]
+    assert all(np.isfinite(x) for x in scalars), f"non-finite loss or reward: {hist}"
+    assert all(_finite(*tu.leaves(r["out"][1])) for r in rec["grad"]), "non-finite gradient"
+    assert all(_finite(r["out"][1]["rewards"]) for r in rec["oracle"]), "non-finite oracle reward"
+    assert _finite(*tu.leaves(new_agent)), "non-finite agent after training"
+    log(f"  train_agent, {data.global_batch} x {data.seq_len} tokens: {bc_steps} BC steps, "
+        f"{ppo_steps} PPO "
+        f"steps x {epochs} epochs in {wall:.2f} s; lowrank_flash launches per BC step "
+        f"{per_bc} (= {L} forward + {L} x {1 + G} oracle), per rollout {per_roll} (= {L} "
+        f"x 2, fidelity), {launches} in all [{card_name}]")
+    bc_grads = [r for r in rec["grad"] if r["fn"] == "bc_loss"]
+    ppo_grads = [r for r in rec["grad"] if r["fn"] == "ppo_loss"]
+    upd = [r["s"] for r in rec["update"]]
+    for i, r in enumerate(rec["bc"]):
+        _, ys, mask = r["out"]
+        forb = _forbidden(ys, mask)
+        step_s = r["s"] + bc_grads[i]["s"] + upd[i]
+        oracle_s = sum(o["s"] for o in rec["oracle"][i * L:(i + 1) * L])
+        log(f"  BC step {i}: wall {step_s * 1e3:.1f} ms (collect {r['s'] * 1e3:.1f}, of "
+            f"which oracle {oracle_s * 1e3:.1f}; loss and backward "
+            f"{bc_grads[i]['s'] * 1e3:.1f}; AdamW {upd[i] * 1e3:.2f}); bc_loss "
+            f"{hist['bc_loss'][i]:.6g}; oracle actions the Eq. 11 mask forbids: "
+            f"{int(forb.sum())} of {forb.numel()} ({forb.float().mean().item():.1%}); "
+            f"oracle ranks {sorted(set(np.asarray(cfg.rank.rank_grid)[ys.cpu().numpy()].tolist()))}; "
+            f"the mask removed {int((~mask).sum())} of {mask.numel()} actions")
+    ratios = []
+    for i, r in enumerate(rec["rollout"]):
+        first = ppo_grads[i * epochs]["out"][0][1]
+        ratios.append(first["ratio_mean"].item())
+        upd_s = [ppo_grads[i * epochs + e]["s"] + upd[bc_steps + i * epochs + e]
+                 for e in range(epochs)]
+        h = hist["ppo"][i]
+        log(f"  PPO step {i}: rollout {r['s'] * 1e3:.1f} ms, updates "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in upd_s)} ms; reward {h['reward']:.6g}, "
+            f"mean rank {h['rank_mean']:.4g}, fidelity {h['fidelity']:.6g}, first "
+            f"epoch's ratio_mean {ratios[-1]:.8f}, loss {h['loss']:.6g}")
+    bad = [x for x in ratios if abs(x - 1.0) > RATIO_TOL]
+    assert not bad, f"first-epoch ratio_mean {ratios} not 1 within {RATIO_TOL}"
+    check_training_plain(cfg, params, agent, data, rec, bc_grads[0]["out"])
+    profile_bc_step(cfg, params, agent, data, card_name)
+    check_training_reference()
+    return launches
+
+
+def check_training_plain(cfg, params, agent, data, rec, kernel_grad):
+    """The first BC step of the train_agent run (kernel) again through the
+    kernel's plain version on the card."""
+    L = cfg.num_layers
+    feats_k, ys_k, mask_k = rec["bc"][0]["out"]
+    rw_k = torch.stack([r["out"][1]["rewards"] for r in rec["oracle"][:L]])
+    n0 = lowrank_flash.LAUNCHES["lowrank_flash"]
+    with plain_flash(), train_probe() as rec_p, torch.no_grad():
+        feats_p, ys_p, mask_p = rl.collect_bc_batch(cfg, params, agent,
+                                                    data.batch_at(0, device=DEV),
+                                                    chunked=True)
+    assert lowrank_flash.LAUNCHES["lowrank_flash"] == n0, "the plain run launched the kernel"
+    rw_p = torch.stack([r["out"][1]["rewards"] for r in rec_p["oracle"]])
+    r_err = (rw_k - rw_p).abs().max().item()
+    assert r_err <= TRAIN_TOL, f"oracle rewards, kernel vs plain: {r_err}"
+    gap = _top_two_gap(rw_p).reshape(-1)
+    sure = gap > TRAIN_TOL
+    assert torch.equal(ys_k[sure], ys_p[sure]), "oracle actions differ, kernel vs plain"
+    assert torch.equal(mask_k, mask_p), "Eq. 11 masks differ, kernel vs plain"
+    f_err = 0.0
+    for n in feats_p:
+        err = (feats_k[n] - feats_p[n]).abs()
+        bound = FEAT_ATOL + FEAT_RTOL * feats_p[n].abs()
+        assert bool((err <= bound).all()), \
+            f"feature {n}, kernel vs plain: {err.max().item()} (tol {FEAT_ATOL} + {FEAT_RTOL} |x|)"
+        f_err = max(f_err, err.max().item())
+    n_diff = int((ys_k != ys_p).sum())
+    # a near-tie the two runs broke apart: the losses then differ by design,
+    # so the plain side's loss takes the kernel's actions
+    ys_loss = ys_k if n_diff else ys_p
+    (loss_k, g_k), (loss_p, g_p) = kernel_grad, rl.value_and_grad(
+        ppo.bc_loss, agent, feats_p, ys_loss, mask_p)
+    g_rel = 0.0
+    for path, gp in tu.leaves_with_path(g_p):
+        gk = dict(tu.leaves_with_path(g_k))[path]
+        err, top = (gk - gp).abs().max().item(), gp.abs().max().item()
+        assert err <= TRAIN_TOL * top, f"bc gradient {path}: kernel vs plain {err} (max {top})"
+        g_rel = max(g_rel, err / top if top else 0.0)
+    # the whole bc_loss is about (forbidden share) x 1e30, set by the count of
+    # forbidden oracle actions alone: compare it over the allowed samples
+    ok = ~_forbidden(ys_loss, mask_p)
+    assert bool(ok.any()), "the mask forbids every oracle action of the first BC step"
+    with torch.no_grad():
+        al_k, al_p = (ppo.bc_loss(agent, {n: f[ok] for n, f in feats.items()},
+                                  ys_loss[ok], mask_p[ok]).item()
+                      for feats in (feats_k, feats_p))
+    l_rel = abs(al_k - al_p) / max(abs(al_p), 1e-30)
+    assert l_rel <= TRAIN_TOL, f"bc_loss over allowed samples: kernel {al_k} vs plain {al_p}"
+    log(f"  first BC step, kernel vs plain version: oracle rewards {r_err:.3g} (tol "
+        f"{TRAIN_TOL}), smallest top-two reward gap {gap.min().item():.3g}, actions equal "
+        f"where the gap exceeds {TRAIN_TOL} ({n_diff} differ in all), masks equal, features "
+        f"{f_err:.3g} (tol {FEAT_ATOL} + {FEAT_RTOL} |x|); bc_loss {loss_k.item():.6g} vs "
+        f"{loss_p.item():.6g}, over the {int(ok.sum())} of {ok.numel()} samples the mask "
+        f"allows {al_k:.8g} vs {al_p:.8g} (relative {l_rel:.3g}); gradients {g_rel:.3g} of "
+        f"each leaf's largest (tol {TRAIN_TOL})")
+
+
+def profile_bc_step(cfg, params, agent, data, card_name):
+    """One BC step (train_agent with bc_steps=1) under torch.profiler: device
+    time by layer, the oracle, the policy network, its backward (the
+    autograd engine's functions) and AdamW."""
+    from torch.autograd import DeviceType
+
+    def one_step():
+        rl.train_agent(cfg, params, agent, data, bc_steps=1, ppo_steps=0, chunked=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kern, ranges, prof = profile_with_agent(one_step, TRAIN_PARTS)
+    busy = sum(dev_us(e) for e in kern)
+    backward = sum(device_total_us(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.key.startswith("autograd::engine::evaluate_function"))
+    log(f"  one BC step profiled: wall {wall * 1e3:.1f} ms unprofiled, device busy "
+        f"{busy / 1e3:.2f} ms (idle {1 - busy / (wall * 1e6):.1%}) [{card_name}]")
+    log_layers(by_layer(kern), busy)
+    log("  of which (device time of the kernels each part launched):")
+    for name, us in list(ranges.items()) + [("policy backward (autograd engine)", backward)]:
+        log(f"    {us / 1e3:9.3f} ms {us / busy:6.2%}  {name}"
+            + ("  (not measured: no autograd events)" if name.startswith("policy back")
+               and not us else ""))
+
+
+def check_training_reference():
+    """Reduced drrl-paper at 2 x 1040 tokens (the flash branch taken):
+    train_agent's BC stage on the card with the kernel vs on the CPU with
+    the plain version, from the same batches."""
+    base = get_config("drrl-paper", reduced=True)
+    params = get_model(base).init(torch.Generator().manual_seed(0), device="cpu")
+    agent = drrl.init_agent(torch.Generator().manual_seed(7), base.rank, base.d_model,
+                            device="cpu")
+    data = SyntheticLM(base.vocab_size, 1040, 2, seed=0)
+    out = {}
+    for dev in (DEV, "cpu"):
+        reset_launches()
+        with train_probe() as rec:
+            new, hist = rl.train_agent(base, params_to(params, dev), params_to(agent, dev),
+                                       data, bc_steps=2, ppo_steps=0, chunked=True)
+        ys = torch.cat([r["out"][1].cpu() for r in rec["bc"]])
+        masks = torch.cat([r["out"][2].cpu() for r in rec["bc"]])
+        rw = torch.stack([r["out"][1]["rewards"].cpu() for r in rec["oracle"]])
+        out[dev] = (hist["bc_loss"], ys, masks, rw, lowrank_flash.LAUNCHES["lowrank_flash"],
+                    params_to(new, "cpu"))
+    (loss_g, ys_g, m_g, rw_g, n_g, a_g), (loss_c, ys_c, m_c, rw_c, n_c, a_c) = \
+        out[DEV], out["cpu"]
+    want = 2 * base.num_layers * (2 + len(base.rank.rank_grid))
+    assert n_g == want and n_c == 0, f"reduced BC: {n_g} / {n_c} launches, expected {want} / 0"
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(loss_g, loss_c))
+    assert err <= REDUCED_TOL, f"reduced BC: bc_loss card {loss_g} vs CPU {loss_c}"
+    assert torch.equal(ys_g, ys_c), "reduced BC: oracle actions differ, card vs CPU"
+    assert torch.equal(m_g, m_c), "reduced BC: masks differ, card vs CPU"
+    a_err, tight, total = 0.0, 0, 0
+    for (path, g), c in zip(tu.leaves_with_path(a_g), tu.leaves(a_c)):
+        diff = (g - c).abs()
+        assert diff.max().item() <= AGENT_ATOL, \
+            f"reduced BC: agent leaf {path}, card vs CPU {diff.max().item()} (tol {AGENT_ATOL})"
+        a_err = max(a_err, diff.max().item())
+        tight += int((diff <= AGENT_TIGHT).sum())
+        total += diff.numel()
+    assert tight >= AGENT_TIGHT_SHARE * total, \
+        f"reduced BC: {tight} of {total} agent elements within {AGENT_TIGHT}, card vs CPU"
+    forb = _forbidden(ys_c, m_c)
+    log(f"  reduced model, final agents card vs CPU: max|diff| {a_err:.3g} (tol "
+        f"{AGENT_ATOL:.3g}), {tight} of {total} elements within {AGENT_TIGHT}")
+    log(f"  reduced model, 2 x 1040 tokens, 2 BC steps: card kernel ({n_g} launches) vs CPU "
+        f"plain bc_loss {loss_g} vs {loss_c} (relative {err:.3g}, tol {REDUCED_TOL}), "
+        f"oracle actions and masks identical (smallest top-two reward gap "
+        f"{_top_two_gap(rw_c).min().item():.3g}, rewards {(rw_g - rw_c).abs().max().item():.3g}"
+        f"); forbidden oracle actions {int(forb.sum())} of {forb.numel()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -986,7 +1306,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    log(f"[1/11] card and build: {torch.cuda.get_device_name(0)}, torch "
+    log(f"[1/12] card and build: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -995,15 +1315,15 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    log("[2/11] flash_decode kernel vs its plain version on the card")
+    log("[2/12] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    log("[3/11] full-width drrl-paper serving through Engine, kernel on")
+    log("[3/12] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
     params = get_model(cfg).init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
-    log(f"  seeded init of {sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M "
+    log(f"  seeded init of {sum(p.numel() for p in tu.leaves(params)) / 1e6:.1f} M "
         f"parameters in {time.perf_counter() - t0:.1f} s")
     outs, launches, st_adaptive = check_serving(cfg, params, "adaptive", card_name)
     outs_f, _, _ = check_serving(cfg, params, "adaptive, factor cache", card_name,
@@ -1015,24 +1335,24 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    log("[4/11] full-width engine step: kernel vs plain attention")
+    log("[4/12] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    log("[5/11] times at the serving shapes")
+    log("[5/12] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    log("[6/11] lowrank_flash kernel vs its plain version on the card")
+    log("[6/12] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    log("[7/11] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    log("[7/12] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    log("[8/11] one-shot serving (prefill_chunk=None) vs the chunked run")
+    log("[8/12] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    log("[9/11] lowrank_flash times at the forward shapes; the forwards by layer")
+    log("[9/12] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -1041,11 +1361,14 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    log("[10/11] full-width forward_dense(chunked=True) in rank mode 'drrl', 2 x 4096 tokens")
+    log("[10/12] full-width forward_dense(chunked=True) in rank mode 'drrl', 2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    log("[11/11] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    log("[11/12] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
+
+    log("[12/12] the agent's training at full width: BC from the greedy oracle, then PPO")
+    train_flash = check_training(paper, params, agent, card_name)
 
     print(json.dumps({"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -1057,19 +1380,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
          "launches": flash_launches, "drrl_launches": drrl_flash,
+         "train_launches": train_flash,
          "max_abs_err": flash_err, **t_flash, "r32": t_static}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

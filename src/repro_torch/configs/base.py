@@ -1,6 +1,7 @@
 """Config dataclasses of the port: its own copies of the fields of
 ``repro.configs.base.ModelConfig`` / ``RankConfig`` that the serving path
-reads, with the same names and defaults."""
+reads, and of the optimiser and schedule fields of ``TrainConfig``, with
+the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
@@ -63,3 +64,18 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The optimiser and schedule fields of ``repro.configs.base.TrainConfig``:
+    the ones :mod:`repro_torch.optim` reads."""
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    schedule: str = "cosine"        # linear | cosine | constant

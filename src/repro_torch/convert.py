@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree as tu
+
 
 def _leaf(x, device) -> torch.Tensor:
     a = np.asarray(x)
@@ -27,11 +29,7 @@ def _leaf(x, device) -> torch.Tensor:
 def params_from_jax(tree, device="cuda"):
     """The port's parameter tree, on ``device``, from the JAX param tree
     given as nested dicts and lists of numpy arrays."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [params_from_jax(v, device) for v in tree]
-    return _leaf(tree, device)
+    return tu.tree_map(lambda x: _leaf(x, device), tree)
 
 
 AGENT_KEYS = {"conv", "embed", "layers", "ln_f", "head"}

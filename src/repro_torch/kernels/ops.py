@@ -2,9 +2,14 @@
 
 A wrapper runs its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU; on CUDA tensors it launches the kernel or
-raises, never falling back.
+raises, never falling back. Neither kernel has a backward (nor has its
+Pallas original), so on CUDA tensors a wrapper also raises where autograd
+would record the call: the kernel's output would carry no gradient. The
+plain versions on the CPU stay differentiable.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attn, lowrank_flash
 from repro_torch.kernels.decode_attn import flash_decode, flash_decode_plain
@@ -17,6 +22,13 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
+                           "under torch.no_grad() or on inputs that do not "
+                           "require grad")
+
+
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     q_offset: int = 0):
     """Flash attention over (b, h, s, d) layouts, d possibly a truncated
@@ -26,6 +38,7 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
         return lowrank_flash.lowrank_flash_plain(q, k, v, scale=scale,
                                                  causal=causal,
                                                  q_offset=q_offset)
+    _refuse_grad("flash_attention", q, k, v)
     return lowrank_flash.lowrank_flash(q, k, v, scale=scale, causal=causal,
                                        q_offset=q_offset)
 
@@ -38,6 +51,7 @@ def decode_attention(q, k, v, kv_len, *, scale: float,
         return flash_decode_plain(q, k, v, kv_len, scale=scale,
                                   return_probs=return_probs,
                                   q_start=q_start, q_lens=q_lens)
+    _refuse_grad("decode_attention", q, k, v)
     return flash_decode(q, k, v, kv_len, scale=scale,
                         return_probs=return_probs, q_start=q_start,
                         q_lens=q_lens)

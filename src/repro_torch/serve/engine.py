@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported
+from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import get_model
 from repro_torch.models.transformer import forward_dense
@@ -49,11 +50,7 @@ from repro_torch.serve.scheduler import Request, Scheduler, prefill_buckets
 def params_to(params, device):
     """The parameter tree (nested dicts and lists) with every tensor on
     ``device``."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_to(v, device) for v in params]
-    return params.to(device)
+    return tu.tree_map(lambda x: x.to(device), params)
 
 
 class ServeEngine:

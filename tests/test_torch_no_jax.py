@@ -1,9 +1,10 @@
 """The port stands alone: with ``jax`` and the ``repro`` package made
 unimportable, every module of ``repro_torch`` and ``chip_smoke.py`` import,
 the engine serves two requests on the CPU, chunked and one-shot, a chunked
-``forward_dense`` runs its flash branch at s = 1040, and the reduced
+``forward_dense`` runs its flash branch at s = 1040, the reduced
 drrl-paper model in its own rank mode 'drrl' runs the forward and serves
-with the port's own seeded agent."""
+with the port's own seeded agent, and ``examples/quickstart_torch.py``
+trains that agent (BC, then PPO) on the CPU."""
 import os
 import subprocess
 import sys
@@ -59,6 +60,9 @@ eng = Engine(cfg, params, agent, device="cpu", config=EngineConfig(
 hs3 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [len(h.result()) for h in hs3] == [5, 5] and eng.stats["decides"] >= 2
+import runpy                        # the agent's training: BC, then PPO
+sys.argv = ["quickstart_torch.py", "--device", "cpu"]
+runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("modules", len(names))

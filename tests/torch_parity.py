@@ -1,6 +1,7 @@
 """Shared helpers of the parity tests between the JAX package (``repro``)
-and its PyTorch port (``repro_torch``): config, parameter and DR-RL agent
-bridges, and the serving benchmark's mixed staggered workload."""
+and its PyTorch port (``repro_torch``): config, parameter, DR-RL agent,
+batch and trajectory bridges, and the serving benchmark's mixed staggered
+workload."""
 import dataclasses
 
 import jax
@@ -46,6 +47,31 @@ def jax_power_v0(cfg):
               "wv": cfg.num_kv_heads * dh}
     return {name: torch.from_numpy(np.array(jax.random.normal(
         jax.random.PRNGKey(2), (n,), jnp.float32))) for name, n in widths.items()}
+
+
+def torch_tree(x, device="cpu"):
+    """A JAX batch, feature dict, agent-shaped tree or
+    ``repro.core.ppo.Trajectory`` as the port's tensors (a
+    ``repro_torch.core.ppo.Trajectory`` for the last)."""
+    from repro_torch.core.ppo import Trajectory
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return Trajectory(*(torch_tree(v, device) for v in x))
+    if isinstance(x, dict):
+        return {k: torch_tree(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [torch_tree(v, device) for v in x]
+    return torch.from_numpy(np.array(jax.device_get(x))).to(device)
+
+
+class JaxBatches:
+    """A JAX data source (``batch_at(step)``) that hands the port its
+    batches: ``batch_at(step, device)`` gives the same tokens as tensors."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def batch_at(self, step: int, device="cpu"):
+        return torch_tree(self.data.batch_at(step), device)
 
 
 def build_workload(n_requests: int, max_new: int, seed: int = 0):
