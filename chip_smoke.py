@@ -67,7 +67,29 @@ Phases (one line each, plus detail lines):
      the top-two gap exceeds it, bc_loss and gradients within 1e-4
      relative); one BC step profiled by layer and part; the reduced model's
      BC stage on the card with the kernel and on the CPU without it
-     (bc_loss within 1e-5 relative, identical oracle actions).
+     (bc_loss within 1e-5 relative, identical oracle actions);
+ 13. full-width sampled serving (phase 3's engine with ``sampling=True,
+     nucleus=True``; its prompts and arrivals, two requests each of greedy,
+     temperature 0.8, top-k 40 and top-p 0.9, each with its own seed). Run
+     A, adaptive: flash_decode launches, greedy requests bitwise phase 3's,
+     tokens/s and ms/step beside phase 3's, the sampling tail's device time
+     per step (a torch.profiler range over 16 decode steps), a second run
+     and a one-shot run identical, every top-p draw inside its nucleus; the
+     tail's parts on 8 x 50257 logits (CUDA events and device time). Run B, rank mode 'random' with
+     ``drift_threshold`` 0.5 and two cancels (mid-prefill, mid-decode):
+     forced decisions, the cancelled slots' pages freed, the other streams
+     equal to a run without the cancels. ``core.prng`` on the card against
+     the CPU (bits equal, gumbel within 2e-7), and a reduced sampled run on
+     the card with the kernel against the CPU without it (identical, or a
+     differing token only at a top-two gap under 1e-5);
+ 14. the comparison set at full width, 2 x 4096 tokens: rank mode 'random'
+     (masked, fidelity: 24 lowrank_flash launches, logits and ranks
+     against the plain path, ranks equal to ``prng``'s draws), 'performer'
+     and 'nystrom' at fixed rank 32 (wall, device time by layer, peak
+     memory); the rank-r cache (``prefill_lowrank`` of 2 x 2048 at rank 32,
+     64 ``decode_step_lowrank`` steps fed ``decode_step_dense``'s greedy
+     tokens: agreement reported, ms/step); the reduced model's forwards in
+     the three modes and its rank-r cache, card against CPU.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -93,10 +115,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RankConfig  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
-from repro_torch.core import drrl, ppo  # noqa: E402
+from repro_torch.core import drrl, ppo, prng  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
+from repro_torch.models import lowrank_cache  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -117,8 +140,16 @@ GRID = (16, 24, 32, 40, 48, 56, 64)
 DEV = "cuda"
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    log(f"{msg} (t = {time.perf_counter() - _T0:.1f} s)")
 
 
 def card() -> str:
@@ -243,13 +274,18 @@ def check_kernel() -> float:
 
 # -- phase 3 ---------------------------------------------------------------
 
-def serve(cfg, params, agent=None, *, n_req=8, max_new=64, seed=1, **knobs):
+def serve(cfg, params, agent=None, *, n_req=8, max_new=64, seed=1, per_request=None,
+          driver=None, **knobs):
+    """Phase 3's workload through Engine: ``per_request`` gives each
+    request's SamplingParams keywords (greedy by default), ``driver(eng,
+    handles)`` runs the loop instead of ``eng.run()``."""
     rng = np.random.default_rng(seed)
     eng = Engine(cfg, params, agent, device=DEV, config=EngineConfig(**knobs))
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(256, 1537, n_req)]
-    hs = [eng.submit(p, SamplingParams(max_new=max_new), arrival=2 * i)
-          for i, p in enumerate(prompts)]
+    per_request = per_request or [{}] * n_req
+    hs = [eng.submit(p, SamplingParams(max_new=max_new, **sp), arrival=2 * i)
+          for i, (p, sp) in enumerate(zip(prompts, per_request))]
     reset_launches()
     eng.warmup()
     # bank each decision's veto flag (a device bool) as the run goes
@@ -261,7 +297,10 @@ def serve(cfg, params, agent=None, *, n_req=8, max_new=64, seed=1, **knobs):
         return out
     if decide is not None:
         eng.core._decide = banked
-    eng.run()
+    if driver is None:
+        eng.run()
+    else:
+        driver(eng, hs)
     launches = decode_attn.LAUNCHES["flash_decode"]
     outs = [h.result() for h in hs]
     return eng, outs, launches, int(sum(bool(v) for v in vetoes))
@@ -1297,6 +1336,515 @@ def check_training_reference():
         f"); forbidden oracle actions {int(forb.sum())} of {forb.numel()}")
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# phase 3's 8 requests: two each of greedy, temperature 0.8, top-k 40 and
+# top-p 0.9 (temperature 1 for the last two), each sampled one with its own seed
+SAMPLED = [{}, dict(temperature=0.8), dict(temperature=1.0, top_k=40),
+           dict(temperature=1.0, top_p=0.9)] * 2
+SAMPLED = [dict(sp, seed=100 + i) if sp else {} for i, sp in enumerate(SAMPLED)]
+GREEDY_ROWS = (0, 4)
+SAMPLE_KNOBS = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                    use_kernel=True, sampling=True, nucleus=True)
+# a sampled token may differ, card vs CPU, only where the top two values of
+# scaled + gumbel lie closer than this (gumbel's logs may differ by an ulp)
+GAP_TOL = 1e-5
+# drift threshold of run B: fires where a slot's rank leaves much of the
+# newest K token's energy outside its basis (random ranks 16..64 of 64)
+DRIFT = 0.5
+
+
+def sample_scores(logits, out_pos, temps, topks, topps, seeds, cap=64):
+    """scaled + gumbel of the engine's sampler (nucleus on), computed apart
+    from it: the values whose argmax is a sampled token."""
+    V = logits.shape[-1]
+    thr = logits.topk(min(cap, V), dim=-1).values.gather(
+        1, (topks.long() - 1).clamp(0, min(cap, V) - 1)[:, None])
+    x = torch.where((topks[:, None] > 0) & (logits < thr), float("-inf"), logits)
+    x = x / temps.clamp_min(1e-6)[:, None]
+    pr = torch.softmax(x, dim=-1)
+    srt = pr.sort(dim=-1, descending=True).values
+    keep = (srt.cumsum(dim=-1) - srt) < topps[:, None]
+    p_min = torch.where(keep, srt, float("inf")).amin(dim=-1, keepdim=True)
+    x = torch.where((topps[:, None] < 1.0) & (pr < p_min), float("-inf"), x)
+    return x + prng.gumbel(prng.fold_in(prng.key(seeds), out_pos), (V,))
+
+
+def nucleus_violations(logits, tok, temps, topks, topps, cap=64):
+    """Rows sampled with top_p < 1 and their draws outside the nucleus: the
+    smallest probability-sorted set whose mass reaches top_p, recomputed in
+    float64 after the top-k cut and the temperature."""
+    rows = (temps > 0) & (topps < 1.0)
+    if not rows.any():
+        return 0, 0
+    x = logits[rows].double()
+    k = topks[rows].long()
+    thr = x.topk(cap, dim=-1).values.gather(1, (k - 1).clamp(0, cap - 1)[:, None])
+    x = torch.where((k[:, None] > 0) & (x < thr), float("-inf"), x)
+    pr = torch.softmax(x / temps[rows].double()[:, None], dim=-1)
+    srt = pr.sort(dim=-1, descending=True).values
+    n_in = (srt.cumsum(dim=-1) < topps[rows].double()[:, None]).sum(dim=-1) + 1
+    p_min = srt.gather(1, (n_in - 1).clamp(max=x.shape[-1] - 1)[:, None])[:, 0]
+    p_tok = pr.gather(1, tok[rows].long()[:, None])[:, 0]
+    return int(rows.sum()), int((p_tok < p_min * (1 - 1e-5)).sum())
+
+
+def checked_selection(eng, counts):
+    """Wrap the engine's sampler so that every draw is checked against its
+    nucleus (a sync per step: used in a checking run only)."""
+    inner = eng.core._select_token
+
+    def select(logits, out_pos, temps, topks, topps, seeds):
+        tok = inner(logits, out_pos, temps, topks, topps, seeds)
+        n, bad = nucleus_violations(logits, tok, temps, topks, topps)
+        counts[0] += n
+        counts[1] += bad
+        return tok
+    eng.core._select_token = select
+
+
+def sampling_tail_ms(card_name) -> dict:
+    """The sampler's parts on 8 x 50257 f32 logits: top-k 64, the nucleus
+    sort, the threefry gumbel draw, the whole tail with nucleus, and the
+    greedy argmax it replaces. CUDA events (median of 25, L2 flushed: the
+    host's launches included) and the device time of the kernels each
+    launches (torch.profiler ranges, mean of 5 calls, L2 warm)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from types import SimpleNamespace
+    from repro_torch.serve.engine import ServeEngine
+    g = torch.Generator(device=DEV).manual_seed(11)
+    V = 50257
+    logits = 3 * torch.randn((8, V), generator=g, device=DEV)
+    temps = torch.tensor([0, 0.8, 1, 1] * 2, device=DEV)
+    topks = torch.tensor([0, 0, 40, 0] * 2, dtype=torch.int32, device=DEV)
+    topps = torch.tensor([1, 1, 1, 0.9] * 2, device=DEV)
+    seeds = torch.arange(100, 108, device=DEV)
+    pos = torch.full((8,), 17, device=DEV)
+    keys = prng.fold_in(prng.key(seeds), pos)
+    pr = torch.softmax(logits, dim=-1)
+    eng = SimpleNamespace(sampling=True, nucleus=True, top_k_cap=64)
+    parts = {"topk": lambda: torch.topk(logits, 64, dim=-1),
+             "sort": lambda: torch.sort(pr, dim=-1, descending=True),
+             "threefry_gumbel": lambda: prng.gumbel(keys, (V,)),
+             "tail": lambda: ServeEngine._select_token(eng, logits, pos, temps, topks,
+                                                       topps, seeds),
+             "argmax": lambda: torch.argmax(logits, dim=-1)}
+    res = {k: time_ms(fn) for k, fn in parts.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            for k, fn in parts.items():
+                with record_function(k):
+                    fn()
+        torch.cuda.synchronize()
+    dev = {e.key: device_total_us(e) / 5e3 for e in prof.key_averages()
+           if e.key in parts and e.device_type == DeviceType.CPU}
+    assert set(dev) == set(parts) and all(v > 0 for v in dev.values()), dev
+    log("  sampling tail on 8 x 50257 f32 logits, CUDA events (median of 25, L2 flushed) / "
+        "device time of its kernels (torch.profiler): " + ", ".join(
+            f"{k} {res[k]:.4f} / {dev[k]:.4f} ms" for k in parts) + f" [{card_name}]")
+    return {**res, **{k + "_device": v for k, v in dev.items()}}
+
+
+# the profiled window of run A: 16 fused steps after every prompt is in
+# (the workload's last chunked prefill ends before step 30), 8 decode rows each
+TAIL_WINDOW = (40, 16)
+
+
+def profile_tail(cfg, params, card_name):
+    """Run A again, with a torch.profiler range around the sampler over
+    TAIL_WINDOW's decode steps: its device time per step, beside the
+    window's. Returns (run A's tokens, tail device ms per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    res = {}
+
+    def driver(eng, hs):
+        inner = eng.core._select_token
+
+        def ranged(*a):
+            with record_function("sampling tail"):
+                return inner(*a)
+        eng.core._select_token = ranged
+        start, n = TAIL_WINDOW
+        for _ in range(start):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+        res["wall"] = 1e6 * (time.perf_counter() - t0)
+        eng.run()
+        kern = [e for e in device_kernels(prof) if e.key != "sampling tail"]
+        res["busy"] = sum(dev_us(e) for e in kern)
+        res["tail"] = sum(device_total_us(e) for e in prof.key_averages()
+                          if e.key == "sampling tail" and e.device_type == DeviceType.CPU)
+    eng, outs, _, _ = serve(cfg, params, per_request=SAMPLED, driver=driver, **SAMPLE_KNOBS)
+    n = TAIL_WINDOW[1]
+    assert eng.stats["steps"] > sum(TAIL_WINDOW), "the window runs past the workload"
+    log(f"  profiled window of run A (steps {TAIL_WINDOW[0]}..{sum(TAIL_WINDOW) - 1}, 8 "
+        f"decode rows): device busy {res['busy'] / 1e3 / n:.3f} ms per step of "
+        f"{res['wall'] / 1e3 / n:.2f} ms profiled wall, sampling tail "
+        f"{res['tail'] / 1e3 / n:.4f} ms of device time per step "
+        f"({res['tail'] / res['busy']:.2%}) [{card_name}]")
+    return outs, res["tail"] / 1e3 / n
+
+
+def check_sampled_serving(cfg, params, greedy_outs, greedy_st, card_name):
+    """Run A: phase 3's engine with sampling and nucleus on, the sampled
+    workload, adaptive ranks. Returns flash_decode's launches."""
+    eng, outs, launches, _ = serve(cfg, params, per_request=SAMPLED, **SAMPLE_KNOBS)
+    st = eng.stats
+    n_steps = st["steps"] + st["warmup_steps"]
+    assert launches == cfg.num_layers * n_steps, f"{launches} flash_decode launches"
+    for i, o in enumerate(outs):
+        assert o.shape == (64,) and ((o >= 0) & (o < cfg.vocab_size)).all(), f"request {i}"
+    for i in GREEDY_ROWS:
+        assert np.array_equal(outs[i], greedy_outs[i]), \
+            f"greedy request {i} differs from phase 3's among sampled neighbours"
+    moved = [i for i in range(8) if i not in GREEDY_ROWS
+             and not np.array_equal(outs[i], greedy_outs[i])]
+    assert len(moved) == 6, f"sampled requests equal to greedy ones: {moved}"
+    tok_s = st["tokens_decoded"] / st["decode_s"]
+    ms_step = 1e3 * st["decode_s"] / st["steps"]
+    g_tok_s = greedy_st["tokens_decoded"] / greedy_st["decode_s"]
+    g_ms = 1e3 * greedy_st["decode_s"] / greedy_st["steps"]
+    log(f"  run A (adaptive, sampled): {st['steps']} fused steps, {st['decides']} decisions, "
+        f"{launches} flash_decode launches = {cfg.num_layers} layers x {n_steps} steps; "
+        f"greedy requests {GREEDY_ROWS} equal phase 3's tokens, the 6 sampled ones differ "
+        f"from them; {tok_s:.1f} decoded tokens/s, {ms_step:.2f} ms/step (phase 3 greedy: "
+        f"{g_tok_s:.1f} tokens/s, {g_ms:.2f} ms/step) [{card_name}]")
+    again, tail_ms = profile_tail(cfg, params, card_name)
+    counts = [0, 0]
+    _, oneshot, _, _ = serve(cfg, params, per_request=SAMPLED,
+                             driver=lambda e, h: (checked_selection(e, counts), e.run()),
+                             **{**SAMPLE_KNOBS, "prefill_chunk": None})
+    for i in range(8):
+        assert np.array_equal(again[i], outs[i]), f"request {i}: a second run differs"
+        assert np.array_equal(oneshot[i], outs[i]), f"request {i}: one-shot differs"
+    assert counts[0] > 0 and counts[1] == 0, \
+        f"top-p draws outside their nucleus: {counts[1]} of {counts[0]}"
+    log(f"  a second run and a one-shot run (prefill_chunk=None) give run A's tokens; "
+        f"{counts[0]} top-p draws (one-shot run) all inside their nucleus")
+    return launches, tail_ms
+
+
+def check_sampled_random(cfg, params, card_name):
+    """Run B: rank mode 'random' with the drift trigger, one request
+    cancelled mid-prefill and one mid-decode, against the same run without
+    the cancels. The victims are the last request to arrive (7) and one
+    cancelled after every request was admitted (2): a freed slot taken by
+    a later arrival would change that request's draws, which key on the
+    slot."""
+    rcfg = cfg.with_(rank=RankConfig(mode="random", rank_grid=GRID, segment_len=32))
+    knobs = dict(SAMPLE_KNOBS, drift_threshold=DRIFT)
+    rec = {"forced": 0, "cancel": {}}
+
+    def count_forced(eng):
+        inner = eng.core._check_drift
+
+        def counted(live):
+            before = eng.core.force_decide.copy()
+            inner(live)
+            rec["forced"] += int((eng.core.force_decide & ~before).sum())
+        eng.core._check_drift = counted
+
+    def with_cancels(eng, hs):
+        count_forced(eng)
+        core = eng.core
+        rec["free0"] = core.cache.free_pages
+        while eng.step():
+            for s in core.sched.slots:
+                if not s.active:
+                    continue
+                rid = s.req.rid
+                mid_pf = rid == 7 and 0 < s.prefilled < s.prompt_len
+                mid_dec = rid == 2 and s.n_out == 10
+                if (mid_pf or mid_dec) and rid not in rec["cancel"]:
+                    free = core.cache.free_pages
+                    need = core.cache.pages_needed(s.prompt_len + s.req.max_new)
+                    assert hs[rid].cancel()
+                    rec["cancel"][rid] = (core.cache.free_pages - free, need,
+                                          "mid-prefill" if mid_pf else "mid-decode")
+                    break
+        rec["free1"] = core.cache.free_pages
+
+    eng, outs, launches, _ = serve(rcfg, params, per_request=SAMPLED, driver=with_cancels,
+                                   **knobs)
+    st = eng.stats
+    assert launches == cfg.num_layers * (st["steps"] + st["warmup_steps"])
+    assert sorted(rec["cancel"]) == [2, 7], f"cancels {rec['cancel']}"
+    for rid, (freed, need, where) in rec["cancel"].items():
+        assert freed == need, f"cancel of {rid} ({where}) freed {freed} pages of {need}"
+    assert rec["free1"] == rec["free0"] == eng.core.cache.n_pages - 1
+    assert len(outs[7]) == 0 and len(outs[2]) == 0   # nothing streamed to them
+    assert rec["forced"] > 0, "the drift trigger never fired"
+    ranks = {int(r) for step in eng.ranks_per_step() for r in step if r >= 0}
+    forced_b = rec["forced"]
+    rec["forced"] = 0
+    _, ref, _, _ = serve(rcfg, params, per_request=SAMPLED,
+                         driver=lambda e, h: (count_forced(e), e.run()), **knobs)
+    for i in range(8):
+        if i not in (2, 7):
+            assert np.array_equal(outs[i], ref[i]), f"request {i} moved by the cancels"
+    tok_s = st["tokens_decoded"] / st["decode_s"]
+    log(f"  run B (random, drift > {DRIFT}, 2 cancels): {st['steps']} fused steps, "
+        f"{st['decides']} decisions of which {forced_b} forced by the drift trigger "
+        f"({rec['forced']} without the cancels), ranks {sorted(ranks)}, {launches} "
+        f"flash_decode launches; cancels " + ", ".join(
+            f"request {rid} {w} freed {f} pages" for rid, (f, _, w) in sorted(rec['cancel'].items()))
+        + f"; free pages back to {rec['free1']}; the 6 other streams equal the run "
+        f"without cancels; {tok_s:.1f} decoded tokens/s [{card_name}]")
+    return launches
+
+
+def emitting_rows(core) -> dict:
+    """{row: (request id, output index)} of the rows whose token the fused
+    step about to run emits (read before the step updates the host state):
+    decode rows, and chunked rows that finish their prompt (token 0)."""
+    rows = {}
+    for i, st in enumerate(core.sched.slots):
+        if not st.active:
+            continue
+        if not st.mid_prefill:
+            rows[i] = (st.req.rid, st.n_out)
+        elif st.prefilled + core.chunk >= st.prompt_len:
+            rows[i] = (st.req.rid, 0)
+    return rows
+
+
+def check_sampled_reference():
+    """Reduced drrl-paper, sampled workload, adaptive: the card with the
+    kernel vs the CPU without it. Where an emitted token differs, the
+    top-two gap of the values its argmax took (scaled + gumbel for a
+    sampled row, the logits for a greedy one) must be under GAP_TOL."""
+    cfg = get_config("drrl-paper", reduced=True).with_(
+        rank=RankConfig(mode="adaptive", rank_grid=(4, 8, 12, 16), segment_len=8))
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    knobs = dict(n_slots=3, max_len=64, page_size=16, segment_len=8,
+                 max_new_cap=12, prefill_chunk=8, sampling=True, nucleus=True)
+    outs = {}
+    for device, use_kernel in ((DEV, True), ("cpu", False)):
+        rng = np.random.default_rng(0)
+        eng = Engine(cfg, params, device=device,
+                     config=EngineConfig(use_kernel=use_kernel, **knobs))
+        calls = []
+        inner = eng.core._select_token
+
+        def recorded(*a, _inner=inner, _calls=calls, _core=eng.core):
+            tok = _inner(*a)
+            _calls.append(([x.cpu() for x in a], tok.cpu(), emitting_rows(_core)))
+            return tok
+        eng.core._select_token = recorded
+        hs = [eng.submit(rng.integers(0, 256, int(n)),
+                         SamplingParams(max_new=12, **SAMPLED[i]), arrival=2 * i)
+              for i, n in enumerate(rng.integers(8, 33, 6))]
+        eng.run()
+        outs[device] = ([h.result() for h in hs], eng.ranks_per_step(), calls)
+    (tok_g, rk_g, calls_g), (tok_c, rk_c, calls_c) = outs[DEV], outs["cpu"]
+    assert len(calls_g) == len(calls_c)
+    gaps = []
+    for step, ((args, t_g, rows), (_, t_c, rows_c)) in enumerate(zip(calls_g, calls_c)):
+        assert rows == rows_c, f"step {step}: the two engines emit from other rows"
+        for row, (rid, j) in rows.items():
+            if t_g[row] != t_c[row]:
+                vals = (sample_scores(*args)[row] if args[2][row] > 0
+                        else args[0][row]).sort().values
+                gaps.append((step, rid, j, (vals[-1] - vals[-2]).item()))
+    for step, rid, j, gap in gaps:
+        log(f"  reduced sampled run: request {rid} token {j} (step {step}) differs, card "
+            f"vs CPU; top-two gap {gap:.3g}")
+        assert gap < GAP_TOL, f"token differs at a top-two gap of {gap}"
+    if not gaps:
+        for a, b in zip(tok_g, tok_c):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(rk_g, rk_c):
+            np.testing.assert_array_equal(a, b)
+    log(f"  reduced model, sampled workload: GPU kernel tokens and ranks == CPU plain "
+        f"tokens and ranks ({len(rk_g)} steps, {len(gaps)} emitted draws differ)")
+
+
+def check_prng_card():
+    """core.prng on the card against the CPU: bits equal, gumbel within one
+    ulp (2e-7 of max(|g|, 1))."""
+    keys = prng.fold_in(prng.key(torch.arange(100, 108)), torch.arange(8) * 7)
+    b_c, g_c = prng.bits32(keys, (50257,)), prng.gumbel(keys, (50257,))
+    k_d = keys.to(DEV)
+    b_d, g_d = prng.bits32(k_d, (50257,)).cpu(), prng.gumbel(k_d, (50257,)).cpu()
+    r_c = prng.randint(prng.key(17), (2, 12), 0, len(GRID))
+    r_d = prng.randint(prng.key(17, device=DEV), (2, 12), 0, len(GRID)).cpu()
+    assert torch.equal(b_c, b_d) and torch.equal(r_c, r_d), "prng bits differ, card vs CPU"
+    rel = ((g_d - g_c).abs() / g_c.abs().clamp_min(1.0)).max().item()
+    assert rel <= 2e-7, f"gumbel card vs CPU {rel}"
+    log(f"  prng on the card: 8 x 50257 threefry words and randint draws equal the CPU's; "
+        f"gumbel within {rel:.3g} of max(|g|, 1) (tol 2e-7), "
+        f"{int((g_d != g_c).sum())} of {g_c.numel()} values not bitwise")
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+def comparison_cfg(cfg, mode):
+    return cfg.with_(rank=RankConfig(mode=mode, realisation="masked", rank_grid=GRID,
+                                     fixed_rank=32, segment_len=32))
+
+
+def check_comparison_forwards(cfg_base, params, card_name) -> dict:
+    """The 2 x 4096 forward in rank mode 'random' (masked, fidelity; against
+    the plain path) and in 'performer' / 'nystrom' (fixed rank 32); returns
+    {'launches': lowrank_flash launches of the random forward, 'walls': ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg_base.vocab_size, (2, 4096), generator=g, device=DEV)
+    key = prng.key(5)          # on the host: the draws' tiny integer ops stay there
+
+    def run(cfg, fid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = forward_dense(cfg, params, tokens, chunked=True, rank_rng=key,
+                                    collect_aux="ranks", compute_fidelity=fid)
+        torch.cuda.synchronize()
+        return logits, aux["layers"], time.perf_counter() - t0
+
+    cfg = comparison_cfg(cfg_base, "random")
+    reset_launches()
+    logits, aux, _ = run(cfg, True)
+    launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+    assert launches == 2 * cfg.num_layers, f"random forward: {launches} launches"
+    assert logits.shape == (*tokens.shape, cfg.vocab_size) and torch.isfinite(logits).all()
+    with plain_flash():
+        logits_p, aux_p, _ = run(cfg, True)
+    err = (logits - logits_p).abs().max().item()
+    top = logits_p.abs().max().item()
+    assert err <= LOGIT_TOL * max(1.0, top), f"random forward: kernel vs plain {err}"
+    assert torch.equal(aux["rank"], aux_p["rank"]), "random forward: ranks differ"
+    want = grid_ranks(cfg, key, tokens.shape[0])
+    assert torch.equal(aux["rank"].cpu(), want), "random forward: ranks are not the key's draws"
+    ranks = sorted(set(aux["rank"].flatten().tolist()))
+    log(f"  random/masked + fidelity: {launches} lowrank_flash launches = {cfg.num_layers} "
+        f"layers x 2; max|logits - plain| {err:.3g} (max |logit| {top:.3g}, tol "
+        f"{LOGIT_TOL}); ranks identical and equal to prng.randint of the split keys "
+        f"{ranks}; fidelity {aux['fidelity'].mean().item():.4f}")
+    walls = {}
+    for mode in ("random", "performer", "nystrom"):
+        mcfg = comparison_cfg(cfg_base, mode)
+        fid = mode == "random"
+        lg, _, first = run(mcfg, fid)
+        assert torch.isfinite(lg).all(), f"{mode} forward: non-finite logits"
+        torch.cuda.reset_peak_memory_stats()
+        wall = statistics.median(run(mcfg, fid)[2] for _ in range(3))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(mcfg, fid)
+        kern = device_kernels(prof)
+        busy = sum(dev_us(e) for e in kern)
+        walls[mode] = wall * 1e3
+        log(f"  forward {mode}{' + fidelity' if fid else ''}, 2 x 4096 tokens: wall "
+            f"{wall * 1e3:.2f} ms (median of 3; first {first * 1e3:.1f} ms), device busy "
+            f"{busy / 1e3:.2f} ms (idle {1 - busy / (wall * 1e6):.1%}), peak memory "
+            f"{peak:.2f} GiB [{card_name}]")
+        log_layers(by_layer(kern), busy)
+    check_comparison_reference()
+    return {"launches": launches, "walls": walls}
+
+
+def grid_ranks(cfg, key, b):
+    """The ranks rank mode 'random' draws from ``key``: split once per layer,
+    randint over the grid per (row, head)."""
+    grid = torch.tensor(cfg.rank.rank_grid, dtype=torch.int32)
+    out, k = [], key.cpu()
+    for _ in range(cfg.num_layers):
+        k, sub = prng.split(k)
+        out.append(grid[prng.randint(sub, (b, cfg.num_kv_heads), 0, len(grid)).long()])
+    return torch.stack(out)
+
+
+def check_lowrank_cache(cfg_base, params, card_name) -> float:
+    """The rank-r cache at full width: prefill_lowrank of 2 x 2048 at rank 32,
+    then 64 decode steps fed decode_step_dense's greedy tokens at full rank;
+    the share of steps whose greedy token agrees (report only) and decode ms
+    per step."""
+    cfg = cfg_base.with_(rank=RankConfig(mode="off"))
+    g = torch.Generator(device=DEV).manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 2048), generator=g, device=DEV)
+    n, r = 64, 32
+    dense = get_model(cfg).init_cache(2, 2048 + n, device=DEV)
+    lg, dense = get_model(cfg).decode_step(params, dense, prompt)
+    want = [lg[:, -1].argmax(-1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        lg, dense = get_model(cfg).decode_step(params, dense, want[-1][:, None])
+        want.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    dense_ms = 1e3 * (time.perf_counter() - t0) / (n - 1)
+    cache = lowrank_cache.init_lowrank_cache(cfg, 2, 2048 + n, r, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = lowrank_cache.prefill_lowrank(cfg, params, prompt, cache, r)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    got = [lg[:, -1].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        lg, cache = lowrank_cache.decode_step_lowrank(cfg, params, cache, want[i][:, None])
+        got.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / (n - 1)
+    assert torch.isfinite(lg).all() and cache["len"] == 2048 + n - 1
+    agree = (torch.stack(got) == torch.stack(want)).float().mean().item()
+    log(f"  rank-r cache, rank {r}: prefill_lowrank of 2 x 2048 {prefill_ms:.1f} ms (first "
+        f"call), decode_step_lowrank {dec_ms:.2f} ms/step vs decode_step_dense {dense_ms:.2f} "
+        f"ms/step (64 steps, b = 2); greedy tokens agree with the full-rank dense decode at "
+        f"{agree:.3f} of steps (report only) [{card_name}]")
+    return dec_ms
+
+
+def check_comparison_reference():
+    """Reduced drrl-paper: the forward in 'random' (2 x 1040, chunked: the
+    kernel on the card), 'performer' and 'nystrom', and the rank-r cache,
+    card vs CPU."""
+    base = get_config("drrl-paper", reduced=True)
+    params = get_model(base).init(torch.Generator().manual_seed(0), device="cpu")
+    params_dev = params_to(params, DEV)
+    tokens = torch.randint(0, base.vocab_size, (2, 1040),
+                           generator=torch.Generator().manual_seed(6))
+    for mode in ("random", "performer", "nystrom"):
+        cfg = base.with_(rank=RankConfig(mode=mode, rank_grid=(4, 8, 12, 16), fixed_rank=8,
+                                         segment_len=8))
+        out = {}
+        for dev, p in ((DEV, params_dev), ("cpu", params)):
+            lg, aux = forward_dense(cfg, p, tokens.to(dev), chunked=True,
+                                    rank_rng=prng.key(3, device=dev), collect_aux="ranks")
+            out[dev] = (lg.cpu(), aux["layers"].get("rank"))
+        err = (out[DEV][0] - out["cpu"][0]).abs().max().item()
+        assert err <= 1e-4, f"reduced forward {mode}: card vs CPU logits differ by {err}"
+        if mode == "random":
+            assert torch.equal(out[DEV][1].cpu(), out["cpu"][1]), "reduced random: ranks differ"
+        log(f"  reduced model, 2 x 1040 tokens, {mode}: card vs CPU max|logits| diff "
+            f"{err:.3g} (tol 1e-4){', ranks equal' if mode == 'random' else ''}")
+    cfg = base.with_(rank=RankConfig(mode="off"))
+    out = {}
+    for dev, p in ((DEV, params_dev), ("cpu", params)):
+        cache = lowrank_cache.init_lowrank_cache(cfg, 2, 48, 8, device=dev)
+        lg, cache = lowrank_cache.prefill_lowrank(cfg, p, tokens[:, :32].to(dev), cache, 8)
+        steps = [lg.cpu()]
+        for i in range(32, 40):
+            lg, cache = lowrank_cache.decode_step_lowrank(cfg, p, cache,
+                                                          tokens[:, i:i + 1].to(dev))
+            steps.append(lg.cpu())
+        b = cache["basis"].cpu()
+        out[dev] = (torch.cat(steps, 1), b @ b.transpose(-1, -2))
+    err = (out[DEV][0] - out["cpu"][0]).abs().max().item()
+    p_err = (out[DEV][1] - out["cpu"][1]).abs().max().item()
+    assert err <= 1e-4 and p_err <= 1e-4, \
+        f"reduced rank-r cache: card vs CPU logits {err}, projectors {p_err}"
+    log(f"  reduced rank-r cache (rank 8, 32-token prefill, 8 steps): card vs CPU "
+        f"max|logits| diff {err:.3g}, projectors E_r E_r^T {p_err:.3g} (tol 1e-4)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -1306,7 +1854,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    log(f"[1/12] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/14] card and build: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -1315,10 +1863,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    log("[2/12] flash_decode kernel vs its plain version on the card")
+    phase("[2/14] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    log("[3/12] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/14] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -1335,24 +1883,24 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    log("[4/12] full-width engine step: kernel vs plain attention")
+    phase("[4/14] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    log("[5/12] times at the serving shapes")
+    phase("[5/14] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    log("[6/12] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/14] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    log("[7/12] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/14] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    log("[8/12] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/14] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    log("[9/12] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/14] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -1361,26 +1909,46 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    log("[10/12] full-width forward_dense(chunked=True) in rank mode 'drrl', 2 x 4096 tokens")
+    phase("[10/14] full-width forward_dense(chunked=True) in rank mode 'drrl', 2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    log("[11/12] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/14] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    log("[12/12] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/14] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
+    phase("[13/14] full-width sampled serving: adaptive (run A), random with the drift "
+        "trigger and cancels (run B)")
+    sampled_decode, tail_ms = check_sampled_serving(cfg, params, outs, st_adaptive, card_name)
+    tail = sampling_tail_ms(card_name)
+    phase("  run B")
+    random_decode = check_sampled_random(cfg, params, card_name)
+    check_prng_card()
+    phase("  reduced sampled run, card vs CPU")
+    check_sampled_reference()
+
+    phase("[14/14] full-width forwards of the comparison set (2 x 4096) and the rank-r cache")
+    comp = check_comparison_forwards(cfg, params, card_name)
+    lr_ms = check_lowrank_cache(cfg, params, card_name)
+    log("phases 13-14 times: " + json.dumps({
+        "sampling_tail_ms": {"per_step_profiled": tail_ms, **tail},
+        "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
+        "card": card_name}))
+
+    phase("all phases passed")
     print(json.dumps({"kernels": [
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:122",
-         "launches": launches, "drrl_launches": drrl_decode, "max_abs_err": max_err,
-         **t_dec, "chunk": t_chunk},
+         "launches": launches, "drrl_launches": drrl_decode,
+         "sampled_launches": sampled_decode, "random_drift_launches": random_decode,
+         "max_abs_err": max_err, **t_dec, "chunk": t_chunk},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
          "launches": flash_launches, "drrl_launches": drrl_flash,
-         "train_launches": train_flash,
+         "train_launches": train_flash, "random_launches": comp["launches"],
          "max_abs_err": flash_err, **t_flash, "r32": t_static}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

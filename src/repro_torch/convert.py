@@ -8,8 +8,9 @@ this tree and JAX's (in, out) matrix layout (``x @ w``), so conversion is
 a leaf-wise copy: no transpose. The DR-RL agent's tree
 (``repro.core.drrl.init_agent``) converts the same way: its policy
 ``layers`` is a list, and its ``conv`` kernel keeps JAX's (k, d, f) layout.
-Pass the leaves as numpy arrays (``jax.device_get(params)``); this module
-imports no JAX.
+The Performer baseline's feature matrices convert the same way
+(``proj_from_jax``). Pass the leaves as numpy arrays
+(``jax.device_get(params)``); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -41,3 +42,15 @@ def agent_from_jax(tree, device="cuda"):
     if set(tree) != AGENT_KEYS or np.ndim(tree["conv"]) != 3:
         raise ValueError(f"not a DR-RL agent tree: keys {sorted(tree)}")
     return params_from_jax(tree, device)
+
+
+def proj_from_jax(proj, device="cuda") -> torch.Tensor:
+    """The Performer feature matrices (h, m, d) of the reference's
+    ``orthogonal_proj(PRNGKey(42), ...)``, as numpy, on ``device``. The port
+    draws its own from a seeded ``torch.Generator`` (same distribution,
+    other bits: the reference's chi-square draw is a rejection sampler);
+    parity tests pass JAX's through ``forward_dense(proj=...)``."""
+    a = np.asarray(proj)
+    if a.ndim != 3:
+        raise ValueError(f"not a (h, m, d) projection: shape {a.shape}")
+    return _leaf(a, device)

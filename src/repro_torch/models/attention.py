@@ -9,7 +9,8 @@ Three realisations of the paper's technique live here:
 
 Both reach the port's ``lowrank_flash`` kernel through ``attend`` wherever
 the JAX model takes its flash-semantics branch (``chunked`` and more than
-``chunk`` keys).
+``chunk`` keys). Rank modes 'performer' and 'nystrom' replace the whole
+score/softmax/value core by the static baselines of ``core/baselines.py``.
 """
 from __future__ import annotations
 
@@ -19,8 +20,10 @@ import torch
 
 from repro_torch import nn, not_ported
 from repro_torch.configs.base import ModelConfig, RankConfig
+from repro_torch.core import baselines
 from repro_torch.core import lowrank as lr
 from repro_torch.core import perturbation as pert
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, cache_update,
                                        kv_group_mean, repeat_kv)
@@ -99,9 +102,12 @@ def grid_array(rank_cfg: RankConfig, device=None) -> torch.Tensor:
     return torch.tensor(rank_cfg.rank_grid, dtype=torch.int32, device=device)
 
 
-def heuristic_rank(rank_cfg: RankConfig,
-                   ctx: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Rank per (b, hkv) for the modes 'fixed' and 'adaptive'."""
+def heuristic_rank(rank_cfg: RankConfig, ctx: Dict[str, torch.Tensor],
+                   rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rank per (b, hkv) for the modes 'fixed', 'adaptive' and 'random'
+    (a uniform grid draw from the ``core.prng`` key ``rng``: JAX's
+    ``randint`` bits, drawn on the key's device; only the ranks move to
+    the spectra's)."""
     k_s2 = ctx["k_s2"]
     grid = rank_cfg.rank_grid
     if rank_cfg.mode == "fixed":
@@ -111,8 +117,10 @@ def heuristic_rank(rank_cfg: RankConfig,
         return lr.rank_for_energy(k_s2, rank_cfg.energy_threshold,
                                   grid[0], grid[-1])
     if rank_cfg.mode == "random":
-        raise not_ported("rank mode 'random' in the forward (its draws are "
-                         "jax.random.randint bits)", "item 5")
+        if rng is None:
+            raise ValueError("rank mode 'random' needs a PRNG key (rank_rng)")
+        idx = prng.randint(rng, k_s2.shape[:2], 0, len(grid))
+        return grid_array(rank_cfg, rng.device)[idx.long()].to(k_s2.device)
     raise ValueError(rank_cfg.mode)
 
 
@@ -152,17 +160,16 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     """Standard/GQA MHSA with optional dynamic low-rank scores.
 
     rank_ctx (None = full rank): {'cfg': RankConfig, 'compute_fidelity',
-    'collect_qkv', 'collect_mass', 'mass_q_len'} and, in rank mode 'drrl',
-    'action_fn' with the per-layer 'prev_rank', 'layer_id', 'w_t' and 't'
-    it reads (see :func:`repro_torch.models.transformer.make_rank_ctx`);
-    the agent's outputs join ``aux``. ``cache`` is a
+    'collect_qkv', 'collect_mass', 'mass_q_len', 'rng'} and, in rank mode
+    'drrl', 'action_fn' with the per-layer 'prev_rank', 'layer_id', 'w_t'
+    and 't' it reads, in 'performer' the feature matrices 'proj' (see
+    :func:`repro_torch.models.transformer.make_rank_ctx`); the agent's
+    outputs join ``aux``. ``cache`` is a
     dense layer cache {'k', 'v', 'len'} (updated in place).
     Returns (output, new_cache, aux)."""
     rcfg = rank_ctx["cfg"] if rank_ctx else None
     if cfg.mrope:
         raise not_ported("M-RoPE", "item 18")
-    if rcfg is not None and rcfg.mode in ("performer", "nystrom"):
-        raise not_ported(f"rank mode {rcfg.mode!r}", "item 11")
     b, s, d = x.shape
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim()
@@ -193,6 +200,21 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         aux["qkv"] = {"q": q, "k": k_full, "v": v_full}
     score_dtype = nn.dt(cfg.softmax_dtype)
 
+    if rcfg is not None and rcfg.mode in ("performer", "nystrom"):
+        # static linear-attention baselines (the paper's comparison set);
+        # with a cache (decode) both run their non-causal form, as in JAX
+        n_rep = hq // hkv
+        kr, vr = repeat_kv(k_full, n_rep), repeat_kv(v_full, n_rep)
+        if rcfg.mode == "performer":
+            o = baselines.performer_attention(q, kr, vr, proj=rank_ctx["proj"],
+                                              causal=cache is None)
+        else:
+            o = baselines.nystrom_attention(q, kr, vr,
+                                            n_landmarks=rcfg.fixed_rank,
+                                            causal=cache is None)
+        out = o.reshape(b, s, hq * dh) @ p["wo"].to(x.dtype)
+        return out, new_cache, aux
+
     if rcfg is None or rcfg.mode == "off":
         q_use, k_use = q, k_full
     else:
@@ -202,7 +224,7 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             rank_k, drrl_aux = rank_ctx["action_fn"](ctx, rank_ctx)
             aux.update(drrl_aux)
         else:
-            rank_k = heuristic_rank(rcfg, ctx)
+            rank_k = heuristic_rank(rcfg, ctx, rank_ctx.get("rng"))
         n_rep = hq // hkv
         rank_q = rank_k.repeat_interleave(n_rep, dim=1) if n_rep > 1 else rank_k
         aux["rank"] = rank_k

@@ -11,7 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import drrl
+from repro_torch.core import baselines, drrl, prng
 from repro_torch.kernels.ops import decode_attention
 from repro_torch.models.attention import attend, mhsa
 from repro_torch.models.common import apply_rope, kv_group_mean
@@ -116,20 +116,32 @@ def _logits(params, x):
 
 
 def make_rank_ctx(cfg: ModelConfig, *, policy_params=None, h_t=None, t=0,
-                  greedy=True, generator=None, compute_fidelity=False,
-                  collect_qkv=False, collect_mass=False, mass_q_len=None):
+                  greedy=True, generator=None, proj=None, device=None,
+                  compute_fidelity=False, collect_qkv=False,
+                  collect_mass=False, mass_q_len=None):
     """Build the per-forward rank context (None when mode == 'off', unless
     qkv/mass capture is requested: the serve prefill collects per-layer
     k/v and the per-key attention mass from the full-rank forward). Rank
     mode 'drrl' needs the agent's ``policy_params`` and its h_t features;
     ``t`` (the RL step) anneals the guardrail, ``greedy=False`` samples
-    actions from ``generator``."""
+    actions from ``generator``. Rank mode 'performer' takes its feature matrices
+    ``proj`` (h, m, d) from the caller, or draws them on ``device`` with
+    m = max(2 dh, 4 fixed_rank) from a CPU generator seeded 42 (the
+    reference draws them with ``jax.random`` at ``PRNGKey(42)``;
+    ``convert.proj_from_jax`` carries those across)."""
     rcfg = cfg.rank
     if rcfg.mode == "off" and not (collect_qkv or collect_mass):
         return None
     ctx = {"cfg": rcfg, "t": t, "compute_fidelity": compute_fidelity,
            "collect_qkv": collect_qkv, "collect_mass": collect_mass,
            "mass_q_len": mass_q_len}
+    if rcfg.mode == "performer":
+        if proj is None:
+            dh = cfg.resolved_head_dim()
+            proj = baselines.orthogonal_proj(
+                torch.Generator().manual_seed(42), cfg.num_heads,
+                max(2 * dh, 4 * rcfg.fixed_rank), dh)
+        ctx["proj"] = proj.to(device)
     if rcfg.mode == "drrl":
         if policy_params is None:
             raise ValueError("rank mode 'drrl' needs policy params (the "
@@ -143,14 +155,15 @@ def make_rank_ctx(cfg: ModelConfig, *, policy_params=None, h_t=None, t=0,
 
 
 def _rank_layer_ctx(cfg: ModelConfig, rank_ctx, lp, li: int, prev_rank,
-                    power_v0):
+                    power_v0, rng=None):
     """Layer ``li``'s rank context: the agent's prev_rank carry, layer
-    index and (rank mode 'drrl') the layer's weight statistics w_t."""
+    index, (rank mode 'drrl') the layer's weight statistics w_t and (rank
+    mode 'random') its ``core.prng`` key ``rng``."""
     if rank_ctx is None:
         return None
     w_t = (drrl.weight_stats(lp["attn"], cfg.rank.power_iters, v0=power_v0)
            if cfg.rank.mode == "drrl" else None)
-    return dict(rank_ctx, prev_rank=prev_rank, layer_id=li, w_t=w_t)
+    return dict(rank_ctx, prev_rank=prev_rank, layer_id=li, w_t=w_t, rng=rng)
 
 
 def _drrl_setup(cfg: ModelConfig, params, x, policy_params, power_v0):
@@ -167,6 +180,8 @@ def _drrl_setup(cfg: ModelConfig, params, x, policy_params, power_v0):
 def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
                   policy_params=None, rl_t=0, greedy: bool = True,
                   rank_generator: Optional[torch.Generator] = None,
+                  rank_rng: Optional[torch.Tensor] = None,
+                  proj: Optional[torch.Tensor] = None,
                   power_v0: Optional[Dict[str, torch.Tensor]] = None,
                   compute_fidelity=False, collect_aux: str = "none",
                   chunked: bool = False, collect_qkv: bool = False,
@@ -176,11 +191,17 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
     aux['layers'] the per-layer aux selected by ``collect_aux``, stacked on
     a leading L axis.
     ``chunked`` sends every attention over more than 1024 keys through the
-    ``lowrank_flash`` kernel. Rank modes 'off', 'fixed', 'adaptive' and
-    'drrl'. In 'drrl' the agent (``policy_params``) picks each layer's
-    ranks from h_t (once, from the embeddings), the layer's w_t and the
-    previous layer's ranks (r_max before layer 0); ``rl_t`` anneals its
-    guardrail and ``greedy=False`` samples from ``rank_generator``.
+    ``lowrank_flash`` kernel. Every rank mode: 'off', 'fixed',
+    'adaptive', 'random', 'drrl', 'performer' and 'nystrom'. In 'drrl' the
+    agent (``policy_params``) picks each layer's ranks from h_t (once,
+    from the embeddings), the layer's w_t and the previous layer's ranks
+    (r_max before layer 0); ``rl_t`` anneals its guardrail and
+    ``greedy=False`` samples from ``rank_generator``. In 'random' the
+    ``core.prng`` key ``rank_rng`` is split once per layer, as JAX's scan
+    splits it, and each layer draws from its half, on the key's device: a
+    CPU key keeps the draws' few hundred tiny integer ops per layer off the
+    card, and only each layer's (b, hkv) ranks move to it. ``proj`` is the
+    'performer' feature matrices (see :func:`make_rank_ctx`).
     ``power_v0`` {'wq', 'wk', 'wv': start vector} overrides the start
     vectors of w_t's power iterations (default ``drrl.power_starts``)."""
     dtype = nn.dt(cfg.dtype)
@@ -191,17 +212,22 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
     h_t, power_v0 = _drrl_setup(cfg, params, x, policy_params, power_v0)
     rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t,
                              t=rl_t, greedy=greedy, generator=rank_generator,
+                             proj=proj, device=x.device,
                              compute_fidelity=compute_fidelity,
                              collect_qkv=collect_qkv,
                              collect_mass=collect_mass, mass_q_len=mass_q_len)
     prev = torch.full((b, cfg.num_kv_heads), cfg.rank.rank_grid[-1],
                       dtype=torch.int32, device=x.device)
+    key = rank_rng
     aux_layers = []
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
+        sub = None
+        if rank_ctx is not None and key is not None:
+            key, sub = prng.split(key)
         x, _, aux = _block(cfg, lp, x, positions,
                            _rank_layer_ctx(cfg, rank_ctx, lp, li, prev,
-                                           power_v0), None, chunked)
+                                           power_v0, rng=sub), None, chunked)
         prev = aux.get("rank", prev)
         aux_layers.append(_aux_slim(aux, collect_aux))
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
@@ -236,12 +262,18 @@ def init_cache_dense(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
                       positions=None, policy_params=None,
+                      rank_rng: Optional[torch.Tensor] = None,
+                      proj: Optional[torch.Tensor] = None,
                       power_v0: Optional[Dict[str, torch.Tensor]] = None,
                       chunked: bool = False):
     """One decode step: tokens (b, s_new) appended at cache['len'].
     Returns (logits (b, s_new, V), new_cache); the cache tensors are
     updated in place. Rank mode 'drrl' takes the agent's greedy actions,
-    h_t from this step's embeddings (``power_v0`` as in forward_dense)."""
+    h_t from this step's embeddings (``power_v0`` as in forward_dense).
+    In rank mode 'random' every layer draws from ``rank_rng`` itself (the
+    reference's decode step does not split it); 'performer' and 'nystrom'
+    run their non-causal form over the whole cache buffer, as the
+    reference's do."""
     dtype = nn.dt(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
     b, s, _ = x.shape
@@ -249,7 +281,8 @@ def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
     if positions is None:
         positions = (start + torch.arange(s, device=x.device))[None].expand(b, s)
     h_t, power_v0 = _drrl_setup(cfg, params, x, policy_params, power_v0)
-    rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t)
+    rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t,
+                             proj=proj, device=x.device)
     prev = torch.full((b, cfg.num_kv_heads), cfg.rank.rank_grid[-1],
                       dtype=torch.int32, device=x.device)
     for li in range(cfg.num_layers):
@@ -257,7 +290,8 @@ def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
         layer_cache = {"k": cache["k"][li], "v": cache["v"][li], "len": start}
         x, _, aux = _block(cfg, lp, x, positions,
                            _rank_layer_ctx(cfg, rank_ctx, lp, li, prev,
-                                           power_v0), layer_cache, chunked)
+                                           power_v0, rank_rng), layer_cache,
+                           chunked)
         prev = aux.get("rank", prev)
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
     return _logits(params, x), {"k": cache["k"], "v": cache["v"],

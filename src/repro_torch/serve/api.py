@@ -9,13 +9,18 @@ SamplingParams, ``Engine.submit() -> RequestHandle``.
         ...
     # or: eng.run(); h.result()
 
+    h2 = eng.submit(prompt_ids, SamplingParams(temperature=0.8, top_k=40,
+                                               seed=7, max_new=64))
+    h2.cancel()                     # queued: dropped; admitted: evicted
+
 ``EngineConfig`` keeps the JAX field names and defaults; both chunked
-prefill and one-shot prefill (``prefill_chunk=None``) are served. Knobs
-this port does not serve yet raise ``NotImplementedError`` naming the
-ROADMAP item: speculation, the prefix cache, the drift trigger, traces,
-obs tracing, flight dumps, nucleus sampling, and any request with
-temperature, top-k or top-p set. Greedy serving is
-exact: a greedy row is the argmax whether or not sampling is compiled in.
+prefill and one-shot prefill (``prefill_chunk=None``) are served, and so
+are seeded sampling (temperature, top-k, and top-p with ``nucleus=True``:
+the JAX engine's tokens for the same seed), ``cancel`` and the drift
+trigger (``drift_threshold``). Knobs this port does not serve yet raise
+``NotImplementedError`` naming the ROADMAP item: speculation, the prefix
+cache, traces, obs tracing and flight dumps. A greedy row is the argmax
+whether or not sampling is on.
 """
 from __future__ import annotations
 
@@ -33,8 +38,8 @@ from repro_torch.serve.scheduler import Request
 
 @dataclass(frozen=True)
 class SamplingParams:
-    """Per-request generation knobs (greedy by default; only greedy is
-    served by this port)."""
+    """Per-request generation knobs (greedy by default). ``seed`` keys the
+    request's draws: a sampled stream is a pure function of the request."""
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -137,31 +142,41 @@ class RequestHandle:
     def tokens(self):
         """Generator of generated token ids, in order; drives
         ``engine.step()`` whenever it runs dry. Attaching a consumer makes
-        the engine fetch emitted token values each step."""
+        the engine fetch emitted token values each step. A ``cancel()``
+        ends the iteration cleanly."""
         self._engine._ensure_streaming(self)
         i = 0
         while True:
             while i < len(self._toks):
                 yield self._toks[i]
                 i += 1
-            if self.done:
+            if self.done or self.cancelled:
                 return
             self._check_stopped()
             self._engine.step()
 
     def result(self) -> np.ndarray:
         """Drive the engine until this request finishes; returns its
-        generated ids."""
+        generated ids (the ones delivered before a cancel)."""
         while not self.done:
             self._check_stopped()
             self._engine.step()
         return self._result
 
+    def cancel(self) -> bool:
+        """Abort this request: queued -> dropped, decoding or mid-prefill
+        -> slot evicted and pages released. ``result()`` then returns the
+        tokens delivered so far and iterators end; no token is delivered
+        after cancel() returns. False if the request had already
+        finished."""
+        return self._engine.cancel(self.rid)
+
     # -- called by Engine ------------------------------------------------
 
     def _feed(self, idx: int, tok: int) -> None:
-        """Deliver token ``idx``, strictly in order."""
-        if idx != len(self._toks) or self._stopped:
+        """Deliver token ``idx``, strictly in order; a cancelled or stopped
+        handle takes no more."""
+        if idx != len(self._toks) or self.cancelled or self._stopped:
             return
         with self._cv:
             self._toks.append(tok)
@@ -180,6 +195,15 @@ class RequestHandle:
             self._feed(i, int(out[i]))
         with self._cv:
             self._result = np.asarray(out, np.int32)
+            self.done_s = time.perf_counter() - self._submit_s
+            self._cv.notify_all()
+
+    def _mark_cancelled(self) -> None:
+        """Seal the handle after an engine-level cancel: the result is
+        whatever was delivered before the cut."""
+        with self._cv:
+            self.cancelled = True
+            self._result = np.asarray(self._toks, np.int32)
             self.done_s = time.perf_counter() - self._submit_s
             self._cv.notify_all()
 
@@ -207,7 +231,8 @@ class Engine:
             drift_threshold=c.drift_threshold,
             time_per_token=c.time_per_token, factor_cache=c.factor_cache,
             prefill_chunk=c.prefill_chunk, sampling=c.sampling,
-            nucleus=c.nucleus, prefix_cache=c.prefix_cache,
+            nucleus=c.nucleus, top_k_cap=c.top_k_cap,
+            prefix_cache=c.prefix_cache,
             speculative=c.speculative, record_traces=c.record_traces,
             obs_trace=c.obs_trace, flight_dir=c.flight_dir, device=device)
         self._handles: Dict[int, RequestHandle] = {}
@@ -248,6 +273,22 @@ class Engine:
                 self._streaming.add(rid)
                 self.core._stream_sync = True
         return h
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a submitted request (see :meth:`RequestHandle.cancel`),
+        under the step lock: no step is in flight while the slot is
+        evicted, and no token is delivered after the handle is sealed.
+        False if already finished or cancelled."""
+        with self._step_lock:
+            h = self._handles.get(rid)
+            if h is None or h.done:
+                return False
+            self.core.cancel(rid)
+            h._mark_cancelled()
+            self._streaming.discard(rid)
+            if not self._streaming:
+                self.core._stream_sync = False
+            return True
 
     def _ensure_streaming(self, handle: RequestHandle) -> None:
         if handle.done:

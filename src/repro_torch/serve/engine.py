@@ -1,5 +1,5 @@
 """Continuous-batching serving engine of the port (``repro.serve.engine.
-ServeEngine``, the greedy path).
+ServeEngine``).
 
 One engine = one slot-paged KV cache + one scheduler + two fused steps:
 
@@ -9,7 +9,9 @@ One engine = one slot-paged KV cache + one scheduler + two fused steps:
     re-projects its K factors;
   * ONE fused **decode step** over all slots (models.transformer.
     decode_step_paged) with per-row kv_len, per-row rank, in-graph
-    attention-mass accumulation and greedy selection; prompts are
+    attention-mass accumulation and token selection (greedy, or with
+    ``sampling`` seeded temperature / top-k / top-p draws whose gumbel
+    noise is JAX's threefry bits, ``core.prng``); prompts are
     consumed ``prefill_chunk`` tokens at a time inside the **mixed** form
     of that step, alongside the live decode rows. With
     ``prefill_chunk=None`` a prompt is instead prefilled in one shot at
@@ -19,7 +21,8 @@ One engine = one slot-paged KV cache + one scheduler + two fused steps:
 
 Lengths, ranks and tokens stay on the device between steps; the host
 fetches token values only when a live request carries an ``eos_id`` or a
-streaming consumer is attached.
+streaming consumer is attached. With ``drift_threshold`` set, each step
+that decodes also fetches one (n_slots,) drift vector (``_check_drift``).
 
 Unlike JAX, PyTorch updates the step's buffers in place: the pools, the
 output buffer and the decision's basis / spectra / factors are written
@@ -40,10 +43,11 @@ import torch
 from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.models.api import get_model
 from repro_torch.models.transformer import forward_dense
 from repro_torch.serve.kv_cache import PagedKVCache
-from repro_torch.serve.policy import make_decide_fn
+from repro_torch.serve.policy import basis_drift, make_decide_fn
 from repro_torch.serve.scheduler import Request, Scheduler, prefill_buckets
 
 
@@ -66,6 +70,7 @@ class ServeEngine:
                  factor_cache: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
                  sampling: bool = False, nucleus: bool = False,
+                 top_k_cap: int = 64,
                  prefix_cache: bool = False, speculative: bool = False,
                  record_traces: Optional[str] = None,
                  obs_trace: bool = False, flight_dir: Optional[str] = None,
@@ -75,12 +80,9 @@ class ServeEngine:
         for flag, what, item in (
                 (speculative, "speculative decoding", "item 12"),
                 (prefix_cache, "the prefix cache", "item 13"),
-                (drift_threshold is not None, "the drift trigger",
-                 "item 7: basis_drift"),
                 (record_traces, "serving traces", "item 14"),
                 (obs_trace, "repro.obs tracing", "item 14"),
-                (flight_dir, "the flight recorder", "item 14"),
-                (nucleus, "nucleus sampling", "item 8: sampling")):
+                (flight_dir, "the flight recorder", "item 14")):
             if flag:
                 raise not_ported(what, item)
         self.device = torch.device(device)
@@ -92,11 +94,18 @@ class ServeEngine:
         self.n_slots = n_slots
         self.max_new_cap = max_new_cap
         self.use_kernel = use_kernel
+        self.drift_threshold = drift_threshold
         self.time_per_token = time_per_token
         self.chunk = prefill_chunk
-        # ``sampling`` needs no state: greedy rows are bitwise the argmax
-        # with or without sampling compiled in (JAX engine.py:534), so both
-        # settings serve greedy
+        # sampling=True runs the temperature / top-k / gumbel tail in the
+        # fused step; greedy rows stay bitwise the argmax either way.
+        # nucleus=True adds the top-p cut (a full-vocab softmax and sort per
+        # step), so engines that never serve top_p < 1 leave it off
+        self.sampling = sampling
+        self.nucleus = bool(nucleus)
+        if self.nucleus and not sampling:
+            raise ValueError("nucleus (top-p) requires sampling=True")
+        self.top_k_cap = int(top_k_cap)
         self.cache = PagedKVCache(cfg, n_slots, max_len, page_size,
                                   factored=factor_cache, device=self.device)
         # submit() and admission may run on different threads; one lock
@@ -114,6 +123,7 @@ class ServeEngine:
         self._step = self._step_impl
         self._step_mixed = (self._step_mixed_impl if self.chunk is not None
                             else None)
+        self._drift = basis_drift if drift_threshold is not None else None
         self._reset_state()
 
     def _reset_state(self):
@@ -132,6 +142,14 @@ class ServeEngine:
         self._active_dev = None
         self._plen_dev = None
         self._lens_dev = None
+        # per-slot sampling state (host mirrors; device copies pushed with
+        # the control sync on admission)
+        self._temp = np.zeros((ns,), np.float32)
+        self._topk = np.zeros((ns,), np.int32)
+        self._topp = np.ones((ns,), np.float32)
+        self._seed = np.zeros((ns,), np.uint32)
+        self._temp_dev = self._topk_dev = self._topp_dev = None
+        self._seed_dev = None
         self.prompt_buf = torch.zeros((ns, self.cache.max_len),
                                       dtype=torch.long, device=dev)
         self.stats: Dict[str, float] = {
@@ -161,7 +179,7 @@ class ServeEngine:
     # -- request plane ---------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        """Enqueue a greedy request (thread-safe)."""
+        """Enqueue a request (thread-safe)."""
         if req.max_new > self.max_new_cap:
             raise ValueError(f"max_new {req.max_new} > engine cap "
                              f"{self.max_new_cap}")
@@ -170,11 +188,38 @@ class ServeEngine:
             raise ValueError(
                 f"request needs {len(req.tokens) + req.max_new} cache "
                 f"positions but a slot holds only {self.cache.max_len}")
-        if req.temperature > 0 or req.top_k > 0 or req.top_p < 1.0:
-            raise not_ported("sampling (temperature / top_k / top_p)",
-                             "item 8: _select_token")
+        if ((req.temperature > 0 or req.top_k > 0 or req.top_p < 1.0)
+                and not self.sampling):
+            raise ValueError("request asks for sampling but the engine was "
+                             "built with sampling=False (greedy only)")
+        if req.top_p < 1.0 and not self.nucleus:
+            raise ValueError("request asks for top_p but the engine was "
+                             "built with nucleus=False (the top-p cut is a "
+                             "full-vocab sort per step; build the engine "
+                             "with nucleus=True)")
+        if req.top_k > self.top_k_cap:
+            raise ValueError(f"top_k {req.top_k} > engine top_k_cap "
+                             f"{self.top_k_cap}")
         with self._lock:
             self.sched.submit(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a request: a queued one is dropped, an admitted one
+        (decoding or mid-prefill) is evicted and its pages released; its
+        output so far joins ``sched.finished``. Returns False when ``rid``
+        is not live (finished, cancelled or never submitted). A caller
+        driving the step loop on another thread serialises this against
+        step() (``serve.api.Engine.cancel`` holds the step lock)."""
+        with self._lock:
+            if self.sched.cancel_pending(rid):
+                return True
+            for i, st in enumerate(self.sched.slots):
+                if st.active and st.req.rid == rid:
+                    outputs = self.out_buf[i, :st.n_out].tolist()
+                    self.sched.evict(i, self.cache.release, outputs)
+                    self._dirty = True
+                    return True
+        return False
 
     def _adopt_pools(self, pools) -> None:
         """Take the fused step's returned pools as the cache's pools (the
@@ -210,7 +255,8 @@ class ServeEngine:
                 self.cache.kt_pool, self.cache.mass_pool,
                 self._pt_dev, self.tokens, self._lens_dev,
                 self.cache.ranks, self.cache.basis, idle, self.out_buf,
-                self._plen_dev, *extra)
+                self._plen_dev, self._temp_dev, self._topk_dev,
+                self._topp_dev, self._seed_dev, *extra)
             self._adopt_pools(pools)
             self.out_buf = ob
             self.stats["warmup_steps"] += 1
@@ -237,14 +283,66 @@ class ServeEngine:
         qkv = aux["layers"]["qkv"]
         return logits, qkv["k"], qkv["v"], aux["layers"]["mass"] if with_mass else None
 
-    def _select_token(self, logits):
-        """Greedy next token per row from (ns, V) logits (first index of
-        the max, as ``jnp.argmax``)."""
-        return torch.argmax(logits, dim=-1)
+    def _select_token(self, logits, out_pos, temps, topks, topps, seeds):
+        """Next token per row from (ns, V) logits. ``out_pos`` is each
+        row's output index (0 = first generated token): the gumbel noise
+        is keyed by ``fold_in(key(seed), out_pos)``, so a stream's draws
+        are a pure function of its request, whatever the batching,
+        admission mode or chunking, and are the JAX engine's bits. Greedy
+        rows (temperature 0) take the plain argmax (first index of the
+        max, as ``jnp.argmax``).
+
+        Filter order as the reference: top-k on the logits (ties at the
+        k-th value all stay), temperature scale, then with ``nucleus`` the
+        top-p cut (the smallest probability-sorted set whose mass reaches
+        ``top_p``; probability ties at the cut all stay; ``top_p == 1``
+        rows bypass it), then ``argmax(scaled + gumbel)``."""
+        greedy = torch.argmax(logits, dim=-1)
+        if not self.sampling:
+            return greedy
+        ns, V = logits.shape
+        kcap = min(self.top_k_cap, V)
+        kth = torch.topk(logits, kcap, dim=-1).values          # (ns, kcap)
+        sel = (topks.long() - 1).clamp(0, kcap - 1)
+        thr = kth.gather(1, sel[:, None])
+        neg_inf = torch.tensor(float("-inf"), device=logits.device)
+        masked = torch.where((topks[:, None] > 0) & (logits < thr), neg_inf,
+                             logits)
+        scaled = masked / temps.clamp_min(1e-6)[:, None]
+        if self.nucleus:
+            # keep tokens whose probability is >= the smallest probability
+            # still inside the top_p mass (sorted-cumsum rule)
+            pr = torch.softmax(scaled, dim=-1)
+            srt = torch.sort(pr, dim=-1, descending=True).values
+            cum = torch.cumsum(srt, dim=-1)
+            keep = (cum - srt) < topps[:, None]   # mass before token < p
+            p_min = torch.where(keep, srt, -neg_inf).amin(dim=-1, keepdim=True)
+            scaled = torch.where((topps[:, None] < 1.0) & (pr < p_min),
+                                 neg_inf, scaled)
+        keys = prng.fold_in(prng.key(seeds), out_pos)
+        g = prng.gumbel(keys, (V,))
+        sampled = torch.argmax(scaled + g, dim=-1)
+        return torch.where(temps > 0, sampled, greedy)
+
+    def _select1(self, logits, req: Request):
+        """Token 0 of a one-shot admission from the prompt's last logits
+        (V,): the fused step's selection at output index 0, so a stream
+        draws the same whether token 0 comes from a chunk or a one-shot
+        prefill."""
+        if not (self.sampling and (req.temperature > 0 or req.top_k > 0
+                                   or req.top_p < 1.0)):
+            return torch.argmax(logits)
+        dev = logits.device
+        return self._select_token(
+            logits[None], torch.zeros((1,), dtype=torch.long, device=dev),
+            torch.tensor([req.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([req.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([req.top_p], dtype=torch.float32, device=dev),
+            torch.tensor([int(np.uint32(req.seed))], device=dev))[0]
 
     def _step_impl(self, params, pool_k, pool_v, kt_pool, mass_pool,
                    page_table, tokens, lens, ranks, basis, active, out_buf,
-                   prompt_lens):
+                   prompt_lens, temps, topks, topps, seeds):
         ns = tokens.shape[0]
         off = self.cfg.rank.mode == "off"
         logits, pools = self.fns.decode_step_paged(
@@ -257,7 +355,8 @@ class ServeEngine:
         out_idx = torch.where(active, torch.clamp(lens - prompt_lens + 1,
                                                   max=self.max_new_cap - 1),
                               torch.zeros_like(lens))
-        tok = self._select_token(logits[:, 0])[:, None]
+        tok = self._select_token(logits[:, 0], out_idx,
+                                 temps, topks, topps, seeds)[:, None]
         tok = torch.where(active[:, None], tok, tokens)
         row = torch.where(active, torch.arange(ns, device=lens.device),
                           torch.full_like(lens, ns))    # dead -> scratch row
@@ -267,7 +366,8 @@ class ServeEngine:
 
     def _step_mixed_impl(self, params, pool_k, pool_v, kt_pool, mass_pool,
                          page_table, tokens, lens, ranks, basis, active,
-                         out_buf, prompt_lens, prompt_buf):
+                         out_buf, prompt_lens, temps, topks, topps, seeds,
+                         prompt_buf):
         """One mixed fused step: live decode rows advance one token while
         mid-prefill rows consume the next ``chunk`` tokens of their prompt
         from the device-resident ``prompt_buf``."""
@@ -294,7 +394,8 @@ class ServeEngine:
         out_idx = torch.where(emit, torch.clamp(lens_after - prompt_lens, 0,
                                                 self.max_new_cap - 1),
                               torch.zeros_like(lens))
-        tok = self._select_token(logits[:, 0])[:, None]
+        tok = self._select_token(logits[:, 0], out_idx,
+                                 temps, topks, topps, seeds)[:, None]
         tok = torch.where(emit[:, None], tok, tokens)
         row = torch.where(emit, torch.arange(ns, device=lens.device),
                           torch.full_like(lens, ns))    # no-emit -> scratch
@@ -314,6 +415,10 @@ class ServeEngine:
             np.array([s.prompt_len if s.active else 0
                       for s in self.sched.slots], np.int64), device=dev)
         self._lens_dev = torch.as_tensor(self.cache.lens, device=dev).long()
+        self._temp_dev = torch.as_tensor(self._temp, device=dev)
+        self._topk_dev = torch.as_tensor(self._topk, device=dev)
+        self._topp_dev = torch.as_tensor(self._topp, device=dev)
+        self._seed_dev = torch.as_tensor(self._seed.astype(np.int64), device=dev)
         self._dirty = False
 
     def _admit(self) -> List[int]:
@@ -333,6 +438,10 @@ class ServeEngine:
             # rank state: first decision is veto-free, fresh clock
             self.has_rank[slot] = False
             self.force_decide[slot] = False
+            self._temp[slot] = req.temperature
+            self._topk[slot] = req.top_k
+            self._topp[slot] = req.top_p
+            self._seed[slot] = np.uint32(req.seed)
             if self.chunk is not None:
                 buf = np.zeros((self.cache.max_len,), np.int64)
                 buf[:len(req.tokens)] = req.tokens
@@ -345,7 +454,7 @@ class ServeEngine:
             padded[0, :s] = req.tokens
             logits, k_l, v_l, mass_l = self._prefill(
                 self.params, torch.as_tensor(padded, device=self.device), s)
-            tok0 = self._select_token(logits[0, s - 1])
+            tok0 = self._select1(logits[0, s - 1], req)
             mass = (None if mass_l is None
                     else mass_l[:, 0].transpose(1, 2)[:, :s])  # (L, s, hkv)
             self.cache.write_prefill(slot, k_l[:, 0, :s], v_l[:, 0, :s],
@@ -407,6 +516,23 @@ class ServeEngine:
         self.has_rank |= boundary
         self.force_decide &= ~boundary
 
+    def _check_drift(self, live: List[int]) -> None:
+        """Early re-decision trigger: the newest K token's layer-0 residual
+        energy outside each live slot's stored basis; ``force_decide`` is
+        set where it exceeds ``drift_threshold`` (the next step's
+        ``_maybe_decide`` re-decides there). One (n_slots,) fetch."""
+        ns, ps = self.n_slots, self.cache.page_size
+        pos = np.maximum(self.cache.lens - 1, 0)
+        phys = self.cache.page_table[np.arange(ns), pos // ps]
+        dev = self.device
+        k_tok = self.cache.k_pool[0][torch.as_tensor(phys, device=dev).long(),
+                                     torch.as_tensor(pos % ps, device=dev)]
+        drift = self._drift(k_tok, self.cache.basis[0],
+                            self.cache.ranks).cpu().numpy()
+        for i in live:
+            if self.has_rank[i] and drift[i] > self.drift_threshold:
+                self.force_decide[i] = True
+
     def _evict_finished(self) -> None:
         for i, st in enumerate(self.sched.slots):
             if st.active and self.sched.should_evict(i):
@@ -454,7 +580,8 @@ class ServeEngine:
                 self.cache.kt_pool, self.cache.mass_pool,
                 self._pt_dev, self.tokens, self._lens_dev,
                 self.cache.ranks, self.cache.basis, self._active_dev,
-                self.out_buf, self._plen_dev, *extra)
+                self.out_buf, self._plen_dev, self._temp_dev,
+                self._topk_dev, self._topp_dev, self._seed_dev, *extra)
             self._adopt_pools(pools)
             self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
             dt = None
@@ -493,6 +620,8 @@ class ServeEngine:
             self.stats["tokens_decoded"] += len(decoding)
             if mid:
                 self.stats["mixed_steps"] += 1
+            if self._drift is not None and decoding:
+                self._check_drift(decoding)
             self._evict_finished()
         self.now += 1
 

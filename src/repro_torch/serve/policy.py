@@ -1,6 +1,6 @@
 """Per-slot segment-level rank decision (port of
-``repro.serve.policy.make_decide_fn`` for the 'fixed', 'adaptive', 'drrl'
-and 'learned' modes).
+``repro.serve.policy.make_decide_fn``, every rank mode) and the drift
+trigger's ``basis_drift``.
 
 The eigenbasis comes from the softmax-weighted Gram G = K^T diag(w) K, with
 w the slot's accumulated per-key attention mass (zero mass degrades to
@@ -16,6 +16,9 @@ uniform weights, i.e. the plain Gram). Decision rules per slot:
                              head mean
   * mode == 'learned'     -> the same inference path as 'drrl' (params
                              trained offline come from the caller)
+  * mode == 'random'      -> uniform grid draw keyed by
+                             fold_in(fold_in(key(17), t), slot): JAX's
+                             randint bits (``core.prng``)
   * transition veto       -> Eq. 9 relative bound at the chosen bucket vs
                              the slot's annealed eps_t, the "before" side
                              taken from the slot's persisted spectra
@@ -31,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lowrank as lr
 from repro_torch.core import perturbation as pert
+from repro_torch.core import prng
 from repro_torch.core.drrl import build_features
 from repro_torch.core.policy import policy_apply
 
@@ -64,10 +68,8 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
             f"rank mode {rcfg.mode!r} needs policy params: pass them as the "
             "third positional arg (ServeEngine(cfg, params, policy_params) "
             "/ Engine(cfg, params, policy_params, config=...))")
-    if rcfg.mode not in ("fixed", "adaptive", "drrl", "learned"):
-        raise NotImplementedError(
-            f"rank mode {rcfg.mode!r} is not ported yet (ROADMAP queue 1, "
-            "item 7: serve/policy.py)")
+    if rcfg.mode not in ("fixed", "adaptive", "drrl", "learned", "random"):
+        raise ValueError(f"rank mode {rcfg.mode!r} has no serving decision")
     g_lo, g_hi = int(rcfg.rank_grid[0]), int(rcfg.rank_grid[-1])
     dh = cfg.resolved_head_dim()
     r_keep = min(g_hi, dh)
@@ -110,6 +112,11 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
             r = lr.rank_for_energy(s2, rcfg.energy_threshold, g_lo, g_hi)
             med = median_mean(r.float())
             chosen = grid[torch.argmin((grid.float() - med).abs())]
+        elif rcfg.mode == "random":
+            # both the slot and its segment clock fold into the key; the
+            # draw's tiny integer ops run on the host, the index moves over
+            key = prng.fold_in(prng.fold_in(prng.key(17), t), slot)
+            chosen = grid[prng.randint(key, (), 0, grid.shape[0]).to(dev).long()]
         else:
             # 'drrl' / 'learned': zero h_t and w_t, layer 0, spectra-only
             # state (the recipe the serving-policy trainer records)
@@ -148,3 +155,21 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
         return ranks, basis, spectra, kt_pool, vetoed
 
     return decide
+
+
+def basis_drift(k_tok: torch.Tensor, basis: torch.Tensor,
+                ranks: torch.Tensor) -> torch.Tensor:
+    """Residual energy of the newest K token outside each slot's stored
+    layer-0 eigenbasis (its first ``rank`` columns): (n_slots,) in [0, 1].
+    High drift means the segment's subspace went stale, and the engine
+    re-decides early. k_tok: (n_slots, hkv, dh); basis: (n_slots, hkv, dh,
+    r_keep); ranks: (n_slots,)."""
+    r_keep = basis.shape[-1]
+    col_ok = (torch.arange(r_keep, device=basis.device)[None, :]
+              < ranks[:, None].clamp_max(r_keep)).float()
+    b = basis * col_ok[:, None, None, :]
+    kf = k_tok.float()
+    proj = torch.einsum("shd,shdr,sher->she", kf, b, b)
+    num = ((kf - proj) ** 2).sum(dim=(1, 2))
+    den = (kf ** 2).sum(dim=(1, 2)).clamp_min(1e-30)
+    return num / den

@@ -6,7 +6,8 @@ The forward runs at s = 1040 > 1024 keys with ``chunked=True``, so both
 sides take their flash-semantics branch: JAX its XLA ``_attend_chunked``,
 the port ``ops.flash_attention`` (the ``lowrank_flash`` kernel's plain
 version on the CPU). Rank modes 'off', 'fixed', 'adaptive' and 'drrl' in
-the 'masked' and 'static' realisations, on the reduced drrl-paper model and
+the 'masked' and 'static' realisations, and 'random', 'performer' and
+'nystrom' (the paper's comparison set), on the reduced drrl-paper model and
 on reduced qwen2.5-14b (GQA, qkv bias). In 'drrl' the agent is JAX
 ``init_agent(PRNGKey(7))`` through ``agent_from_jax``, and w_t's power
 iterations start from JAX's own start vectors (``jax_power_v0``); the
@@ -34,7 +35,10 @@ from repro.configs.base import RankConfig  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.models.api import get_model as jax_get_model  # noqa: E402
+from repro.core import baselines as jbaselines  # noqa: E402
+from repro_torch.convert import proj_from_jax  # noqa: E402
 from repro_torch.core import lowrank as tlr  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.kernels import lowrank_flash  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -284,12 +288,67 @@ def test_lowrank_helpers_match_jax(fn):
     _close(got, want, 1e-4, 1e-5)
 
 
+def _comparison_kw(cfg, mode):
+    """(JAX kwargs, port kwargs) of rank modes 'random' (the same key on
+    both sides) and 'performer' (JAX's own ``orthogonal_proj`` at
+    ``PRNGKey(42)`` carried across)."""
+    if mode == "random":
+        return {"rank_rng": jax.random.PRNGKey(3)}, {"rank_rng": prng.key(3)}
+    if mode == "performer":
+        dh = cfg.resolved_head_dim()
+        proj = jbaselines.orthogonal_proj(
+            jax.random.PRNGKey(42), cfg.num_heads,
+            max(2 * dh, 4 * cfg.rank.fixed_rank), dh)
+        return {}, {"proj": proj_from_jax(jax.device_get(proj), device="cpu")}
+    return {}, {}
+
+
 @pytest.mark.parametrize("mode", ["random", "performer", "nystrom"])
-def test_unported_forward_modes_fail_loudly(mode):
-    _, tcfg, _, tparams = _model("drrl-paper", "fixed", "masked", False)
-    cfg = tcfg.with_(rank=tcfg.rank.__class__(mode=mode, rank_grid=GRID))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.forward_dense(cfg, tparams, torch.zeros((1, 8), dtype=torch.long))
+def test_comparison_modes_match_jax(mode):
+    """The forward in rank modes 'random' (masked, with fidelity: ranks
+    from the same ``rank_rng``, split once per layer on both sides) and
+    the static baselines 'performer' / 'nystrom' (fixed rank 8: 8
+    landmarks, max(2 dh, 4 * 8) = 32 features) at s = 1040 with
+    ``chunked``: logits 1e-4 absolute; 'random' ranks identical and
+    fidelity 1e-5."""
+    cfg, tcfg, jparams, tparams = _model("drrl-paper", mode, "masked", False)
+    jkw, tkw = _comparison_kw(cfg, mode)
+    toks = _tokens(2, S)
+    fid = mode == "random"
+    logits_j, aux_j = jtr.forward_dense(cfg, jparams, jnp.asarray(toks),
+                                        chunked=True, collect_aux="rl",
+                                        compute_fidelity=fid, **jkw)
+    logits_t, aux_t = ttr.forward_dense(tcfg, tparams, torch.from_numpy(toks),
+                                        chunked=True, collect_aux="rl",
+                                        compute_fidelity=fid, **tkw)
+    _close(logits_t, logits_j, 1e-4)
+    lj, lt = aux_j["layers"], aux_t["layers"]
+    assert sorted(lt) == sorted(lj)
+    if fid:
+        np.testing.assert_array_equal(lt["rank"].numpy(), np.asarray(lj["rank"]))
+        assert len(set(np.asarray(lj["rank"]).ravel())) >= 3
+        _close(lt["fidelity"], lj["fidelity"], 1e-5)
+        _close(lt["delta_a_grid"], lj["delta_a_grid"], 0.0, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["random", "performer", "nystrom"])
+def test_comparison_modes_decode_matches_jax(mode):
+    """``decode_step_dense`` in the same modes (the reference's decode
+    step gives every layer the unsplit ``rank_rng``, and runs the
+    baselines' non-causal form over the whole cache buffer): logits at
+    every step 1e-4."""
+    cfg, tcfg, jparams, tparams = _model("drrl-paper", mode, "masked", False)
+    jkw, tkw = _comparison_kw(cfg, mode)
+    toks = _tokens(2, 10, seed=4)
+    jcache = jax_get_model(cfg).init_cache(2, 32)
+    fns = get_model(tcfg)
+    tcache = fns.init_cache(2, 32, device="cpu")
+    for lo, hi in [(0, 6)] + [(i, i + 1) for i in range(6, 10)]:
+        lj, jcache = jtr.decode_step_dense(cfg, jparams, jcache,
+                                           jnp.asarray(toks[:, lo:hi]), **jkw)
+        lt, tcache = fns.decode_step(tparams, tcache, torch.from_numpy(toks[:, lo:hi]),
+                                     **tkw)
+        _close(lt, lj, 1e-4)
 
 
 @pytest.mark.parametrize("entry", ["forward_dense", "decode_step_dense"])

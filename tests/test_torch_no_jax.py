@@ -1,7 +1,10 @@
 """The port stands alone: with ``jax`` and the ``repro`` package made
 unimportable, every module of ``repro_torch`` and ``chip_smoke.py`` import,
-the engine serves two requests on the CPU, chunked and one-shot, a chunked
-``forward_dense`` runs its flash branch at s = 1040, the reduced
+the engine serves two requests on the CPU, chunked and one-shot, then
+seeded sampled requests in rank mode 'random' with the drift trigger and a
+cancel, a chunked ``forward_dense`` runs its flash branch at s = 1040, the
+forward runs in rank modes 'random', 'performer' and 'nystrom', the rank-r
+cache prefills and decodes, the reduced
 drrl-paper model in its own rank mode 'drrl' runs the forward and serves
 with the port's own seeded agent, and ``examples/quickstart_torch.py``
 trains that agent (BC, then PPO) on the CPU."""
@@ -42,6 +45,27 @@ eng = Engine(cfg, params, device="cpu", config=EngineConfig(
 hs2 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [list(a.result()) for a in hs2] == [list(a.result()) for a in hs]
+rcfg = cfg.with_(rank=RankConfig(mode="random", rank_grid=(4, 8, 12, 16), segment_len=8))
+eng = Engine(rcfg, params, device="cpu", config=EngineConfig(
+    n_slots=2, max_len=64, prefill_chunk=8, nucleus=True, drift_threshold=0.05))
+hs4 = [eng.submit(np.arange(n) % 256, SamplingParams(
+    max_new=6, temperature=0.8, top_k=20, top_p=0.9, seed=n)) for n in (9, 20, 12)]
+assert hs4[2].cancel() and not hs4[2].cancel()
+eng.run()
+assert [len(h.result()) for h in hs4] == [6, 6, 0]
+assert eng.core.cache.free_pages == eng.core.cache.n_pages - 1
+from repro_torch.core import prng
+from repro_torch.models import lowrank_cache as lrc
+toks = torch.arange(2 * 40).reshape(2, 40) % 256
+for mode in ("random", "performer", "nystrom"):
+    mcfg = cfg.with_(rank=RankConfig(mode=mode, rank_grid=(4, 8, 12, 16), fixed_rank=8))
+    lg, _ = get_model(mcfg).loss(params, {"tokens": toks, "labels": toks},
+                                 rank_rng=prng.key(1))
+    assert torch.isfinite(lg)
+c = lrc.init_lowrank_cache(cfg, 2, 48, 8, device="cpu")
+lg, c = lrc.prefill_lowrank(cfg, params, toks[:, :32], c, 8)
+lg, c = lrc.decode_step_lowrank(cfg, params, c, toks[:, 32:33])
+assert lg.shape == (2, 1, cfg.vocab_size) and c["len"] == 33
 loss, aux = get_model(cfg).loss(params, {
     "tokens": torch.arange(2 * 1040).reshape(2, 1040) % 256,
     "labels": torch.arange(2 * 1040).reshape(2, 1040) % 251},

@@ -1,7 +1,8 @@
 """The port's segment decision (``repro_torch.serve.policy``) against JAX
-``make_decide_fn`` on the same serving state, in 'fixed', 'adaptive' and
-'drrl' modes (the agent: JAX ``init_agent(PRNGKey(7))`` through
-``agent_from_jax``), first decisions and veto-checked transitions.
+``make_decide_fn`` on the same serving state, in 'fixed', 'adaptive',
+'random' and 'drrl' modes (the agent: JAX ``init_agent(PRNGKey(7))``
+through ``agent_from_jax``), first decisions and veto-checked transitions;
+and the drift trigger's ``basis_drift``.
 
 Ranks and the Eq. 9 ``vetoed`` flag must be equal. Spectra agree to 1e-4
 of the top eigenvalue and the rank-r projectors B_r B_r^T to 1e-4 (LAPACK
@@ -18,8 +19,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
 from repro.configs.base import RankConfig  # noqa: E402
+from repro.serve.policy import basis_drift as jax_basis_drift  # noqa: E402
 from repro.serve.policy import make_decide_fn as jax_make_decide  # noqa: E402
-from repro_torch.serve.policy import make_decide_fn, median_mean  # noqa: E402
+from repro_torch.serve.policy import (basis_drift, make_decide_fn,  # noqa: E402
+                                      median_mean)
 from torch_parity import jax_and_torch_agent, torch_config  # noqa: E402
 
 NS, PS, PPS = 3, 8, 4
@@ -85,7 +88,7 @@ def _check(cfg, st, slot, has_rank, t, check_basis=True):
     return int(r_j[slot]), bool(v_j)
 
 
-@pytest.mark.parametrize("mode", ["fixed", "adaptive", "drrl"])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive", "random", "drrl"])
 @pytest.mark.parametrize("slot,lens", [(0, (20, 32, 3)), (1, (20, 32, 3)),
                                        (2, (20, 32, 3))])
 def test_first_decision(mode, slot, lens):
@@ -155,3 +158,35 @@ def test_even_head_median_between_two_ranks():
     assert rank == 8
     heads = torch.tensor([4.0, 4.0, 11.0, 11.0])
     assert float(median_mean(heads)) == 7.5 and float(torch.median(heads)) == 4.0
+
+
+def test_random_draws_follow_slot_and_clock():
+    """Rank mode 'random' over 12 (slot, clock) pairs: the draw is
+    grid[randint(fold_in(fold_in(key(17), t), slot))] on both sides, and it
+    visits every bucket; the Eq. 9 veto then applies as in the other
+    modes."""
+    cfg = _cfg("random")
+    seen = set()
+    for t in range(4):
+        for slot in range(NS):
+            st = _state(cfg, (20, 32, 24), seed=10 + t)
+            rank, _ = _check(cfg, st, slot, t > 0, t, check_basis=False)
+            seen.add(rank)
+    assert seen == {4, 8, 12, 16}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_basis_drift_matches_jax(seed):
+    """The newest K token's residual energy outside each slot's first
+    ``rank`` basis columns: 1e-6 absolute (a ratio in [0, 1]); ranks above
+    r_keep are clamped to it."""
+    rng = np.random.default_rng(seed)
+    k_tok = rng.standard_normal((4, 2, 16)).astype(np.float32)
+    q, _ = np.linalg.qr(rng.standard_normal((4, 2, 16, 16)))
+    basis = q[..., :12].astype(np.float32)
+    ranks = np.array([4, 8, 12, 16], np.int32)
+    want = jax_basis_drift(jnp.asarray(k_tok), jnp.asarray(basis), jnp.asarray(ranks))
+    got = basis_drift(torch.from_numpy(k_tok), torch.from_numpy(basis),
+                      torch.from_numpy(ranks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert (got[:-1] >= got[1:] - 1e-6).all()      # more columns, less residual
