@@ -11,7 +11,8 @@ Phases (one line each, plus detail lines):
      f32 (2e-5, and the exact zero pattern of the probabilities) and bf16
      (two bf16 steps of each output element): the CPU tests' shapes, cases
      at the key splits the kernel's host plan picks on this card, and the
-     serving path's shapes;
+     serving path's shapes (decode, prefill chunk, and phase 15's draft read
+     at r = 16 and verify block with per-row q_lens);
   3. full-width serving of the drrl-paper model (12 layers, d_model 768,
      seeded random weights) through ``repro_torch.serve.Engine`` with the
      kernel on: adaptive rank, again with the factor cache, again in fixed
@@ -19,7 +20,8 @@ Phases (one line each, plus detail lines):
      CPU without it must give identical greedy tokens;
   4. one full-width mixed engine step with the kernel and with the plain
      attention on the same inputs: logits must agree;
-  5. times at the serving shapes, L2 flushed before each timed call:
+  5. times at the serving shapes (the four of phase 2), L2 flushed before
+     each timed call:
      kernel and plain version with and without probabilities, one PyTorch
      library call for the same attention (no probabilities), and the
      kernel's bound for each; then the adaptive serving run under
@@ -89,7 +91,26 @@ Phases (one line each, plus detail lines):
      memory); the rank-r cache (``prefill_lowrank`` of 2 x 2048 at rank 32,
      64 ``decode_step_lowrank`` steps fed ``decode_step_dense``'s greedy
      tokens: agreement reported, ms/step); the reduced model's forwards in
-     the three modes and its rank-r cache, card against CPU.
+     the three modes and its rank-r cache, card against CPU;
+ 15. low-rank self-speculative decoding and the prefix cache at full width:
+     (a) phase 3's workload, greedy, with the factor cache and
+     ``speculative=True, draft_k=4, draft_rank_frac=0.25``: 60 flash_decode
+     launches per speculative step (4 drafts and the verify, 12 layers
+     each), accept rate, tokens/s and ms/step beside phase 3's factor-cache
+     run, tokens against that run's, ``check_refs``; again with
+     ``adaptive_draft`` (its eff_draft_k over the run); a profiled
+     speculative run by layer; (b) run A's sampled requests, speculative,
+     against run A's tokens; (c) 8 prompts sharing a 1024-token prefix
+     (request 1 a cut of request 5's prompt, so request 5 copies a partly
+     filled tail page) with ``prefix_cache=True`` against the same run
+     without it: hits, reused tokens, copied pages, TTFT of the hits (each
+     step synced, report only), peak memory, ``check_refs`` over the tree's
+     pages after the run and after ``reset()``; then with speculation too;
+     (d) the reduced model's speculative, prefix and combined runs, card
+     with the kernel against the CPU without it (identical tokens, ranks and
+     stats). Full-width tokens must equal the plain run's, or a stream's
+     first differing token must sit where the plain run's top-two gap is
+     under 1e-4 (printed, with the count of such streams).
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -98,6 +119,7 @@ phase fails. The last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -200,6 +222,15 @@ MAIN_DECODE = (8, 12, 12, 1, 2048, 64, 64, (2048, 1, 700, 1500, 2047, 64, 1024, 
 MAIN_CHUNK = (8, 12, 12, 128, 2048, 64, 64,
               (128, 2048, 300, 1000, 129, 700, 1500, 64),
               (0, 1920, 172, 872, 1, 572, 1372, 63), None)
+# speculative serving (phase 15): a draft's single-token read of the factor
+# cache at the draft width r_cap = 16 of 64, at MAIN_DECODE's lengths; the
+# verify block, C = spec_chunk = 128, q_lens = draft_k + 1 = 5 on six
+# decode rows and two prefill rows (128, 70), probabilities on
+MAIN_DRAFT = (8, 12, 12, 1, 2048, 16, 64, MAIN_DECODE[7], None, None)
+MAIN_VERIFY = (8, 12, 12, 128, 2048, 64, 64,
+               (128, 1505, 305, 1005, 134, 642, 2045, 69),
+               (0, 1500, 300, 1000, 129, 572, 2040, 64),
+               (128, 5, 5, 5, 5, 70, 5, 5))
 
 
 def split_cases():
@@ -245,7 +276,8 @@ def check_kernel() -> float:
     both sides, computed in f32 from the same inputs: 2e-5 + 2e-5 |plain|
     in both types, and in f32 the plain version's exact zero pattern."""
     worst = 0.0
-    cases = [(c, dt) for c in CHECK_CASES + split_cases() + [MAIN_DECODE, MAIN_CHUNK]
+    cases = [(c, dt) for c in CHECK_CASES + split_cases()
+             + [MAIN_DECODE, MAIN_CHUNK, MAIN_DRAFT, MAIN_VERIFY]
              for dt in (torch.float32, torch.bfloat16)]
     for i, (case, dtype) in enumerate(cases):
         args, kw = make_inputs(case, dtype, seed=i)
@@ -280,12 +312,22 @@ def serve(cfg, params, agent=None, *, n_req=8, max_new=64, seed=1, per_request=N
     request's SamplingParams keywords (greedy by default), ``driver(eng,
     handles)`` runs the loop instead of ``eng.run()``."""
     rng = np.random.default_rng(seed)
-    eng = Engine(cfg, params, agent, device=DEV, config=EngineConfig(**knobs))
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(256, 1537, n_req)]
-    per_request = per_request or [{}] * n_req
-    hs = [eng.submit(p, SamplingParams(max_new=max_new, **sp), arrival=2 * i)
-          for i, (p, sp) in enumerate(zip(prompts, per_request))]
+    return serve_prompts(cfg, params, agent, prompts=prompts,
+                         arrivals=[2 * i for i in range(n_req)], max_new=max_new,
+                         per_request=per_request, driver=driver, **knobs)
+
+
+def serve_prompts(cfg, params, agent=None, *, prompts, arrivals, max_new=64,
+                  per_request=None, driver=None, **knobs):
+    """``prompts`` arriving at the steps ``arrivals`` through Engine; the
+    launch counts are set to 0 just before warmup and read after the run.
+    Returns (engine, tokens per request, flash_decode launches, vetoes)."""
+    eng = Engine(cfg, params, agent, device=DEV, config=EngineConfig(**knobs))
+    per_request = per_request or [{}] * len(prompts)
+    hs = [eng.submit(p, SamplingParams(max_new=max_new, **sp), arrival=a)
+          for p, a, sp in zip(prompts, arrivals, per_request)]
     reset_launches()
     eng.warmup()
     # bank each decision's veto flag (a device bool) as the run goes
@@ -461,16 +503,19 @@ def bound_ms(case, probs=True) -> tuple:
 
 
 def library_call(case, q, k, v):
-    """scaled_dot_product_attention on the same q/k/v and masks (no probs)."""
+    """scaled_dot_product_attention on the same q/k/v and masks (no probs;
+    a query past its row's q_lens sees no key)."""
     import torch.nn.functional as F
     b, hq, hkv, C, M, r, dv, kl, qs, ql = case
     q4 = q if q.dim() == 4 else q[:, :, None]
     klt = torch.tensor(kl, device=DEV)
     qst = klt - C if qs is None else torch.tensor(qs, device=DEV)
+    qlt = torch.full_like(klt, C) if ql is None else torch.tensor(ql, device=DEV)
     pos = torch.arange(M, device=DEV)
     j = torch.arange(C, device=DEV)
     mask = ((pos[None, None, :] <= qst[:, None, None] + j[None, :, None])
-            & (pos < klt[:, None, None]))[:, None]
+            & (pos < klt[:, None, None])
+            & (j[None, :, None] < qlt[:, None, None]))[:, None]
     return lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
                                                   scale=r ** -0.5)
 
@@ -491,7 +536,8 @@ def time_kernel(case, card_name):
                        bound_by=by)
         else:
             res.update(ms_probs=ms, plain_ms_probs=plain_ms, bound_ms_probs=bnd)
-        log(f"  flash_decode C={case[3]} (b=8, hq=hkv=12, r=dv=64, M=2048, f32, "
+        log(f"  flash_decode C={case[3]} (b=8, hq=hkv=12, r={case[5]}, dv={case[6]}, "
+            f"M=2048{'' if case[9] is None else ', q_lens ' + str(case[9])}, f32, "
             f"{'with' if probs else 'no'} probs, L2 flushed): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound"
             + ("" if probs else f", sdpa (no probs) {lib_ms:.4f} ms") + f" [{card_name}]")
@@ -525,22 +571,31 @@ def device_kernels(prof):
     return kern
 
 
-def kernel_us(fn, n=10) -> dict:
+def kernel_us(fn, n=10, attempts=3) -> dict:
     """Mean device microseconds per call of each kernel fn launches
     (torch.profiler, L2 flushed before each call; flush_l2's own kernels
-    left out)."""
+    left out). A profile that recorded no device activity (CUPTI now and
+    then returns none for a short profile right after another) is taken
+    again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush_l2()
-            fn()
+    for attempt in range(attempts):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        try:
+            kern = device_kernels(prof)
+            break
+        except AssertionError:
+            if attempt == attempts - 1:
+                raise
+            log("  (the profiler recorded no device time; profiling again)")
     flush = ("spin_kernel", "FillFunctor<float>", "reduce_kernel")
-    return {e.key: dev_us(e) / n for e in device_kernels(prof)
-            if not any(f in e.key for f in flush)}
+    return {e.key: dev_us(e) / n for e in kern if not any(f in e.key for f in flush)}
 
 
 def by_layer(kern) -> dict:
@@ -1495,7 +1550,8 @@ def profile_tail(cfg, params, card_name):
 
 def check_sampled_serving(cfg, params, greedy_outs, greedy_st, card_name):
     """Run A: phase 3's engine with sampling and nucleus on, the sampled
-    workload, adaptive ranks. Returns flash_decode's launches."""
+    workload, adaptive ranks. Returns flash_decode's launches, the tail's
+    device ms per step and run A's tokens."""
     eng, outs, launches, _ = serve(cfg, params, per_request=SAMPLED, **SAMPLE_KNOBS)
     st = eng.stats
     n_steps = st["steps"] + st["warmup_steps"]
@@ -1529,7 +1585,7 @@ def check_sampled_serving(cfg, params, greedy_outs, greedy_st, card_name):
         f"top-p draws outside their nucleus: {counts[1]} of {counts[0]}"
     log(f"  a second run and a one-shot run (prefill_chunk=None) give run A's tokens; "
         f"{counts[0]} top-p draws (one-shot run) all inside their nucleus")
-    return launches, tail_ms
+    return launches, tail_ms, outs
 
 
 def check_sampled_random(cfg, params, card_name):
@@ -1844,6 +1900,367 @@ def check_comparison_reference():
     log(f"  reduced rank-r cache (rank 8, 32-token prefill, 8 steps): card vs CPU "
         f"max|logits| diff {err:.3g}, projectors E_r E_r^T {p_err:.3g} (tol 1e-4)")
 
+# -- phase 15 ----------------------------------------------------------------
+
+# phase 3's engine with the factor cache, speculative: 4 drafts at a quarter
+# of the slot's rank (r_cap = 16 of 64), one verify block of 128 queries
+SPEC_KNOBS = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                  use_kernel=True, factor_cache=True, speculative=True, draft_k=4,
+                  draft_rank_frac=0.25)
+# a speculative token may differ from the plain run's only where the plain
+# run's top-two gap (logits, or scaled + gumbel for a sampled row) is under
+# this: the verify reads through the chunk path, plain decode through the
+# decode path, and their sums differ by float rounding
+SPEC_GAP_TOL = 1e-4
+PREFIX_LEN, COW_CUT = 1024, 1124          # 1124 = 70 pages of 16 + 4
+
+
+def count_spec_launches(eng, per_step):
+    """Wrap the speculative step: flash_decode launches of each call."""
+    core = eng.core
+    inner = core._step_spec
+
+    def step(*a):
+        n0 = decode_attn.LAUNCHES["flash_decode"]
+        out = inner(*a)
+        per_step.append(decode_attn.LAUNCHES["flash_decode"] - n0)
+        return out
+    core._step_spec = step
+
+
+def record_gaps(eng, gaps):
+    """Wrap a plain engine's sampler: gaps[(request id, output index)] is the
+    top-two gap of the values the emitted token is the argmax of (logits for
+    a greedy row, scaled + gumbel for a sampled one)."""
+    core = eng.core
+    inner = core._select_token
+
+    def select(logits, out_pos, temps, topks, topps, seeds):
+        rows = emitting_rows(core)
+        tok = inner(logits, out_pos, temps, topks, topps, seeds)
+        vals = logits
+        if core.sampling:
+            vals = torch.where((temps > 0)[:, None],
+                               sample_scores(logits, out_pos, temps, topks, topps, seeds,
+                                             core.top_k_cap), logits)
+        top = vals.topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).tolist()
+        for row, key in rows.items():
+            gaps[key] = gap[row]
+        return tok
+    core._select_token = select
+
+
+def compare_streams(got, want, rerun_ref, label) -> int:
+    """Tokens equal, or each differing stream's first difference at a
+    top-two gap under SPEC_GAP_TOL in the reference run; ``rerun_ref(gaps)``
+    serves the reference again with ``record_gaps`` and returns its tokens
+    (they must be the first run's). Returns the count of differing
+    streams."""
+    diff = {i: int(np.argmax(a != b)) for i, (a, b) in enumerate(zip(got, want))
+            if not np.array_equal(a, b)}
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, f"{label}: request {i} has {a.shape} tokens, not {b.shape}"
+    if not diff:
+        log(f"  {label}: all {len(got)} streams equal the reference's tokens")
+        return 0
+    gaps = {}
+    again = rerun_ref(gaps)
+    for i, (a, b) in enumerate(zip(again, want)):
+        assert np.array_equal(a, b), f"{label}: the reference's rerun differs at request {i}"
+    for i, j in sorted(diff.items()):
+        g = gaps[(i, j)]
+        log(f"  {label}: request {i} first differs at token {j}; the reference's "
+            f"top-two gap there {g:.3g} (tol {SPEC_GAP_TOL:g})")
+        assert g < SPEC_GAP_TOL, f"{label}: request {i} differs at a top-two gap of {g}"
+    log(f"  {label}: {len(diff)} of {len(got)} streams differ, each first at a near-tie")
+    return len(diff)
+
+
+def spec_summary(eng, per_step, launches, cfg) -> str:
+    st = eng.stats
+    n_fwd = eng.core.draft_k + 1
+    want = cfg.num_layers * (st["steps"] - st["spec_steps"] + 1 + n_fwd * (st["spec_steps"] + 1))
+    assert launches == want, f"{launches} flash_decode launches, expected {want}"
+    assert per_step and set(per_step) == {n_fwd * cfg.num_layers}, \
+        f"flash_decode launches per speculative step {sorted(set(per_step))}"
+    core = eng.core
+    tree = [] if core.prefix is None else core.prefix.all_pages()
+    core.cache.check_refs(tree)
+    assert core.cache.free_pages == core.cache.n_pages - 1 - len(tree)
+    rate = st["spec_accepted"] / max(st["spec_drafted"], 1)
+    return (f"{st['steps']} steps ({st['spec_steps']} speculative, {st['mixed_steps']} mixed), "
+            f"accept rate {rate:.3f} ({st['spec_accepted']} of {st['spec_drafted']} drafts), "
+            f"{st['spec_tokens'] / max(st['spec_steps'], 1):.2f} tokens per speculative step (all rows), "
+            f"flash_decode {per_step[0]} launches per speculative step, {launches} in all; "
+            f"{st['tokens_decoded'] / st['decode_s']:.1f} decoded tokens/s, "
+            f"{1e3 * st['decode_s'] / st['steps']:.2f} ms/step")
+
+
+def check_spec_serving(cfg, params, plain_outs, plain_st, card_name) -> dict:
+    """15a: phase 3's workload, greedy, speculative with the factor cache,
+    against phase 3's factor-cache run; then with the adaptive draft
+    window. Returns the launches and times."""
+    per_step = []
+    eng, outs, launches, _ = serve(cfg, params, driver=lambda e, h: (
+        count_spec_launches(e, per_step), e.run()), **SPEC_KNOBS)
+    summary = spec_summary(eng, per_step, launches, cfg)
+    st = eng.stats
+    p_tok_s = plain_st["tokens_decoded"] / plain_st["decode_s"]
+    p_ms = 1e3 * plain_st["decode_s"] / plain_st["steps"]
+    log(f"  speculative, greedy (draft_k 4, r_cap {eng.core._draft_cap}): {summary} "
+        f"(phase 3, factor cache: {p_tok_s:.1f} tokens/s, {p_ms:.2f} ms/step, "
+        f"{plain_st['steps']} steps) [{card_name}]")
+    plain_knobs = {k: v for k, v in SPEC_KNOBS.items()
+                   if k not in ("speculative", "draft_k", "draft_rank_frac")}
+
+    def rerun(gaps):
+        return serve(cfg, params, driver=lambda e, h: (record_gaps(e, gaps), e.run()),
+                     **plain_knobs)[1]
+    n_diff = compare_streams(outs, plain_outs, rerun, "speculative vs phase 3")
+    res = {"tok_s": st["tokens_decoded"] / st["decode_s"],
+           "ms_step": 1e3 * st["decode_s"] / st["steps"], "steps": st["steps"],
+           "spec_steps": st["spec_steps"],
+           "accept_rate": st["spec_accepted"] / max(st["spec_drafted"], 1),
+           "launches": launches, "launches_per_spec_step": per_step[0],
+           "plain_tok_s": p_tok_s, "plain_ms_step": p_ms, "streams_differ": n_diff}
+
+    eff = []
+
+    def adaptive(e, h):
+        while e.step():
+            eff.append(e.stats["eff_draft_k"])
+    eng_a, outs_a, _, _ = serve(cfg, params, driver=adaptive,
+                                **SPEC_KNOBS, adaptive_draft=True)
+    st_a = eng_a.stats
+    runs = [(k, sum(1 for _ in g)) for k, g in __import__("itertools").groupby(eff)]
+    log(f"  adaptive draft window: eff_draft_k over the run (value x steps) {runs}; "
+        f"{st_a['steps']} steps, {st_a['spec_steps']} speculative, "
+        f"{st_a['tokens_decoded'] / st_a['decode_s']:.1f} tokens/s [{card_name}]")
+    res["adaptive_n_diff"] = compare_streams(outs_a, plain_outs, rerun,
+                                             "adaptive draft vs phase 3")
+    res["adaptive_tok_s"] = st_a["tokens_decoded"] / st_a["decode_s"]
+    res.update(profile_spec_window(cfg, params, card_name))
+    return res
+
+
+# the profiled window of the speculative run: 8 speculative steps after
+# every prompt is in (its last prefill chunk runs before step 26)
+SPEC_WINDOW = (28, 8)
+
+
+def profile_spec_window(cfg, params, card_name) -> dict:
+    """15a's speculative run again, device activity only over SPEC_WINDOW's
+    steps: device time per step by layer, and flash_decode's split between
+    the drafts' decode-path launches and the verify's chunk-path ones."""
+    from torch.profiler import ProfilerActivity, profile
+    res = {}
+
+    def driver(eng, hs):
+        start, n = SPEC_WINDOW
+        for _ in range(start):
+            eng.step()
+        torch.cuda.synchronize()
+        spec0 = eng.stats["spec_steps"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+            res["wall"] = 1e6 * (time.perf_counter() - t0)
+        res["spec"] = eng.stats["spec_steps"] - spec0
+        eng.run()
+        res["kern"] = device_kernels(prof)
+    eng, _, _, _ = serve(cfg, params, driver=driver, **SPEC_KNOBS)
+    start, n = SPEC_WINDOW
+    assert eng.stats["steps"] > start + n and res["spec"] == n, "the window leaves the spec steps"
+    kern = res["kern"]
+    busy = sum(dev_us(e) for e in kern)
+    layers = by_layer(kern)
+    draft = sum(dev_us(e) for e in kern if "flash_decode_kernel_split" in e.key
+                or "flash_decode_kernel_combine" in e.key)
+    verify = sum(dev_us(e) for e in kern if "flash_decode_kernel_chunk" in e.key)
+    log(f"  profiled window of the speculative run (steps {start}..{start + n - 1}, all "
+        f"speculative): device busy {busy / 1e3 / n:.2f} ms per step of "
+        f"{res['wall'] / 1e3 / n:.2f} ms profiled wall (idle {1 - busy / res['wall']:.1%}); "
+        f"flash_decode {layers['flash_decode kernel'] / 1e3 / n:.3f} ms per step: drafts "
+        f"(split + combine) {draft / 1e3 / n:.3f}, verify (chunk) {verify / 1e3 / n:.3f} "
+        f"[{card_name}]")
+    log_layers(layers, busy)
+    return {"window_busy_ms_per_step": busy / 1e3 / n,
+            "window_wall_ms_per_step": res["wall"] / 1e3 / n,
+            "window_flash_decode_ms_per_step": layers["flash_decode kernel"] / 1e3 / n,
+            "window_draft_ms_per_step": draft / 1e3 / n,
+            "window_verify_ms_per_step": verify / 1e3 / n}
+
+
+def check_spec_sampled(cfg, params, run_a, card_name) -> dict:
+    """15b: phase 13 run A's sampled workload, speculative: run A's tokens."""
+    per_step = []
+    knobs = dict(SAMPLE_KNOBS, speculative=True, draft_k=4, draft_rank_frac=0.25)
+    eng, outs, launches, _ = serve(cfg, params, per_request=SAMPLED, driver=lambda e, h: (
+        count_spec_launches(e, per_step), e.run()), **knobs)
+    log(f"  speculative, sampled (run A's requests): {spec_summary(eng, per_step, launches, cfg)} "
+        f"[{card_name}]")
+
+    def rerun(gaps):
+        return serve(cfg, params, per_request=SAMPLED, driver=lambda e, h: (
+            record_gaps(e, gaps), e.run()), **SAMPLE_KNOBS)[1]
+    n_diff = compare_streams(outs, run_a, rerun, "speculative sampled vs run A")
+    st = eng.stats
+    return {"tok_s": st["tokens_decoded"] / st["decode_s"],
+            "ms_step": 1e3 * st["decode_s"] / st["steps"], "launches": launches,
+            "streams_differ": n_diff}
+
+
+def prefix_workload(vocab, seed=3):
+    """8 prompts sharing one seeded 1024-token prefix, each with its own
+    64..512-token suffix (request 0's at most 256, so that its prompt is in
+    the tree by step 10). Request 1 is request 5's prompt cut to 1124
+    tokens (not a multiple of 16): it arrives first, and request 5 then
+    reuses its prompt end through a copied tail page. Arrivals: request 0
+    at step 0, the others one every 2 steps from step 10."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, PREFIX_LEN)
+    suffix = rng.integers(64, 513, 8)
+    suffix[0] = min(suffix[0], 256)
+    suffix[5] = max(suffix[5], COW_CUT - PREFIX_LEN + 64)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, int(n))]).astype(np.int32)
+               for n in suffix]
+    prompts[1] = prompts[5][:COW_CUT].copy()
+    return prompts, [0] + [10 + 2 * i for i in range(7)]
+
+
+def check_prefix_serving(cfg, params, card_name) -> dict:
+    """15c: the shared-prefix workload with the prefix cache against the
+    same run without it (greedy tokens equal, or near-ties), TTFT of the
+    hits (each step synced: report only) and peak memory; the refcount
+    invariant after the run and after reset(); then with speculation too."""
+    prompts, arrivals = prefix_workload(cfg.vocab_size)
+    base = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                use_kernel=True, factor_cache=True)
+    res = {}
+
+    def ttft_driver(rec):
+        def drive(eng, hs):
+            core, admit, first = eng.core, {}, {}
+            inner = core._apply_prefix_hit
+
+            def applied(slot, req):
+                admit[req.rid] = time.perf_counter()
+                return inner(slot, req)
+            core._apply_prefix_hit = applied
+            while eng.step():
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                for st in core.sched.slots:
+                    if st.active and st.n_out >= 1 and st.req.rid not in first:
+                        first[st.req.rid] = now
+            for h in hs:
+                first.setdefault(h.rid, now)
+            rec["ttft"] = {rid: first[rid] - admit[rid] for rid in admit}
+        return drive
+
+    runs = {}
+    for name, knobs in (("cold", {}), ("prefix", dict(prefix_cache=True))):
+        rec, eng = {}, None
+        runs.pop("engine", None)
+        gc.collect()               # the drivers' wrappers make reference cycles
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng, outs, launches, _ = serve_prompts(cfg, params, prompts=prompts,
+                                               arrivals=arrivals, driver=ttft_driver(rec),
+                                               **base, **knobs)
+        rec["peak"] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        st = eng.stats
+        assert launches == cfg.num_layers * (st["steps"] + st["warmup_steps"])
+        runs[name] = (dict(st), outs, rec)
+        runs["engine"] = eng
+    (st_c, cold, rec_c), (st, hit, rec_p) = runs["cold"], runs["prefix"]
+    eng = runs.pop("engine")
+    tree = eng.core.prefix.all_pages()
+    eng.core.cache.check_refs(tree)
+    assert eng.core.cache.free_pages == eng.core.cache.n_pages - 1 - len(tree)
+    want_reuse = PREFIX_LEN * 6 + COW_CUT
+    assert (st["prefix_hits"], st["prefix_misses"]) == (7, 1), st
+    assert st["prefix_cow"] >= 1 and st["prefix_reused_tokens"] == want_reuse, st
+    assert st["prefill_tokens"] == st_c["prefill_tokens"] - want_reuse
+    hits = [rid for rid, hit in eng.core.request_prefix_hit.items() if hit]
+    assert sorted(hits) == list(range(1, 8)), hits
+    t_hit = np.mean([rec_p["ttft"][i] for i in hits]) * 1e3
+    t_cold = np.mean([rec_c["ttft"][i] for i in hits]) * 1e3
+    log(f"  prefix cache: {st['prefix_hits']} hits, {st['prefix_misses']} miss, "
+        f"{st['prefix_reused_tokens']} reused tokens, {st['prefix_cow']} copied tail page(s), "
+        f"{st['prefix_evictions']} evicted pages; prefill tokens {st['prefill_tokens']} "
+        f"(cold {st_c['prefill_tokens']}); steps {st['steps']} (cold "
+        f"{st_c['steps']}); TTFT of requests 1-7 from admission, each step synced: "
+        f"{t_hit:.1f} ms (cold {t_cold:.1f} ms); the run's peak memory above what was "
+        f"allocated before it {rec_p['peak']:.2f} GiB (cold {rec_c['peak']:.2f} GiB); tree {eng.core.prefix.n_nodes} nodes, {len(set(tree))} "
+        f"pages; check_refs holds [{card_name}]")
+
+    def rerun(gaps):
+        return serve_prompts(cfg, params, prompts=prompts, arrivals=arrivals,
+                             driver=lambda e, h: (record_gaps(e, gaps), e.run()), **base)[1]
+    res["prefix_n_diff"] = compare_streams(hit, cold, rerun, "prefix hits vs cold")
+    eng.reset()
+    assert eng.core.prefix.n_nodes == 0 and eng.core.prefix.all_pages() == []
+    eng.core.cache.check_refs(eng.core.prefix.all_pages())
+    assert eng.core.cache.free_pages == eng.core.cache.n_pages - 1
+    log("  after reset(): the tree is empty, every page free, check_refs holds")
+
+    per_step = []
+    eng_s, both, launches, _ = serve_prompts(
+        cfg, params, prompts=prompts, arrivals=arrivals,
+        driver=lambda e, h: (count_spec_launches(e, per_step), e.run()),
+        **base, prefix_cache=True, speculative=True, draft_k=4, draft_rank_frac=0.25)
+    tree = eng_s.core.prefix.all_pages()
+    log(f"  prefix cache and speculation: {eng_s.stats['prefix_hits']} hits, "
+        f"{eng_s.stats['prefix_cow']} copied tail page(s); "
+        f"{spec_summary(eng_s, per_step, launches, cfg)} [{card_name}]")
+    res["both_n_diff"] = compare_streams(both, cold, rerun, "prefix + speculative vs cold")
+    res.update(ttft_hit_ms=t_hit, ttft_cold_ms=t_cold, peak_gib=rec_p["peak"],
+               peak_cold_gib=rec_c["peak"], prefix_launches=launches,
+               tok_s=eng_s.stats["tokens_decoded"] / eng_s.stats["decode_s"])
+    return res
+
+
+def check_spec_prefix_reference():
+    """15d: the reduced model's speculative, prefix and combined runs (the
+    CPU tests' sizes), on the card with the kernel against the CPU without
+    it: identical tokens, ranks and speculative / prefix stats."""
+    cfg = get_config("drrl-paper", reduced=True).with_(
+        rank=RankConfig(mode="adaptive", rank_grid=(4, 8, 12, 16), segment_len=8))
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    base = dict(n_slots=4, max_len=64, page_size=8, segment_len=8, max_new_cap=12,
+                prefill_chunk=8, draft_k=3, draft_rank_frac=0.5)
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, 256, 24)
+    prompts = [np.concatenate([shared, rng.integers(0, 256, n)]) for n in (8, 13, 8)]
+    keys = ("steps", "spec_steps", "spec_accepted", "prefix_hits", "prefix_reused_tokens",
+            "decides")
+    for label, knobs in (("speculative", dict(speculative=True)),
+                         ("prefix", dict(prefix_cache=True)),
+                         ("both", dict(speculative=True, prefix_cache=True))):
+        outs = {}
+        for device, use_kernel in ((DEV, True), ("cpu", False)):
+            eng = Engine(cfg, params, device=device,
+                         config=EngineConfig(use_kernel=use_kernel, **base, **knobs))
+            hs = [eng.submit(p, SamplingParams(max_new=12), arrival=10 * i)
+                  for i, p in enumerate(prompts)]
+            eng.run()
+            core = eng.core
+            core.cache.check_refs([] if core.prefix is None else core.prefix.all_pages())
+            outs[device] = ([h.result() for h in hs], eng.ranks_per_step(),
+                            {k: eng.stats[k] for k in keys})
+        (tg, rg, sg), (tc, rc, sc) = outs[DEV], outs["cpu"]
+        for a, b in zip(tg, tc):
+            np.testing.assert_array_equal(a, b)
+        assert len(rg) == len(rc) and all(np.array_equal(a, b) for a, b in zip(rg, rc))
+        assert sg == sc, (sg, sc)
+        log(f"  reduced model, {label}: GPU kernel tokens, ranks and stats == CPU plain "
+            f"({sg})")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1854,8 +2271,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/14] card and build: {torch.cuda.get_device_name(0)}, torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    phase(f"[1/15] card and build: {torch.cuda.get_device_name(0)}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
     for name in sources:
@@ -1863,10 +2280,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/14] flash_decode kernel vs its plain version on the card")
+    phase("[2/15] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/14] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/15] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -1874,8 +2291,8 @@ def main() -> int:
     log(f"  seeded init of {sum(p.numel() for p in tu.leaves(params)) / 1e6:.1f} M "
         f"parameters in {time.perf_counter() - t0:.1f} s")
     outs, launches, st_adaptive = check_serving(cfg, params, "adaptive", card_name)
-    outs_f, _, _ = check_serving(cfg, params, "adaptive, factor cache", card_name,
-                                 factor_cache=True)
+    outs_f, _, st_f = check_serving(cfg, params, "adaptive, factor cache", card_name,
+                                    factor_cache=True)
     agree = np.mean([np.mean(a == b) for a, b in zip(outs, outs_f)])
     log(f"  factor cache vs dense K read: {agree:.3f} of greedy tokens equal")
     fixed = cfg.with_(rank=RankConfig(mode="fixed", rank_grid=GRID, fixed_rank=32,
@@ -1883,24 +2300,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/14] full-width engine step: kernel vs plain attention")
+    phase("[4/15] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/14] times at the serving shapes")
+    phase("[5/15] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
+    t_draft = time_kernel(MAIN_DRAFT, card_name)
+    t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/14] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/15] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/14] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/15] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/14] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/15] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/14] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/15] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -1909,18 +2328,20 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/14] full-width forward_dense(chunked=True) in rank mode 'drrl', 2 x 4096 tokens")
+    phase("[10/15] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+          "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/14] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/15] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/14] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/15] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/14] full-width sampled serving: adaptive (run A), random with the drift "
-        "trigger and cancels (run B)")
-    sampled_decode, tail_ms = check_sampled_serving(cfg, params, outs, st_adaptive, card_name)
+    phase("[13/15] full-width sampled serving: adaptive (run A), random with the drift "
+          "trigger and cancels (run B)")
+    sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
+                                                          card_name)
     tail = sampling_tail_ms(card_name)
     phase("  run B")
     random_decode = check_sampled_random(cfg, params, card_name)
@@ -1928,12 +2349,25 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/14] full-width forwards of the comparison set (2 x 4096) and the rank-r cache")
+    phase("[14/15] full-width forwards of the comparison set (2 x 4096) and the "
+          "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
     log("phases 13-14 times: " + json.dumps({
         "sampling_tail_ms": {"per_step_profiled": tail_ms, **tail},
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
+        "card": card_name}))
+
+    phase("[15/15] full-width speculative decoding and the prefix cache")
+    spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
+    phase("  speculative, sampled")
+    spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
+    phase("  the prefix cache")
+    prefix = check_prefix_serving(cfg, params, card_name)
+    phase("  reduced speculative and prefix runs, card vs CPU")
+    check_spec_prefix_reference()
+    log("phase 15 numbers: " + json.dumps({
+        "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
     phase("all phases passed")
@@ -1943,7 +2377,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attn.py:122",
          "launches": launches, "drrl_launches": drrl_decode,
          "sampled_launches": sampled_decode, "random_drift_launches": random_decode,
-         "max_abs_err": max_err, **t_dec, "chunk": t_chunk},
+         "spec_launches": spec["launches"],
+         "spec_launches_per_step": spec["launches_per_spec_step"],
+         "prefix_spec_launches": prefix["prefix_launches"],
+         "max_abs_err": max_err, **t_dec, "chunk": t_chunk, "draft": t_draft,
+         "verify": t_verify},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",

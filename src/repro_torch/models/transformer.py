@@ -302,7 +302,9 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
                       tokens, *, slot_lens, slot_ranks=None, basis=None,
                       active=None, use_kernel: bool = False,
                       kt_pool=None, mass_pool=None,
-                      q_lens=None, prefill_rows=None):
+                      q_lens=None, prefill_rows=None,
+                      return_all_logits: bool = False,
+                      mass_defer: bool = False):
     """One fused decode step over every serving slot of a slot-paged cache.
 
     Same arguments and semantics as the JAX ``decode_step_paged``:
@@ -316,7 +318,15 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
     hkv, r_keep) is the factor-form K cache; ``mass_pool`` (L, n_slots, M,
     hkv) accumulates per-key attention mass with the in-graph cell reset.
     ``use_kernel`` routes every attention through
-    :func:`repro_torch.kernels.ops.decode_attention`.
+    :func:`repro_torch.kernels.ops.decode_attention` (with ``q_lens`` when
+    C > 1: a padding query then gives exact zeros, and no caller reads
+    it).
+
+    Speculative verify: ``return_all_logits`` keeps every query's logits,
+    (n_slots, C, V). ``mass_defer`` (rank path, no ``mass_pool``) returns
+    each query's attention mass under ``pools["mass_q"]`` (L, n_slots, C,
+    M, hkv) instead of adding it, so the caller applies only the accepted
+    queries (``serve.spec.apply_deferred_mass``).
 
     The pools are updated IN PLACE and returned in the ``pools`` dict. The
     JAX engine donates these buffers to the step (engine.py:218), so no
@@ -325,13 +335,18 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
     scratch kt row n_slots, in no defined order.
 
     Returns (logits (n_slots, 1, V), pools): for C > 1 only each row's
-    last valid query feeds the LM head."""
+    last valid query feeds the LM head, unless ``return_all_logits``."""
     if cfg.mrope:
         raise ValueError("paged decode does not support M-RoPE streams")
     if (slot_ranks is None) != (basis is None):
         raise ValueError("slot_ranks and basis must be given together")
     if (kt_pool is not None or mass_pool is not None) and slot_ranks is None:
         raise ValueError("kt_pool/mass_pool require the rank path")
+    if mass_defer and slot_ranks is None:
+        raise ValueError("mass_defer requires the rank path")
+    if mass_defer and mass_pool is not None:
+        raise ValueError("mass_defer and mass_pool are mutually exclusive: "
+                         "deferred contributions are applied by the caller")
     dev = tokens.device
     dtype = nn.dt(cfg.dtype)
     tokens = tokens.long()
@@ -385,6 +400,8 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
         col_ok = (torch.arange(r_keep, device=dev)[None, :]
                   < torch.clamp(slot_ranks.long(), max=r_keep)[:, None]
                   ).float()                                   # (ns, r_keep)
+    mass_q = (torch.empty((cfg.num_layers, ns, C, M, hkv), device=dev)
+              if mass_defer else None)
     lay = params["layers"]
     for li in range(cfg.num_layers):
         p = {name: t[li] for name, t in lay["attn"].items()}
@@ -435,15 +452,16 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
                 pf = is_pf[:, None, None, None]
                 q_use = torch.where(pf, q, F.pad(q_proj, (0, dh - r_keep)))
                 k_use = torch.where(pf, k_dense, F.pad(k_fac, (0, dh - r_keep)))
-        want_probs = mass_pool is not None
+        want_probs = mass_pool is not None or mass_defer
         if use_kernel:
             qk = q_use.transpose(1, 2)                        # (ns, hq, C, r)
+            chunk = mixed or C > 1
             res = decode_attention(
-                (qk if mixed or C > 1 else qk[:, :, 0]).contiguous(),
+                (qk if chunk else qk[:, :, 0]).contiguous(),
                 k_use.transpose(1, 2).contiguous(),           # (ns, hkv, M, r)
                 vg.transpose(1, 2).contiguous(),              # (ns, hkv, M, dh)
                 kv_end, scale=scale, q_start=slot_lens,
-                return_probs=want_probs)
+                q_lens=q_lens if chunk else None, return_probs=want_probs)
             o, probs = res if want_probs else (res, None)
             if o.dim() == 3:
                 o = o[:, :, None]
@@ -463,12 +481,18 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
             mp = mass_pool[li]
             mass_pool[li] = (mp.masked_fill(new_cell[:, :, None], 0.0)
                              + w_tok.transpose(1, 2).to(mp.dtype))
+        if mass_defer:
+            # per-query mass, not summed over the chunk: the caller adds
+            # the accepted queries only
+            wq = probs.float() * write_ok[:, None, :, None]   # (ns, hq, C, M)
+            wq = kv_group_mean(wq.transpose(1, 2), hkv)       # (ns, C, hkv, M)
+            mass_q[li] = wq.transpose(2, 3)                   # (ns, C, M, hkv)
         x = x + o.reshape(ns, C, hq * dh) @ p["wo"].to(x.dtype)
         f = nn.swiglu(nn.rms_norm(x, lay["ln2"][li], cfg.rms_eps),
                       lay["ffn"]["w_gate"][li], lay["ffn"]["w_up"][li],
                       lay["ffn"]["w_down"][li])
         x = x + f
-    if C > 1:
+    if C > 1 and not return_all_logits:
         # only each row's last valid query feeds the LM head
         x = x.gather(1, (q_lens - 1)[:, None, None].expand(ns, 1, d))
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
@@ -478,4 +502,6 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
         pools["kt"] = kt_pool
     if mass_pool is not None:
         pools["mass"] = mass_pool
+    if mass_q is not None:
+        pools["mass_q"] = mass_q
     return logits, pools

@@ -13,14 +13,20 @@ SamplingParams, ``Engine.submit() -> RequestHandle``.
                                                seed=7, max_new=64))
     h2.cancel()                     # queued: dropped; admitted: evicted
 
+    spec = EngineConfig(n_slots=8, max_len=2048, prefill_chunk=128,
+                        use_kernel=True, speculative=True, draft_k=4,
+                        prefix_cache=True)      # both: tokens unchanged
+
 ``EngineConfig`` keeps the JAX field names and defaults; both chunked
 prefill and one-shot prefill (``prefill_chunk=None``) are served, and so
 are seeded sampling (temperature, top-k, and top-p with ``nucleus=True``:
-the JAX engine's tokens for the same seed), ``cancel`` and the drift
-trigger (``drift_threshold``). Knobs this port does not serve yet raise
-``NotImplementedError`` naming the ROADMAP item: speculation, the prefix
-cache, traces, obs tracing and flight dumps. A greedy row is the argmax
-whether or not sampling is on.
+the JAX engine's tokens for the same seed), ``cancel``, the drift trigger
+(``drift_threshold``), low-rank self-speculative decoding
+(``speculative``, ``draft_k``, ``draft_rank_frac``, ``adaptive_draft``)
+and the shared-prefix radix cache (``prefix_cache``, ``prefix_pages``,
+``snapshot_every``). Knobs this port does not serve yet raise
+``NotImplementedError`` naming the ROADMAP item: traces, obs tracing and
+flight dumps. A greedy row is the argmax whether or not sampling is on.
 """
 from __future__ import annotations
 
@@ -104,6 +110,14 @@ class EngineConfig:
         if self.speculative and self.prefill_chunk is None:
             raise ValueError("speculative decode requires chunked prefill "
                              "(set prefill_chunk)")
+        if self.speculative and self.draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
+        if not 0.0 < self.draft_rank_frac <= 1.0:
+            raise ValueError(f"draft_rank_frac must be in (0, 1], got "
+                             f"{self.draft_rank_frac}")
+        if self.snapshot_every < 1:
+            raise ValueError(f"snapshot_every must be >= 1, got "
+                             f"{self.snapshot_every}")
         if self.adaptive_draft and not self.speculative:
             raise ValueError("adaptive_draft requires speculative=True")
 
@@ -232,8 +246,14 @@ class Engine:
             time_per_token=c.time_per_token, factor_cache=c.factor_cache,
             prefill_chunk=c.prefill_chunk, sampling=c.sampling,
             nucleus=c.nucleus, top_k_cap=c.top_k_cap,
-            prefix_cache=c.prefix_cache,
-            speculative=c.speculative, record_traces=c.record_traces,
+            prefix_cache=c.prefix_cache, prefix_pages=c.prefix_pages,
+            speculative=c.speculative, draft_k=c.draft_k,
+            draft_rank_frac=c.draft_rank_frac,
+            snapshot_every=c.snapshot_every,
+            adaptive_draft=c.adaptive_draft,
+            draft_shrink_below=c.draft_shrink_below,
+            draft_grow_above=c.draft_grow_above,
+            record_traces=c.record_traces,
             obs_trace=c.obs_trace, flight_dir=c.flight_dir, device=device)
         self._handles: Dict[int, RequestHandle] = {}
         self._next_rid = 0
@@ -381,3 +401,16 @@ class Engine:
 
     def ranks_per_step(self) -> List[np.ndarray]:
         return self.core.ranks_per_step()
+
+    def prefix_probe(self, prompt) -> int:
+        """Longest cached-prefix length this engine could reuse for
+        ``prompt`` now (0 without a prefix cache); read-only."""
+        return self.core.prefix_probe(prompt)
+
+    def accept_lens(self) -> Dict[int, List[int]]:
+        """Per-request speculative accept runs: rid -> accepted tokens per
+        speculative step (1 = every draft rejected, draft_k + 1 = all
+        kept). Finished or cancelled requests only; empty without
+        speculation."""
+        return {rid: list(v)
+                for rid, v in self.core.request_accept_lens.items()}

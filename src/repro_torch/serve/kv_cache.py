@@ -26,7 +26,7 @@ Per-slot state besides the pools:
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -134,6 +134,34 @@ class PagedKVCache:
         self.page_table[slot, :] = 0
         self.lens[slot] = 0
 
+    def shared_floor(self, slot: int) -> int:
+        """First logical position in ``slot`` whose page is private (ref
+        == 1): everything before it lives on pages shared with the prefix
+        tree or another slot and is immutable to this slot. Speculative
+        steps write (and a rejection rewinds, by not advancing ``lens``)
+        only at positions at or above it; the engine asserts that."""
+        floor = 0
+        for p in self.page_table[slot]:
+            if p == 0 or int(self.ref[p]) <= 1:
+                break
+            floor += self.page_size
+        return floor
+
+    def live_pages(self) -> Dict[int, List[int]]:
+        """slot -> referenced physical pages (for invariant checks)."""
+        return {s: [int(p) for p in row if p != 0]
+                for s, row in enumerate(self.page_table)}
+
+    # -- device-side page ops -------------------------------------------
+
+    def copy_page(self, dst: int, src: int) -> None:
+        """Copy one physical page's K/V contents in place (copy-on-write:
+        a prefix hit whose shared tail page is only partly filled gets a
+        private copy to append into; the shared original stays as it
+        is)."""
+        self.k_pool[:, dst] = self.k_pool[:, src]
+        self.v_pool[:, dst] = self.v_pool[:, src]
+
     def write_prefill(self, slot: int, k_layers: torch.Tensor,
                       v_layers: torch.Tensor,
                       mass_layers: Optional[torch.Tensor] = None) -> None:
@@ -157,6 +185,18 @@ class PagedKVCache:
                 self.mass_pool[:, slot, :s] = mass_layers.to(self.mass_pool.dtype)
         self.lens[slot] = s
 
+    def gather_slot(self, slot: int):
+        """(L, max_len, hkv, dh) contiguous K/V copies of one slot's
+        logical view (testing and debugging; the fused step gathers every
+        slot itself)."""
+        pt = torch.as_tensor(self.page_table[slot], dtype=torch.long,
+                             device=self.device)
+
+        def view(pool):
+            g = pool[:, pt]                       # (L, pages, ps, hkv, dh)
+            return g.reshape(g.shape[0], -1, *g.shape[3:])
+        return view(self.k_pool), view(self.v_pool)
+
     def check_refs(self, tree_pages: Iterable[int] = ()) -> None:
         """Assert the refcount invariant: every page's refcount equals its
         page-table (+ tree) references; free pages are the zero-ref pages,
@@ -174,3 +214,14 @@ class PagedKVCache:
         free[self._free] = True
         assert np.array_equal(free[1:], counts[1:] == 0), \
             "free list != zero-ref pages"
+
+
+def gather_views(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 page_table: torch.Tensor):
+    """Every slot's logical K/V view. k_pool/v_pool: (L, P, ps, hkv, dh);
+    page_table: (n_slots, pages). Returns (L, n_slots, M, hkv, dh) x2 with
+    M = pages * ps."""
+    def view(pool):
+        g = pool[:, page_table.long()]    # (L, n_slots, pages, ps, hkv, dh)
+        return g.reshape(g.shape[0], g.shape[1], -1, *g.shape[4:])
+    return view(k_pool), view(v_pool)

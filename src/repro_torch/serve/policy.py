@@ -1,6 +1,6 @@
 """Per-slot segment-level rank decision (port of
-``repro.serve.policy.make_decide_fn``, every rank mode) and the drift
-trigger's ``basis_drift``.
+``repro.serve.policy.make_decide_fn``, every rank mode), the drift
+trigger's ``basis_drift`` and speculation's ``draft_ranks``.
 
 The eigenbasis comes from the softmax-weighted Gram G = K^T diag(w) K, with
 w the slot's accumulated per-key attention mass (zero mass degrades to
@@ -155,6 +155,27 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
         return ranks, basis, spectra, kt_pool, vetoed
 
     return decide
+
+
+def draft_ranks(ranks: torch.Tensor, spectra: torch.Tensor, *,
+                frac: float, grid_lo: int, r_cap: int,
+                energy: float = 0.5) -> torch.Tensor:
+    """Per-slot draft rank for self-speculative decoding: (n_slots,) int32.
+
+    The draft reads the factor cache at ``ceil(frac * rank)`` of each
+    slot's current rank, floored by the rank that keeps ``energy`` of the
+    slot's cached layer-0 spectra (head max) and by the grid's floor
+    ``grid_lo``, capped at ``r_cap`` (the static width the engine sliced the
+    basis and factor pool to) and at the slot's rank. A slot with all-zero
+    spectra (no decision yet) drafts at the grid floor."""
+    r_e = lr.rank_for_energy(spectra, energy, 1, r_cap)      # (ns, hkv)
+    has_sig = (spectra > 0.0).any(dim=2).any(dim=1)          # (ns,)
+    floor = torch.where(has_sig, r_e.amax(dim=1),
+                        torch.full_like(r_e[:, 0], grid_lo))
+    floor = floor.clamp(grid_lo, r_cap)
+    rd = torch.ceil(frac * ranks.float()).to(torch.int32)
+    rd = torch.maximum(rd, floor.to(torch.int32))
+    return torch.minimum(rd.clamp_max(r_cap), ranks.to(torch.int32))
 
 
 def basis_drift(k_tok: torch.Tensor, basis: torch.Tensor,

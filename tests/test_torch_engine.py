@@ -181,7 +181,6 @@ def test_streaming_tokens_match_result(models):
 
 
 UNPORTED = [
-    dict(speculative=True), dict(prefix_cache=True),
     dict(record_traces="traces"), dict(obs_trace=True), dict(flight_dir="flight"),
 ]
 

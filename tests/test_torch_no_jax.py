@@ -1,6 +1,8 @@
 """The port stands alone: with ``jax`` and the ``repro`` package made
 unimportable, every module of ``repro_torch`` and ``chip_smoke.py`` import,
-the engine serves two requests on the CPU, chunked and one-shot, then
+the engine serves two requests on the CPU, chunked and one-shot, then a
+speculative request and a prefix hit (both at once, and the tokens equal
+the plain run's), then
 seeded sampled requests in rank mode 'random' with the drift trigger and a
 cancel, a chunked ``forward_dense`` runs its flash branch at s = 1040, the
 forward runs in rank modes 'random', 'performer' and 'nystrom', the rank-r
@@ -45,6 +47,17 @@ eng = Engine(cfg, params, device="cpu", config=EngineConfig(
 hs2 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [list(a.result()) for a in hs2] == [list(a.result()) for a in hs]
+outs = []
+for knobs in ({}, dict(speculative=True, draft_k=3, prefix_cache=True)):
+    eng = Engine(cfg, params, device="cpu", config=EngineConfig(
+        n_slots=2, max_len=64, prefill_chunk=8, **knobs))
+    hs5 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5), arrival=8 * i)
+           for i, n in enumerate((20, 24))]
+    eng.run()
+    outs.append([list(a.result()) for a in hs5])
+assert outs[0] == outs[1]
+assert eng.stats["prefix_hits"] == 1 and eng.stats["spec_steps"] > 0
+eng.core.cache.check_refs(eng.core.prefix.all_pages())
 rcfg = cfg.with_(rank=RankConfig(mode="random", rank_grid=(4, 8, 12, 16), segment_len=8))
 eng = Engine(rcfg, params, device="cpu", config=EngineConfig(
     n_slots=2, max_len=64, prefill_chunk=8, nucleus=True, drift_threshold=0.05))
