@@ -111,6 +111,23 @@ Phases (one line each, plus detail lines):
      stats). Full-width tokens must equal the plain run's, or a stream's
      first differing token must sit where the plain run's top-two gap is
      under 1e-4 (printed, with the count of such streams).
+ 16. the serving front end at full width (phase 3's engine with the factor
+     cache): (a) ``make_workload``'s four scenarios (8 requests x 64 tokens
+     each) through one engine recording serving traces with obs tracing,
+     flight dumps and per-token timing, against the same run with all of it
+     off: tokens equal, 12 flash_decode launches per fused step, records,
+     the Chrome trace valid, ms/step and the ``StepPhases`` split; (b)
+     ``train_serve_policy`` on the card from that trace (wall per stage,
+     learned vs heuristic), and its BC stages on the card and the CPU from
+     the same initial params (within 2.5 x lr, 99 % of elements within
+     1e-6); (c) the checkpoint loaded and served in rank mode 'learned'
+     through a ``FrontEnd`` on phase 3's workload: tokens and ranks per
+     step equal to the caller-stepped run's; (d) 15c's prompts through a
+     2-replica ``Router`` on the card, affinity and round-robin (routed
+     counts, hit rate, tokens/s; tokens against 15c's cold run); (e) a
+     flight dump when a ``FrontEnd``'s step raises; (f) ``python -m
+     repro_torch.launch.serve``; (g) the reduced model's traces and
+     'learned' serving, card with the kernel against the CPU without it.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -123,6 +140,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -145,9 +163,13 @@ from repro_torch.models import lowrank_cache  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.serve import Engine, EngineConfig, SamplingParams  # noqa: E402
+from repro_torch.obs import validate_chrome_trace  # noqa: E402
+from repro_torch.serve import (Engine, EngineConfig, FleetConfig, FrontEnd,  # noqa: E402
+                               Router, SamplingParams, TraceReader, make_workload,
+                               workload_names)
 from repro_torch.serve.engine import params_to  # noqa: E402
 from repro_torch.train import rl  # noqa: E402
+from repro_torch.train import serve_policy  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -311,12 +333,18 @@ def serve(cfg, params, agent=None, *, n_req=8, max_new=64, seed=1, per_request=N
     """Phase 3's workload through Engine: ``per_request`` gives each
     request's SamplingParams keywords (greedy by default), ``driver(eng,
     handles)`` runs the loop instead of ``eng.run()``."""
+    prompts, arrivals = phase3_workload(cfg.vocab_size, n_req, seed)
+    return serve_prompts(cfg, params, agent, prompts=prompts, arrivals=arrivals,
+                         max_new=max_new, per_request=per_request, driver=driver,
+                         **knobs)
+
+
+def phase3_workload(vocab, n_req=8, seed=1):
+    """Phase 3's prompts (256..1536 tokens) and arrivals (every 2 steps)."""
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
                for n in rng.integers(256, 1537, n_req)]
-    return serve_prompts(cfg, params, agent, prompts=prompts,
-                         arrivals=[2 * i for i in range(n_req)], max_new=max_new,
-                         per_request=per_request, driver=driver, **knobs)
+    return prompts, [2 * i for i in range(n_req)]
 
 
 def serve_prompts(cfg, params, agent=None, *, prompts, arrivals, max_new=64,
@@ -358,7 +386,7 @@ def check_serving(cfg, params, label, card_name, agent=None, **knobs):
         assert o.shape == (64,), f"request {i} returned {o.shape} tokens"
         assert ((o >= 0) & (o < cfg.vocab_size)).all(), f"request {i}: bad token ids"
     # every attention of every fused step, warmup's two steps included
-    n_steps = st["steps"] + st["warmup_steps"]
+    n_steps = st["steps"] + eng.core.warmup_steps
     want = cfg.num_layers * n_steps
     assert launches == want, f"{launches} kernel launches, expected {want}"
     ranks = {int(r) for step in eng.ranks_per_step() for r in step if r >= 0}
@@ -847,7 +875,7 @@ def check_oneshot(cfg, params, chunked_outs, card_name):
     eng, outs, launches, _ = serve(cfg, params, n_slots=8, max_len=2048, page_size=16,
                                    prefill_chunk=None, use_kernel=True)
     st = eng.stats
-    n_steps = st["steps"] + st["warmup_steps"]
+    n_steps = st["steps"] + eng.core.warmup_steps
     assert launches == cfg.num_layers * n_steps, f"{launches} flash_decode launches"
     assert lowrank_flash.LAUNCHES["lowrank_flash"] == 0   # prefill needs probabilities
     assert st["mixed_steps"] == 0 and st["prefills"] == len(outs)
@@ -1554,7 +1582,7 @@ def check_sampled_serving(cfg, params, greedy_outs, greedy_st, card_name):
     device ms per step and run A's tokens."""
     eng, outs, launches, _ = serve(cfg, params, per_request=SAMPLED, **SAMPLE_KNOBS)
     st = eng.stats
-    n_steps = st["steps"] + st["warmup_steps"]
+    n_steps = st["steps"] + eng.core.warmup_steps
     assert launches == cfg.num_layers * n_steps, f"{launches} flash_decode launches"
     for i, o in enumerate(outs):
         assert o.shape == (64,) and ((o >= 0) & (o < cfg.vocab_size)).all(), f"request {i}"
@@ -1631,7 +1659,7 @@ def check_sampled_random(cfg, params, card_name):
     eng, outs, launches, _ = serve(rcfg, params, per_request=SAMPLED, driver=with_cancels,
                                    **knobs)
     st = eng.stats
-    assert launches == cfg.num_layers * (st["steps"] + st["warmup_steps"])
+    assert launches == cfg.num_layers * (st["steps"] + eng.core.warmup_steps)
     assert sorted(rec["cancel"]) == [2, 7], f"cancels {rec['cancel']}"
     for rid, (freed, need, where) in rec["cancel"].items():
         assert freed == need, f"cancel of {rid} ({where}) freed {freed} pages of {need}"
@@ -2131,11 +2159,12 @@ def prefix_workload(vocab, seed=3):
     return prompts, [0] + [10 + 2 * i for i in range(7)]
 
 
-def check_prefix_serving(cfg, params, card_name) -> dict:
+def check_prefix_serving(cfg, params, card_name):
     """15c: the shared-prefix workload with the prefix cache against the
     same run without it (greedy tokens equal, or near-ties), TTFT of the
     hits (each step synced: report only) and peak memory; the refcount
-    invariant after the run and after reset(); then with speculation too."""
+    invariant after the run and after reset(); then with speculation too.
+    Returns (numbers, the cold run's tokens, its rerun with gaps)."""
     prompts, arrivals = prefix_workload(cfg.vocab_size)
     base = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
                 use_kernel=True, factor_cache=True)
@@ -2174,7 +2203,7 @@ def check_prefix_serving(cfg, params, card_name) -> dict:
                                                **base, **knobs)
         rec["peak"] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
         st = eng.stats
-        assert launches == cfg.num_layers * (st["steps"] + st["warmup_steps"])
+        assert launches == cfg.num_layers * (st["steps"] + eng.core.warmup_steps)
         runs[name] = (dict(st), outs, rec)
         runs["engine"] = eng
     (st_c, cold, rec_c), (st, hit, rec_p) = runs["cold"], runs["prefix"]
@@ -2222,7 +2251,7 @@ def check_prefix_serving(cfg, params, card_name) -> dict:
     res.update(ttft_hit_ms=t_hit, ttft_cold_ms=t_cold, peak_gib=rec_p["peak"],
                peak_cold_gib=rec_c["peak"], prefix_launches=launches,
                tok_s=eng_s.stats["tokens_decoded"] / eng_s.stats["decode_s"])
-    return res
+    return res, cold, rerun
 
 
 def check_spec_prefix_reference():
@@ -2262,6 +2291,376 @@ def check_spec_prefix_reference():
             f"({sg})")
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# phase 16's engine: phase 3's (adaptive, segment 32) with the factor cache
+FRONT_KNOBS = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                   use_kernel=True, factor_cache=True)
+# one engine serves the four scenarios: shared_prefix asks for the prefix
+# cache, mixed_sampling for sampling with the top-p cut
+SUITE_KNOBS = dict(prefix_cache=True, sampling=True, nucleus=True)
+WAIT_S = 600.0              # bound on every wait for a stepping thread
+POLICY_LR = 3e-3            # train_serve_policy's default peak lr
+TRACE_INT_COLUMNS = ("rid", "slot", "seg_t", "kv_len", "layer_id", "prev_rank",
+                     "chosen_rank", "has_prev", "n_tokens", "spec_accepted",
+                     "spec_drafted")
+
+
+def submit_spec(eng, spec):
+    """Submit a ``make_workload`` spec's requests; returns the handles."""
+    return [eng.submit(r["tokens"], SamplingParams(
+        max_new=r["max_new"], temperature=r.get("temperature", 0.0),
+        top_k=r.get("top_k", 0), top_p=r.get("top_p", 1.0), seed=r.get("seed", 0)),
+        arrival=r["arrival"]) for r in spec.requests]
+
+
+def record_suite(cfg, params, device, n_requests, max_new, max_prompt, **knobs):
+    """``make_workload``'s four scenarios (seed 3) through one Engine, one
+    after another; flash_decode launches counted from warmup on. Returns
+    (engine, tokens per request, launches)."""
+    eng = Engine(cfg, params, device=device, config=EngineConfig(**SUITE_KNOBS, **knobs))
+    reset_launches()
+    eng.warmup()
+    outs = []
+    for name in workload_names():
+        spec = make_workload(name, seed=3, n_requests=n_requests, max_new=max_new,
+                             vocab=cfg.vocab_size, max_prompt=max_prompt)
+        hs = submit_spec(eng, spec)
+        eng.run()
+        outs += [h.result() for h in hs]
+    return eng, outs, decode_attn.LAUNCHES["flash_decode"]
+
+
+def wait_done(h, timeout=WAIT_S):
+    """A handle's result, waiting at most ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not h.done:
+        h._check_stopped()
+        assert time.monotonic() < deadline, f"request {h.rid} timed out"
+        h._advance(len(h._toks))
+    return h._result
+
+
+def check_trace_recording(cfg, params, out, card_name) -> dict:
+    """16a: the four scenarios, 8 requests of 64 tokens each (long_context
+    prompts 768..1536 tokens), through one full-width engine that records
+    serving traces with obs tracing, flight dumps and per-token timing on,
+    then through the same engine with all of that off: tokens equal, 12
+    flash_decode launches per fused step in both."""
+    wl = dict(n_requests=8, max_new=64, max_prompt=1536)
+    trace_dir = os.path.join(out, "trace")
+    t0 = time.perf_counter()
+    eng, outs, launches = record_suite(
+        cfg, params, DEV, **wl, **FRONT_KNOBS, record_traces=trace_dir, obs_trace=True,
+        flight_dir=os.path.join(out, "flight"), time_per_token=True)
+    manifest = eng.core.trace.flush()
+    wall = time.perf_counter() - t0
+    st = dict(eng.stats)
+    assert launches == cfg.num_layers * (st["steps"] + eng.core.warmup_steps), \
+        f"{launches} flash_decode launches for {st['steps']} steps"
+    rec = TraceReader(trace_dir).records
+    assert len(rec["slot"]) == manifest["n_records"] > 0
+    assert set(rec["chosen_rank"].tolist()) <= set(GRID)
+    assert np.isfinite(rec["s2"]).all() and rec["n_tokens"].sum() > 0
+    doc = eng.obs.chrome_trace()
+    errs = validate_chrome_trace(doc)
+    assert errs == [], errs[:5]
+    prom = eng.obs.prometheus()
+    m = eng.obs.snapshot()["metrics"]
+    n_req = 4 * wl["n_requests"]
+    assert m["requests.admitted"] == m["requests.finished"] == n_req
+    phases = {p: 1e3 * m[f"serve.phase.{p}_s"]["sum"] / st["steps"]
+              for p in ("admit", "schedule", "decide", "dispatch", "fetch", "deliver")}
+    tel = eng.obs.rank_telemetry(eng.core)
+    plain, plain_outs, plain_launches = record_suite(cfg, params, DEV, **wl, **FRONT_KNOBS)
+    ps = plain.stats
+    assert plain_launches == cfg.num_layers * (ps["steps"] + plain.core.warmup_steps)
+    for i, (a, b) in enumerate(zip(outs, plain_outs)):
+        assert np.array_equal(a, b), f"request {i}: recording changed its tokens"
+    ms, ms_plain = 1e3 * st["decode_s"] / st["steps"], 1e3 * ps["decode_s"] / ps["steps"]
+    log(f"  traced run: {n_req} requests x 64 tokens, {st['steps']} fused steps "
+        f"({st['mixed_steps']} mixed), {st['decides']} decisions, {st['prefix_hits']} "
+        f"prefix hits; flash_decode launches {launches} = {cfg.num_layers} x "
+        f"{st['steps'] + eng.core.warmup_steps} steps; {manifest['n_records']} trace "
+        f"records in {len(manifest['shards'])} shard(s); {len(doc['traceEvents'])} trace "
+        f"events, validate_chrome_trace == []; prometheus text {len(prom.splitlines())} "
+        f"lines; wall {wall:.2f} s")
+    log(f"  ms/step: recording + obs tracing + flight + per-token timing {ms:.2f}, "
+        f"all off {ms_plain:.2f} (tokens equal, {ps['steps']} steps) [{card_name}]")
+    log("  host ms per fused step by phase (StepPhases, per-token timing syncs inside "
+        "dispatch): " + ", ".join(f"{p} {v:.3f}" for p, v in phases.items()))
+    log(f"  rank telemetry: {tel['decisions']} decisions, {tel['rank_switches']} rank "
+        f"switches, {tel['veto_fires']} veto fires, mean kept rank "
+        f"{tel['mean_kept_rank']:.2f}")
+    return {"records": manifest["n_records"], "shards": len(manifest["shards"]),
+            "launches": launches, "steps": st["steps"], "ms_step": ms,
+            "ms_step_plain": ms_plain, "prometheus_lines": len(prom.splitlines()),
+            "trace_events": len(doc["traceEvents"]), "phase_ms": phases}
+
+
+def check_policy_training(cfg, out, card_name) -> dict:
+    """16b: the serving policy trained on the card from the 16a trace (30 BC
+    steps, 2 PPO steps of 1 epoch), checkpointed; then its BC stages alone
+    on the card and on the CPU from the same trace and initial params."""
+    trace_dir, pol_dir = os.path.join(out, "trace"), os.path.join(out, "policy")
+    t0 = time.perf_counter()
+    _, hist = serve_policy.train_serve_policy(trace_dir, cfg.rank, out_dir=pol_dir,
+                                              bc_steps=30, ppo_steps=2, ppo_epochs=1,
+                                              device=DEV)
+    wall = time.perf_counter() - t0
+    ev = hist["eval"]
+    log(f"  train_serve_policy on the card: {ev['n_records']} records, wall {wall:.2f} s "
+        f"(dataset {hist['stage_s']['dataset']:.3f} s, BC {hist['stage_s']['bc']:.3f} s, "
+        f"PPO {hist['stage_s']['ppo']:.3f} s; checkpoint after) [{card_name}]")
+    for who in ("learned", "adaptive", "oracle"):
+        e = ev[who]
+        log(f"    {who:8s} reward {e['reward']:.6f}, mean rank {e['mean_rank']:.3f}, "
+            f"agreement {e['agreement']:.6f}, read fraction {e['read_frac']:.4f}")
+    log(f"    picked {ev['picked']} of " + ", ".join(
+        f"{lab} ({e['reward']:.6f}, {e['mean_rank']:.3f})" for lab, e in hist["candidates"]))
+    # the BC stages alone, card vs CPU, from the card's initial params
+    G = len(cfg.rank.rank_grid)
+    p0 = serve_policy._init(torch.Generator(DEV).manual_seed(0), drrl.feat_dims(cfg.rank),
+                            G, serve_policy.POLICY_ARCH, DEV)
+    kw = dict(bc_steps=30, ppo_steps=0, ppo_epochs=1, eval_every=30)
+    card_p, card_h = serve_policy.train_serve_policy(trace_dir, cfg.rank, device=DEV, **kw)
+    inner = serve_policy.init_policy
+    serve_policy.init_policy = lambda gen, dims, n, **k: tu.tree_map(
+        lambda x: x.to("cpu"), p0)
+    try:
+        cpu_p, cpu_h = serve_policy.train_serve_policy(trace_dir, cfg.rank, device="cpu",
+                                                       **kw)
+    finally:
+        serve_policy.init_policy = inner
+    ds_card = serve_policy.build_dataset(trace_dir, cfg.rank, device=DEV)
+    ds_cpu = serve_policy.build_dataset(trace_dir, cfg.rank, device="cpu")
+    oracle_diff = int((ds_card["oracle"].cpu() != ds_cpu["oracle"]).sum())
+    diffs = [(a.cpu() - b).abs() for a, b in zip(tu.leaves(card_p), tu.leaves(cpu_p))]
+    worst = max(float(d.max()) for d in diffs)
+    n_far = sum(int((d > 1e-6).sum()) for d in diffs)
+    n = sum(d.numel() for d in diffs)
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(card_h["bc_loss"], cpu_h["bc_loss"]))
+    log(f"  BC stages (30 steps) card vs CPU, same trace and initial params: params "
+        f"max|diff| {worst:.3g} (tol 2.5 x lr = {2.5 * POLICY_LR:g}), {n - n_far} of {n} "
+        f"elements within 1e-6 (tol 99 %); bc_loss relative {loss_rel:.3g}; oracle "
+        f"actions differing {oracle_diff} of {ds_cpu['n']}")
+    assert worst <= 2.5 * POLICY_LR and n_far <= 0.01 * n, (worst, n_far, n)
+    return {"wall_s": wall, "stage_s": hist["stage_s"], "eval": ev,
+            "bc_params_max_diff": worst, "bc_far_elements": n_far}
+
+
+def check_learned_frontend(cfg, params, pol_dir, st_ref, card_name) -> dict:
+    """16c: the trained policy loaded and served in rank mode 'learned'
+    through a FrontEnd on phase 3's prompts and arrivals, against the same
+    engine stepped by the caller: tokens and ranks per step equal, 12
+    flash_decode launches per fused step."""
+    lcfg = cfg.with_(rank=RankConfig(mode="learned", rank_grid=GRID, segment_len=32))
+    pol = serve_policy.load_policy(pol_dir, device=DEV)
+    prompts, arrivals = phase3_workload(cfg.vocab_size)
+    ref, ref_outs, _, _ = serve_prompts(lcfg, params, pol, prompts=prompts,
+                                        arrivals=arrivals, **FRONT_KNOBS)
+    eng = Engine(lcfg, params, pol, device=DEV, config=EngineConfig(**FRONT_KNOBS))
+    # every request is queued before the thread starts: the schedule is the
+    # caller-stepped run's
+    hs = [eng.submit(p, SamplingParams(max_new=64), arrival=a)
+          for p, a in zip(prompts, arrivals)]
+    reset_launches()
+    fe = FrontEnd(eng, idle_poll_s=0.01)
+    try:
+        assert fe.drain(WAIT_S), "the front end did not drain"
+    finally:
+        fe.shutdown(drain=False, timeout=60.0)
+    launches = decode_attn.LAUNCHES["flash_decode"]
+    st = eng.stats
+    assert launches == cfg.num_layers * (st["steps"] + eng.core.warmup_steps), launches
+    outs = [h.result() for h in hs]
+    for i, (a, b) in enumerate(zip(outs, ref_outs)):
+        assert np.array_equal(a, b), f"request {i}: front end tokens differ"
+    got, want = eng.ranks_per_step(), ref.ranks_per_step()
+    assert len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+    tel = eng.obs.rank_telemetry(eng.core)
+    ranks = sorted({int(r) for row in got for r in row if r >= 0})
+    tok_s, ms = st["tokens_decoded"] / st["decode_s"], 1e3 * st["decode_s"] / st["steps"]
+    ref_tok_s = ref.stats["tokens_decoded"] / ref.stats["decode_s"]
+    log(f"  learned, FrontEnd: 8 requests x 64 tokens, {st['steps']} fused steps, "
+        f"flash_decode launches {launches} = {cfg.num_layers} x "
+        f"{st['steps'] + eng.core.warmup_steps}; tokens and ranks per step equal the "
+        f"caller-stepped run's; {tel['decisions']} decisions, {tel['rank_switches']} "
+        f"rank switches, {tel['veto_fires']} veto fires, ranks {ranks}; {tok_s:.1f} decoded "
+        f"tokens/s, {ms:.2f} ms/step (caller-stepped {ref_tok_s:.1f} tokens/s; phase 3 "
+        f"adaptive with the factor cache {st_ref['tokens_decoded'] / st_ref['decode_s']:.1f} "
+        f"tokens/s, {1e3 * st_ref['decode_s'] / st_ref['steps']:.2f} ms/step) [{card_name}]")
+    return {"launches": launches, "tok_s": tok_s, "ms_step": ms, "ref_tok_s": ref_tok_s,
+            "decisions": tel["decisions"], "rank_switches": tel["rank_switches"],
+            "veto_fires": tel["veto_fires"], "ranks": ranks}
+
+
+def check_router(cfg, params, cold, rerun, card_name) -> dict:
+    """16d: phase 15c's shared-prefix prompts through a Router of 2 replicas
+    on the one card, prefix-cache affinity and then round-robin: request 0
+    first (it warms one replica), then the other 7 at once. Tokens against
+    15c's single-engine cold run (equal, or a first difference at a near-tie
+    of that run)."""
+    prompts, _ = prefix_workload(cfg.vocab_size)
+    res = {}
+    for routing in ("affinity", "round_robin"):
+        fleet = FleetConfig(engine=EngineConfig(**FRONT_KNOBS, prefix_cache=True),
+                            n_replicas=2, routing=routing, idle_poll_s=0.01)
+        reset_launches()
+        router = Router(cfg, params, fleet=fleet, device=DEV)
+        try:
+            t0 = time.perf_counter()
+            lead = router.submit(prompts[0], SamplingParams(max_new=64))
+            wait_done(lead)
+            hs = [lead] + [router.submit(p, SamplingParams(max_new=64)) for p in prompts[1:]]
+            assert router.drain(WAIT_S), "the router did not drain"
+            wall = time.perf_counter() - t0
+        finally:
+            router.shutdown(drain=False, timeout=60.0)
+        launches = decode_attn.LAUNCHES["flash_decode"]
+        n_steps = sum(fe.engine.stats["steps"] + fe.engine.core.warmup_steps
+                      for fe in router.replicas)
+        assert launches == cfg.num_layers * n_steps, (launches, n_steps)
+        st = router.stats()
+        for fe in router.replicas:
+            fe.engine.core.cache.check_refs(fe.engine.core.prefix.all_pages())
+        outs = [h.result() for h in hs]
+        n_diff = compare_streams(outs, cold, rerun, f"router ({routing}) vs one engine")
+        agg = st["aggregate"]
+        res[routing] = {"routed": st["routed"], "route_kinds": st["route_kinds"],
+                        "hit_rate": agg["hit_rate"], "tok_s_sum": agg["tok_per_s"],
+                        "tok_s_wall": agg["tokens_decoded"] / wall, "wall_s": wall,
+                        "launches": launches, "n_diff": n_diff}
+        log(f"  router, {routing}: routed {st['routed']}, route kinds "
+            f"{ {k: v for k, v in st['route_kinds'].items() if v} }, prefix hit rate "
+            f"{agg['hit_rate']:.3f}; {agg['tokens_decoded']} decoded tokens, "
+            f"{agg['tok_per_s']:.1f} tokens/s summed over replicas' decode clocks, "
+            f"{agg['tokens_decoded'] / wall:.1f} tokens/s over the wall {wall:.2f} s; "
+            f"flash_decode launches {launches} = {cfg.num_layers} x {n_steps} [{card_name}]")
+        del router
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_flight_dump(cfg, params, out) -> None:
+    """16e: a FrontEnd whose engine's step raises once a request is queued:
+    the flight ring lands in flight_dir, the handle raises EngineStopped and
+    drain() re-raises the step's error."""
+    from repro_torch.serve import EngineStopped
+    flight = os.path.join(out, "flight_error")
+    eng = Engine(cfg, params, device=DEV, config=EngineConfig(
+        n_slots=2, max_len=256, page_size=16, prefill_chunk=128, use_kernel=True,
+        flight_dir=flight))
+    inner = eng.core.step
+
+    def failing():
+        if eng.core.sched.depth():
+            raise RuntimeError("injected step failure")
+        return inner()
+    eng.core.step = failing
+    fe = FrontEnd(eng, idle_poll_s=0.01, warmup=False)
+    try:
+        h = fe.submit(np.arange(40, dtype=np.int32), SamplingParams(max_new=8))
+        stopped = False
+        try:
+            wait_done(h, timeout=60.0)
+        except EngineStopped:
+            stopped = True
+        cause = None
+        try:
+            fe.drain(60.0)
+        except EngineStopped as e:
+            cause = e.__cause__
+    finally:
+        fe.shutdown(drain=False, timeout=60.0)
+    assert stopped and isinstance(cause, RuntimeError), (stopped, cause)
+    dumps = sorted(f for f in os.listdir(flight) if f.startswith("flight_"))
+    with open(os.path.join(flight, dumps[0])) as f:
+        doc = json.load(f)
+    assert doc["reason"] == "step_exception" and "injected step failure" in doc["error"]
+    log(f"  step error: the handle raised EngineStopped, drain() re-raised "
+        f"{type(cause).__name__}; {len(dumps)} flight dump(s) ({', '.join(dumps)}), the "
+        f"first '{doc['reason']}' with {len(doc['events'])} events")
+
+
+def check_cli(card_name) -> dict:
+    """16f: ``python -m repro_torch.launch.serve`` as a subprocess on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--device",
+                        torch.device(DEV).type], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith(("decoded", "TTFT"))]
+    assert len(lines) == 2, r.stdout[-2000:]
+    tok_s = float(re.search(r"at ([0-9.]+) tok/s", lines[0]).group(1))
+    log(f"  python -m repro_torch.launch.serve (reduced config, the process's wall "
+        f"{wall:.1f} s) [{card_name}]:")
+    for ln in lines:
+        log("    " + ln[:300])
+    return {"tok_s": tok_s, "wall_s": wall}
+
+
+def check_front_reference(out) -> None:
+    """16g: the reduced model's trace of the four scenarios and 'learned'
+    serving from one checkpoint, on the card with the kernel against the
+    CPU without it: the traces' integer columns identical and their spectra
+    within 1e-4 of each record's largest value; learned tokens and ranks
+    identical."""
+    cfg = get_config("drrl-paper", reduced=True).with_(
+        rank=RankConfig(mode="adaptive", rank_grid=(4, 8, 12, 16), segment_len=8))
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    knobs = dict(n_slots=4, max_len=96, page_size=16, segment_len=8, max_new_cap=10,
+                 prefill_chunk=8)
+    recs = {}
+    for device, use_kernel in ((DEV, True), ("cpu", False)):
+        d = os.path.join(out, f"reduced_trace_{device}")
+        eng, outs, _ = record_suite(cfg, params, device, 4, 10, 40, record_traces=d,
+                                    use_kernel=use_kernel, **knobs)
+        eng.core.trace.flush()
+        recs[device] = (TraceReader(d).records, outs)
+    (rg, og), (rc, oc) = recs[DEV], recs["cpu"]
+    for a, b in zip(og, oc):
+        np.testing.assert_array_equal(a, b)
+    for col in TRACE_INT_COLUMNS:
+        assert np.array_equal(rg[col], rc[col]), col
+    worst = 0.0
+    for col in ("s2", "prev_s2"):
+        scale = np.abs(rc[col]).reshape(len(rc[col]), -1).max(axis=1)[:, None, None]
+        err = np.abs(rg[col] - rc[col]) / np.maximum(scale, 1e-30)
+        worst = max(worst, float(err.max()))
+    assert worst <= 1e-4, worst
+    pol_dir = os.path.join(out, "reduced_policy")
+    serve_policy.train_serve_policy(os.path.join(out, "reduced_trace_cpu"), cfg.rank,
+                                    out_dir=pol_dir, bc_steps=30, ppo_steps=2,
+                                    ppo_epochs=1, device="cpu")
+    lcfg = cfg.with_(rank=RankConfig(mode="learned", rank_grid=(4, 8, 12, 16),
+                                     segment_len=8))
+    runs = {}
+    for device, use_kernel in ((DEV, True), ("cpu", False)):
+        rng = np.random.default_rng(0)
+        eng = Engine(lcfg, params, serve_policy.load_policy(pol_dir, device=device),
+                     device=device, config=EngineConfig(
+                         use_kernel=use_kernel, n_slots=3, max_len=64, page_size=16,
+                         segment_len=8, max_new_cap=12, prefill_chunk=8))
+        hs = [eng.submit(rng.integers(0, 256, int(n)), SamplingParams(max_new=12),
+                         arrival=2 * i) for i, n in enumerate(rng.integers(8, 33, 6))]
+        eng.run()
+        runs[device] = ([h.result() for h in hs], eng.ranks_per_step())
+    (tg, kg), (tc, kc) = runs[DEV], runs["cpu"]
+    for a, b in zip(tg, tc):
+        np.testing.assert_array_equal(a, b)
+    assert len(kg) == len(kc) and all(np.array_equal(a, b) for a, b in zip(kg, kc))
+    ranks = sorted({int(r) for row in kg for r in row if r >= 0})
+    log(f"  reduced model: traces card (kernel) vs CPU (plain): {len(rc['slot'])} records, "
+        f"integer columns identical, spectra within {worst:.3g} of each record's largest "
+        f"(tol 1e-4), tokens identical; learned serving from one checkpoint: tokens and "
+        f"ranks identical ({len(kg)} steps, ranks {ranks})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -2271,7 +2670,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/15] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/16] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -2280,10 +2679,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/15] flash_decode kernel vs its plain version on the card")
+    phase("[2/16] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/15] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/16] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -2300,26 +2699,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/15] full-width engine step: kernel vs plain attention")
+    phase("[4/16] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/15] times at the serving shapes")
+    phase("[5/16] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/15] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/16] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/15] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/16] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/15] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/16] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/15] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/16] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -2328,17 +2727,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/15] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/16] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/15] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/16] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/15] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/16] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/15] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/16] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -2349,7 +2748,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/15] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/16] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -2358,17 +2757,38 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/15] full-width speculative decoding and the prefix cache")
+    phase("[15/16] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
     phase("  the prefix cache")
-    prefix = check_prefix_serving(cfg, params, card_name)
+    prefix, prefix_cold, prefix_rerun = check_prefix_serving(cfg, params, card_name)
     phase("  reduced speculative and prefix runs, card vs CPU")
     check_spec_prefix_reference()
     log("phase 15 numbers: " + json.dumps({
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
+
+    phase("[16/16] the serving front end at full width: traces, the learned policy, "
+          "FrontEnd, Router")
+    out = os.path.join(ROOT, ".scratch", "phase16")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    traced = check_trace_recording(cfg, params, out, card_name)
+    phase("  the serving policy trained on the card")
+    trained = check_policy_training(cfg, out, card_name)
+    phase("  learned serving through a FrontEnd")
+    learned = check_learned_frontend(cfg, params, os.path.join(out, "policy"), st_f,
+                                     card_name)
+    phase("  Router, 2 replicas on the card")
+    routed = check_router(cfg, params, prefix_cold, prefix_rerun, card_name)
+    phase("  flight dump on a step error; the CLI; the reduced model card vs CPU")
+    check_flight_dump(cfg, params, out)
+    cli = check_cli(card_name)
+    check_front_reference(out)
+    log("phase 16 numbers: " + json.dumps({
+        "traced": traced, "trained": trained, "learned_frontend": learned,
+        "router": routed, "cli": cli, "card": card_name}))
 
     phase("all phases passed")
     print(json.dumps({"kernels": [
@@ -2380,6 +2800,8 @@ def main() -> int:
          "spec_launches": spec["launches"],
          "spec_launches_per_step": spec["launches_per_spec_step"],
          "prefix_spec_launches": prefix["prefix_launches"],
+         "front_launches": {"traced": traced["launches"], "learned": learned["launches"],
+                            "router": {k: v["launches"] for k, v in routed.items()}},
          "max_abs_err": max_err, **t_dec, "chunk": t_chunk, "draft": t_draft,
          "verify": t_verify},
         {"name": "lowrank_flash", "route": "cuda",

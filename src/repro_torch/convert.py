@@ -33,12 +33,17 @@ def params_from_jax(tree, device="cuda"):
     return tu.tree_map(lambda x: _leaf(x, device), tree)
 
 
-AGENT_KEYS = {"conv", "embed", "layers", "ln_f", "head"}
+POLICY_KEYS = {"embed", "layers", "ln_f", "head"}
+AGENT_KEYS = POLICY_KEYS | {"conv"}
 
 
 def agent_from_jax(tree, device="cuda"):
     """The DR-RL agent's tree on ``device`` from the JAX ``init_agent``
-    tree (numpy leaves), leaf for leaf; ``conv`` stays (k, d, f)."""
+    tree (numpy leaves), leaf for leaf; ``conv`` stays (k, d, f). The
+    policy network alone (``init_policy``'s tree, as the serving policy's
+    trainer checkpoints it) converts the same way."""
+    if set(tree) == POLICY_KEYS:
+        return params_from_jax(tree, device)
     if set(tree) != AGENT_KEYS or np.ndim(tree["conv"]) != 3:
         raise ValueError(f"not a DR-RL agent tree: keys {sorted(tree)}")
     return params_from_jax(tree, device)

@@ -17,21 +17,32 @@ SamplingParams, ``Engine.submit() -> RequestHandle``.
                         use_kernel=True, speculative=True, draft_k=4,
                         prefix_cache=True)      # both: tokens unchanged
 
+    obs = EngineConfig(n_slots=8, max_len=2048, prefill_chunk=128,
+                       use_kernel=True, record_traces="traces/",
+                       obs_trace=True, flight_dir="flight/")
+    eng = Engine(model_cfg, params, config=obs)
+    ...; eng.run(); eng.core.trace.flush()          # commit the trace
+    eng.obs.prometheus(); eng.obs.chrome_trace(); eng.obs.rank_telemetry(eng.core)
+
 ``EngineConfig`` keeps the JAX field names and defaults; both chunked
 prefill and one-shot prefill (``prefill_chunk=None``) are served, and so
 are seeded sampling (temperature, top-k, and top-p with ``nucleus=True``:
 the JAX engine's tokens for the same seed), ``cancel``, the drift trigger
 (``drift_threshold``), low-rank self-speculative decoding
-(``speculative``, ``draft_k``, ``draft_rank_frac``, ``adaptive_draft``)
-and the shared-prefix radix cache (``prefix_cache``, ``prefix_pages``,
-``snapshot_every``). Knobs this port does not serve yet raise
-``NotImplementedError`` naming the ROADMAP item: traces, obs tracing and
-flight dumps. A greedy row is the argmax whether or not sampling is on.
+(``speculative``, ``draft_k``, ``draft_rank_frac``, ``adaptive_draft``),
+the shared-prefix radix cache (``prefix_cache``, ``prefix_pages``,
+``snapshot_every``), serving traces (``record_traces``, read by
+``train.serve_policy``), span and phase tracing (``obs_trace``) and
+flight dumps (``flight_dir``). A greedy row is the argmax whether or not
+sampling is on. With a ``serve.frontend.FrontEnd`` attached, a background
+thread steps the engine and handles wait for delivery instead of stepping.
 """
 from __future__ import annotations
 
+import asyncio
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -123,12 +134,18 @@ class EngineConfig:
 
 
 class EngineStopped(RuntimeError):
-    """The engine serving a handle was reset mid-stream."""
+    """The engine serving a handle died, was shut down or was reset
+    mid-stream: raised from a handle's iterators and ``result()`` instead of
+    blocking forever."""
 
 
 @dataclass
 class RequestHandle:
-    """One submitted request: incremental tokens + completion state."""
+    """One submitted request: incremental tokens + completion state. With a
+    front-end stepping thread attached, consumers wait on the delivery
+    condition; without one they drive ``engine.step()`` themselves. The
+    same handle supports ``for tok in h.tokens()``, ``async for tok in h``,
+    ``h.result()`` and the ``on_token`` callback."""
     rid: int
     prompt_len: int
     params: SamplingParams
@@ -139,6 +156,7 @@ class RequestHandle:
     _result: Optional[np.ndarray] = None
     ttft_s: Optional[float] = None   # submit() -> first-token wall time
     done_s: Optional[float] = None   # submit() -> completion wall time
+    replica: Optional[int] = None    # set by Router.submit
     cancelled: bool = False
     _stopped: bool = False
     _cv: threading.Condition = field(default_factory=threading.Condition)
@@ -153,11 +171,28 @@ class RequestHandle:
                 f"request {self.rid}: engine stopped after "
                 f"{len(self._toks)} token(s)")
 
+    def _advance(self, i: int, poll_s: float = 0.05) -> None:
+        """Block until token ``i`` exists (or the stream ended): wait on the
+        delivery condition while a background thread steps the engine,
+        drive ``engine.step()`` here otherwise."""
+        if self._engine.driver_alive:
+            with self._cv:
+                if i >= len(self._toks) and not self.done \
+                        and not self._stopped:
+                    # timed: a driver that dies without marking its handles
+                    # still unblocks this wait for a re-check
+                    self._cv.wait(poll_s)
+        else:
+            self._check_stopped()
+            self._engine.step()
+
     def tokens(self):
-        """Generator of generated token ids, in order; drives
-        ``engine.step()`` whenever it runs dry. Attaching a consumer makes
-        the engine fetch emitted token values each step. A ``cancel()``
-        ends the iteration cleanly."""
+        """Generator of generated token ids, in order: it drives
+        ``engine.step()`` whenever it runs dry, or, with a front-end
+        stepping thread, waits for delivery. Attaching a consumer makes the
+        engine fetch emitted token values each step. Raises
+        :class:`EngineStopped` if the engine dies mid-stream; a
+        ``cancel()`` ends the iteration cleanly."""
         self._engine._ensure_streaming(self)
         i = 0
         while True:
@@ -167,14 +202,41 @@ class RequestHandle:
             if self.done or self.cancelled:
                 return
             self._check_stopped()
-            self._engine.step()
+            self._advance(i)
+
+    def __aiter__(self):
+        """``async for tok in handle``: the blocking wait runs in a worker
+        thread (``asyncio.to_thread``), so the event loop stays free to
+        consume other handles."""
+        self._engine._ensure_streaming(self)
+        return self._agen()
+
+    async def _agen(self):
+        i = 0
+        while True:
+            tok = await asyncio.to_thread(self._next_blocking, i)
+            if tok is None:
+                return
+            yield tok
+            i += 1
+
+    def _next_blocking(self, i: int) -> Optional[int]:
+        """Token ``i`` (blocking), or None when the stream is over."""
+        while True:
+            if i < len(self._toks):
+                return self._toks[i]
+            if self.done or self.cancelled:
+                return None
+            self._check_stopped()
+            self._advance(i)
 
     def result(self) -> np.ndarray:
-        """Drive the engine until this request finishes; returns its
-        generated ids (the ones delivered before a cancel)."""
+        """Block until this request finishes; returns its generated ids
+        (the ones delivered before a cancel). Raises
+        :class:`EngineStopped` if the engine dies first."""
         while not self.done:
             self._check_stopped()
-            self._engine.step()
+            self._advance(len(self._toks))
         return self._result
 
     def cancel(self) -> bool:
@@ -254,11 +316,15 @@ class Engine:
             draft_shrink_below=c.draft_shrink_below,
             draft_grow_above=c.draft_grow_above,
             record_traces=c.record_traces,
-            obs_trace=c.obs_trace, flight_dir=c.flight_dir, device=device)
+            obs_trace=c.obs_trace, flight_dir=c.flight_dir,
+            flight_capacity=c.flight_capacity, device=device)
         self._handles: Dict[int, RequestHandle] = {}
         self._next_rid = 0
         self._finished_seen = 0
         self._streaming: set = set()     # rids with an attached consumer
+        # the background stepping thread (serve.frontend.FrontEnd) driving
+        # this engine, if any: handles then wait for delivery
+        self._driver = None
         # rid assignment, handle registration and the core queue append
         # form one critical section
         self._submit_lock = threading.Lock()
@@ -292,7 +358,16 @@ class Engine:
             if on_token is not None:
                 self._streaming.add(rid)
                 self.core._stream_sync = True
+        drv = self._driver
+        if drv is not None:
+            drv.wake()                   # a parked stepping thread resumes
         return h
+
+    @property
+    def driver_alive(self) -> bool:
+        """True while a background stepping thread owns the step loop."""
+        drv = self._driver
+        return drv is not None and drv.alive
 
     def cancel(self, rid: int) -> bool:
         """Abort a submitted request (see :meth:`RequestHandle.cancel`),
@@ -384,8 +459,13 @@ class Engine:
 
     def reset(self) -> None:
         """Drop all requests/handles; unfinished handles raise
-        :class:`EngineStopped`."""
+        :class:`EngineStopped`. Safe with a live stepping thread: it is
+        between iterations while the step lock is held, and its next
+        step() sees an empty engine and parks."""
         with self._step_lock, self._submit_lock:
+            if any(not h.done for h in self._handles.values()):
+                # post-mortem record before the state is torn down
+                self.core.obs.flight_dump("reset_with_live_requests")
             for h in self._handles.values():
                 h._mark_stopped()
             self.core.reset()
@@ -393,11 +473,31 @@ class Engine:
             self._finished_seen = 0
             self._streaming.clear()
 
+    def drain(self) -> None:
+        """Block until every submitted request has finished (driving the
+        loop here only when no stepping thread owns it)."""
+        with self._submit_lock:
+            handles = list(self._handles.values())
+        for h in handles:
+            if not h.cancelled:
+                h.result()
+
     # -- introspection ---------------------------------------------------
 
     @property
     def stats(self) -> Dict:
         return self.core.stats
+
+    @property
+    def obs(self):
+        """The core engine's ``repro_torch.obs.Observability`` bundle
+        (metrics registry, span tracer, flight recorder, exporters)."""
+        return self.core.obs
+
+    @property
+    def depth(self) -> int:
+        """Queued + admitted requests: the router's load signal."""
+        return self.core.depth
 
     def ranks_per_step(self) -> List[np.ndarray]:
         return self.core.ranks_per_step()
@@ -414,3 +514,91 @@ class Engine:
         speculation."""
         return {rid: list(v)
                 for rid, v in self.core.request_accept_lens.items()}
+
+    def ttft(self) -> Dict[int, float]:
+        """Per-request submit() -> first-token wall seconds (finished or
+        streaming requests only)."""
+        with self._submit_lock:
+            handles = list(self._handles.items())
+        return {rid: h.ttft_s for rid, h in handles if h.ttft_s is not None}
+
+
+def make_engine(cfg: ModelConfig, params, policy_params=None, *,
+                device="cuda", **knobs) -> Engine:
+    """``make_engine(cfg, params, n_slots=8, max_len=512)``: the
+    EngineConfig from keyword overrides."""
+    return Engine(cfg, params, policy_params, config=EngineConfig(**knobs),
+                  device=device)
+
+
+class AdaptiveServer:
+    """DEPRECATED lock-step front end over :class:`Engine`, kept as the
+    reference keeps it: a (b, s0) prompt batch becomes b streams admitted
+    at step 0 and decoded greedily for ``n_tokens`` each through one-shot
+    prefill. New code builds an :class:`Engine` from an
+    :class:`EngineConfig` and uses ``submit``/``RequestHandle``."""
+
+    def __init__(self, cfg: ModelConfig, params, policy_params=None,
+                 max_len: int = 2048, page_size: int = 16,
+                 use_kernel: bool = False, time_per_token: bool = False,
+                 factor_cache: Optional[bool] = None, *, device="cuda"):
+        warnings.warn(
+            "AdaptiveServer is deprecated; use repro_torch.serve.api.Engine "
+            "(EngineConfig + submit/RequestHandle) instead",
+            DeprecationWarning, stacklevel=2)
+        self.cfg = cfg
+        self.params = params
+        self.policy = policy_params
+        self.max_len = max_len
+        self.page_size = page_size
+        self.use_kernel = use_kernel
+        self.time_per_token = time_per_token
+        self.factor_cache = factor_cache
+        self.device = device
+        self._engines: Dict[tuple, Engine] = {}
+
+    def _engine(self, n_slots: int, seg: int, max_new: int) -> Engine:
+        key = (n_slots, seg, max_new)
+        eng = self._engines.get(key)
+        if eng is None:
+            eng = Engine(self.cfg, self.params, self.policy,
+                         config=EngineConfig(
+                             n_slots=n_slots, max_len=self.max_len,
+                             page_size=self.page_size, segment_len=seg,
+                             max_new_cap=max_new, prefill_chunk=None,
+                             sampling=False, use_kernel=self.use_kernel,
+                             time_per_token=self.time_per_token,
+                             factor_cache=self.factor_cache),
+                         device=self.device)
+            self._engines[key] = eng
+        else:
+            eng.reset()
+        return eng
+
+    def generate(self, prompts, n_tokens: int,
+                 segment_len: Optional[int] = None) -> Dict:
+        """prompts: (b, s0) ints. Greedy decode of n_tokens per stream.
+        Returns tokens (b, n_tokens), the per-step per-stream ranks,
+        warm-decode ``tok_per_s`` and the separate ``compile_s`` /
+        ``prefill_s``."""
+        seg = segment_len or self.cfg.rank.segment_len
+        prompts_np = np.asarray(prompts, np.int32)
+        b = prompts_np.shape[0]
+        eng = self._engine(b, seg, n_tokens)
+        handles = [eng.submit(prompts_np[i], SamplingParams(max_new=n_tokens))
+                   for i in range(b)]
+        eng.warmup()
+        eng.run()
+        tokens = np.stack([h.result() for h in handles])
+        core = eng.core
+        s = core.stats
+        return {
+            "tokens": tokens,
+            "ranks": [r.tolist() for r in core.ranks_per_step()],
+            "tok_per_s": s["tokens_decoded"] / max(s["decode_s"], 1e-9),
+            "compile_s": s["compile_s"],
+            "prefill_s": s["prefill_s"],
+            "token_lat_s": list(core.token_latencies),
+            "ttft_s": [h.ttft_s for h in handles],
+            "stats": dict(s),
+        }

@@ -36,6 +36,14 @@ streaming consumer is attached, and, in a speculative step, the accepted
 run of every row. With ``drift_threshold`` set, each step that decodes
 also fetches one (n_slots,) drift vector (``_check_drift``).
 
+Every engine carries a ``repro_torch.obs.Observability`` bundle: the stats
+dict is a view over its metrics registry, and the step loop calls its
+host-only hooks (admission, first token, decisions, drift, prefill chunks,
+accept runs, finishes) and, with ``obs_trace``, records each step's phases.
+With ``record_traces`` a ``serve.traces.TraceRecorder`` gets each
+decision's spectra and rank (one fetch per decision) and each step's
+outcome.
+
 Unlike JAX, PyTorch updates the step's buffers in place: the pools, the
 output buffer and the decision's basis / spectra / factors are written
 where they lie. The JAX engine donates exactly these buffers to its
@@ -57,17 +65,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.models.api import get_model
 from repro_torch.models.transformer import forward_dense
+from repro_torch.obs import NULL_PHASES, Observability
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.policy import basis_drift, draft_ranks, make_decide_fn
 from repro_torch.serve.prefix import MatchResult, PrefixCache
 from repro_torch.serve.scheduler import Request, Scheduler, prefill_buckets
+from repro_torch.serve.traces import TraceRecorder
 
 
 def params_to(params, device):
@@ -103,17 +112,11 @@ class ServeEngine:
                  adaptive_draft: bool = False,
                  draft_shrink_below: float = 0.35,
                  draft_grow_above: float = 0.6,
-                 record_traces: Optional[str] = None,
+                 record_traces=None,
                  obs_trace: bool = False, flight_dir: Optional[str] = None,
-                 device="cuda"):
+                 flight_capacity: int = 256, device="cuda"):
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        for flag, what, item in (
-                (record_traces, "serving traces", "item 14"),
-                (obs_trace, "repro.obs tracing", "item 14"),
-                (flight_dir, "the flight recorder", "item 14")):
-            if flag:
-                raise not_ported(what, item)
         self.device = torch.device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -159,6 +162,17 @@ class ServeEngine:
         self.draft_grow_above = float(draft_grow_above)
         if self.adaptive_draft and not self.speculative:
             raise ValueError("adaptive_draft requires speculative=True")
+        # a TraceRecorder may be shared by engines served one after another
+        # (one dataset over a workload suite); a path gets its own recorder
+        self.trace = None
+        if record_traces:
+            self.trace = (record_traces
+                          if isinstance(record_traces, TraceRecorder)
+                          else TraceRecorder(record_traces, cfg))
+        # the metrics registry is always on (the stats below live in it);
+        # span/phase tracing and flight dumps are opt-in
+        self.obs = Observability(trace=obs_trace, flight_dir=flight_dir,
+                                 flight_capacity=flight_capacity)
         self.spec_chunk = (max(self.chunk, self.draft_k + 1)
                            if self.speculative else None)
         # sampling=True runs the temperature / top-k / gumbel tail in the
@@ -245,15 +259,28 @@ class ServeEngine:
         self._snaps: Dict[int, Dict[int, Optional[torch.Tensor]]] = {}
         self._spectra_pending: Dict[int, object] = {}
         self.request_prefix_hit: Dict[int, bool] = {}
-        self.stats: Dict[str, float] = {
-            "compile_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
-            "steps": 0, "tokens_decoded": 0, "prefills": 0, "decides": 0,
-            "mixed_steps": 0, "stall_s": 0.0, "prefill_tokens": 0,
-            "warmup_steps": 0, "prefix_hits": 0, "prefix_misses": 0,
-            "prefix_reused_tokens": 0, "prefix_cow": 0,
-            "prefix_evictions": 0, "spec_steps": 0, "spec_drafted": 0,
-            "spec_accepted": 0, "spec_tokens": 0,
-            "eff_draft_k": self.draft_k if self.speculative else 0}
+        # the stats dict as a view over the obs registry (the JAX engine's
+        # keys); re-binding zeroes the backing metrics
+        self.stats = self.obs.stats_view(
+            {"compile_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
+             "steps": 0, "tokens_decoded": 0, "prefills": 0, "decides": 0,
+             "mixed_steps": 0, "stall_s": 0.0, "prefill_tokens": 0,
+             "prefix_hits": 0, "prefix_misses": 0,
+             "prefix_reused_tokens": 0, "prefix_cow": 0,
+             "prefix_evictions": 0, "spec_steps": 0, "spec_drafted": 0,
+             "spec_accepted": 0, "spec_tokens": 0,
+             "eff_draft_k": self.draft_k if self.speculative else 0})
+        self.obs.reset_run()
+        # fused steps run by warmup() (value-neutral, counted apart from
+        # stats['steps'])
+        self.warmup_steps = 0
+        # each decision's Eq. 9 veto flag, a device bool banked unfetched:
+        # obs.rank_telemetry() reads them all at export time
+        self._veto_pending: List[torch.Tensor] = []
+        if self.trace is not None:
+            # a reset ends every live stream: close their outcome windows
+            for slot in range(ns):
+                self.trace.on_evict(slot)
         # adaptive-draft controller state (host only)
         self._eff_k = self.draft_k if self.speculative else 0
         self._accept_ewma = 1.0
@@ -326,6 +353,9 @@ class ServeEngine:
                     outputs = self.out_buf[i, :st.n_out].tolist()
                     if st.accept_lens:
                         self.request_accept_lens[rid] = list(st.accept_lens)
+                    if self.trace is not None:
+                        self.trace.on_evict(i)
+                    self.obs.on_finish(rid, i, st.n_out, "cancel")
                     self.sched.evict(i, self.cache.release, outputs)
                     # a mid-prefill cancel leaves no prefix insertion and no
                     # pending spectra capture for this slot
@@ -335,6 +365,12 @@ class ServeEngine:
                     self._dirty = True
                     return True
         return False
+
+    @property
+    def depth(self) -> int:
+        """Queued + admitted requests (the router's load signal)."""
+        with self._lock:
+            return self.sched.depth()
 
     def prefix_probe(self, tokens) -> int:
         """Longest cached-prefix length this engine could reuse for
@@ -384,7 +420,7 @@ class ServeEngine:
                 self._topp_dev, self._seed_dev, *extra)
             self._adopt_pools(pools)
             self.out_buf = ob
-            self.stats["warmup_steps"] += 1
+            self.warmup_steps += 1
         if self.speculative:
             dev = self.device
             pools, tok, ob, _, _, _, _ = self._step_spec(
@@ -399,7 +435,7 @@ class ServeEngine:
                 torch.full((ns,), -1, dtype=torch.long, device=dev), 1)
             self._adopt_pools(pools)
             self.out_buf = ob
-            self.stats["warmup_steps"] += 1
+            self.warmup_steps += 1
         self._sync_device()
         dt = time.perf_counter() - t0
         self.stats["compile_s"] += dt
@@ -775,7 +811,13 @@ class ServeEngine:
                 m = self._apply_prefix_hit(slot, req)
                 self._snaps[slot] = {}
                 self.stats["prefill_tokens"] += st.prompt_len - m
+                self.obs.on_admit(req.rid, slot, st.prompt_len, reused=m,
+                                  queued=len(self.sched.pending),
+                                  live=self.sched.n_live())
                 continue
+            self.obs.on_admit(req.rid, slot, st.prompt_len,
+                              queued=len(self.sched.pending),
+                              live=self.sched.n_live())
             t0 = time.perf_counter()
             s = len(req.tokens)
             padded = np.zeros((1, bucket), np.int64)
@@ -815,6 +857,7 @@ class ServeEngine:
         st.latencies.append(ttft_s)               # first-token latency
         self.stats["prefills"] += 1
         self.request_first_tok_t[st.req.rid] = now_t
+        self.obs.on_first_token(st.req.rid, i, ttft_s)
 
     def _maybe_decide(self) -> None:
         if self._decide is None:
@@ -834,14 +877,28 @@ class ServeEngine:
         for i in np.nonzero(boundary)[0]:
             st = self.sched.slots[i]
             first = not self.has_rank[i]
+            forced = bool(self.force_decide[i])
             (self.cache.ranks, self.cache.basis, self.cache.spectra,
-             self.cache.kt_pool, _vetoed) = self._decide(
+             self.cache.kt_pool, vetoed) = self._decide(
                 self.cache.k_pool, self.cache.mass_pool, self.cache.kt_pool,
                 self._pt_dev, self._lens_dev, self.cache.ranks,
                 self.cache.basis, self.cache.spectra, int(i),
                 bool(self.has_rank[i]), st.t)
+            self._veto_pending.append(vetoed)
             st.t += 1
             self.stats["decides"] += 1
+            self.obs.on_decide(int(i), st.t - 1, forced=forced)
+            if self.trace is not None:
+                # one fetch per decision: the slot's fresh layer-0 spectra
+                # and rank, copied out (the next decision rewrites the
+                # spectra in place)
+                sp = self.cache.spectra[i]
+                host = torch.cat([sp.reshape(-1).float(),
+                                  self.cache.ranks[i:i + 1].float()]).cpu()
+                self.trace.on_decision(
+                    int(i), st.req.rid, st.t - 1, int(self.cache.lens[i]),
+                    int(host[-1]), host[:-1].reshape(sp.shape).numpy(),
+                    has_prev=not first)
             if first:
                 # the slot's first decision is its prompt's: keep its
                 # layer-0 spectra on the cached prefix node (a warm start
@@ -868,6 +925,7 @@ class ServeEngine:
         for i in live:
             if self.has_rank[i] and drift[i] > self.drift_threshold:
                 self.force_decide[i] = True
+                self.obs.on_drift(int(i), float(drift[i]))
 
     def _maybe_snapshot(self, i: int, st, done_pf: bool) -> None:
         """Keep a cumulative-mass snapshot for the prefix cache: the pool
@@ -897,12 +955,15 @@ class ServeEngine:
             self._snaps.pop(i, {}))
         if node is not None and self._decide is not None:
             self._spectra_pending[i] = node
+        # once per finished prompt; pages counted as distinct physical ids
+        self.obs.set_prefix_size(
+            self.prefix.n_nodes, len(set(self.prefix.all_pages())))
 
-    def _step_live_spec(self, live: List[int]) -> None:
+    def _step_live_spec(self, live: List[int], ph=NULL_PHASES) -> None:
         """Host side of one speculative iteration (the fused body is
-        ``_step_spec_impl``). Decode rows advance by their accepted run
-        ``a`` (1 .. draft_k + 1); the per-step fetch of the accepted runs is
-        the token stream; the host caps each row's run so that max_new and
+        ``_step_spec_impl``; ``ph`` is the step's phase recorder). Decode
+        rows advance by their accepted run ``a`` (1 .. draft_k + 1); the
+        per-step fetch of the accepted runs is the token stream; the host caps each row's run so that max_new and
         (with a rank mode) segment boundaries fall at the token counts
         plain decode hits, and rank decisions see plain decode's clocks."""
         slots = self.sched.slots
@@ -911,7 +972,8 @@ class ServeEngine:
         q_host = {i: min(self.spec_chunk, slots[i].prompt_len
                          - slots[i].prefilled) for i in mid}
         t0 = time.perf_counter()
-        self._maybe_decide()
+        with ph("decide"):
+            self._maybe_decide()
         if self.cache.factored and decoding:
             assert all(self.has_rank[i] for i in decoding), \
                 "factored slot would read unseeded kt rows"
@@ -932,64 +994,74 @@ class ServeEngine:
                 floor = plen
             assert self.cache.lens[i] >= floor, \
                 f"slot {i}: speculative write below shared-page floor"
-        self._sync_control()
-        active_dec = np.array([s.active and not s.mid_prefill
-                               for s in self.sched.slots])
-        self.rank_history.append(
-            (self.stats["steps"], self.cache.ranks, active_dec))
-        # adaptive draft: the cap honours the current effective draft
-        # length (>= 1 here: a collapsed engine reaches this path only on
-        # recovery-probe steps)
-        k_eff = max(self._eff_k, 1) if self.adaptive_draft else self.draft_k
-        caps = np.ones((self.n_slots,), np.int64)
-        for i in decoding:
-            st = slots[i]
-            c = min(k_eff + 1, st.req.max_new - st.n_out)
-            if self._decide is not None:
-                c = min(c, self.seg - st.decode_i % self.seg)
-            caps[i] = max(c, 1)
-        n_q_max = max([int(caps[i]) for i in decoding]
-                      + list(q_host.values()))
-        pools, tok, ob, lens, acc, n_emit, emitted = self._step_spec(
-            self.params, self.cache.k_pool, self.cache.v_pool,
-            self.cache.kt_pool, self.cache.mass_pool,
-            self._pt_dev, self.tokens, self._lens_dev, self.cache.ranks,
-            self.cache.basis, self._active_dev, self.out_buf,
-            self._plen_dev, self._temp_dev, self._topk_dev,
-            self._topp_dev, self._seed_dev, self.prompt_buf,
-            self.cache.spectra, torch.as_tensor(caps, device=self.device),
-            self._eos_dev, n_q_max)
-        self._adopt_pools(pools)
-        self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
-        # the step's one host sync: the accepted runs and their tokens
-        host = torch.cat([acc[:, None], emitted], dim=1).tolist()
+        with ph("dispatch"):
+            self._sync_control()
+            active_dec = np.array([s.active and not s.mid_prefill
+                                   for s in self.sched.slots])
+            self.rank_history.append(
+                (self.stats["steps"], self.cache.ranks, active_dec))
+            # adaptive draft: the cap honours the current effective draft
+            # length (>= 1 here: a collapsed engine reaches this path only on
+            # recovery-probe steps)
+            k_eff = max(self._eff_k, 1) if self.adaptive_draft else self.draft_k
+            caps = np.ones((self.n_slots,), np.int64)
+            for i in decoding:
+                st = slots[i]
+                c = min(k_eff + 1, st.req.max_new - st.n_out)
+                if self._decide is not None:
+                    c = min(c, self.seg - st.decode_i % self.seg)
+                caps[i] = max(c, 1)
+            n_q_max = max([int(caps[i]) for i in decoding]
+                          + list(q_host.values()))
+            pools, tok, ob, lens, acc, n_emit, emitted = self._step_spec(
+                self.params, self.cache.k_pool, self.cache.v_pool,
+                self.cache.kt_pool, self.cache.mass_pool,
+                self._pt_dev, self.tokens, self._lens_dev, self.cache.ranks,
+                self.cache.basis, self._active_dev, self.out_buf,
+                self._plen_dev, self._temp_dev, self._topk_dev,
+                self._topp_dev, self._seed_dev, self.prompt_buf,
+                self.cache.spectra, torch.as_tensor(caps, device=self.device),
+                self._eos_dev, n_q_max)
+            self._adopt_pools(pools)
+            self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
+        with ph("fetch"):
+            # the step's one host sync: the accepted runs and their tokens
+            host = torch.cat([acc[:, None], emitted], dim=1).tolist()
         dt = time.perf_counter() - t0 if self.time_per_token else None
         now_t = time.perf_counter()
-        for i in live:
-            st = slots[i]
-            if i in q_host:                       # mid-prefill row
-                q = q_host[i]
-                st.prefilled += q
-                self.cache.lens[i] += q           # host mirror of _lens_dev
-                done_pf = st.prefilled == st.prompt_len
-                self._maybe_snapshot(i, st, done_pf)
-                if done_pf:
-                    self._stamp_first_token(i, st, now_t, now_t - st.admit_s)
-                    st.last_tok = host[i][1]
-                    self.last_emitted.append((st.req.rid, 0, host[i][1]))
-                    self._insert_prefix(i, st)
-                continue
-            a = host[i][0]
-            base = st.n_out
-            st.decode_i += a
-            st.n_out += a
-            self.cache.lens[i] += a               # host mirror of _lens_dev
-            st.accept_lens.append(a)
-            st.last_tok = host[i][a]
-            self.last_emitted.extend(
-                (st.req.rid, base + t, host[i][1 + t]) for t in range(a))
-            if dt is not None:
-                st.latencies.extend([dt / a] * a)
+        with ph("deliver"):
+            for i in live:
+                st = slots[i]
+                if i in q_host:                       # mid-prefill row
+                    q = q_host[i]
+                    st.prefilled += q
+                    self.cache.lens[i] += q           # host mirror of _lens_dev
+                    done_pf = st.prefilled == st.prompt_len
+                    self._maybe_snapshot(i, st, done_pf)
+                    self.obs.on_prefill_chunk(i, st.req.rid, q, st.prefilled)
+                    if done_pf:
+                        self._stamp_first_token(i, st, now_t, now_t - st.admit_s)
+                        st.last_tok = host[i][1]
+                        self.last_emitted.append((st.req.rid, 0, host[i][1]))
+                        self._insert_prefix(i, st)
+                    continue
+                a = host[i][0]
+                base = st.n_out
+                st.decode_i += a
+                st.n_out += a
+                self.cache.lens[i] += a               # host mirror of _lens_dev
+                st.accept_lens.append(a)
+                self.obs.on_spec_accept(i, a, int(caps[i]) - 1)
+                if self.trace is not None:
+                    self.trace.on_step(i, a, dt, accepted=a - 1,
+                                       drafted=int(caps[i]) - 1)
+                st.last_tok = host[i][a]
+                self.last_emitted.extend(
+                    (st.req.rid, base + t, host[i][1 + t]) for t in range(a))
+                if dt is not None:
+                    st.latencies.extend([dt / a] * a)
+                    for _ in range(a):
+                        self.obs.on_token_latency(dt / a)
         self.stats["steps"] += 1
         if decoding:
             tot, n_acc, n_drafted = spec_mod.host_accept_stats(
@@ -1026,15 +1098,26 @@ class ServeEngine:
                     self.token_latencies.extend(st.latencies[1:])
                 if st.accept_lens:
                     self.request_accept_lens[st.req.rid] = list(st.accept_lens)
+                if self.trace is not None:
+                    self.trace.on_evict(i)
+                reason = ("eos" if (st.req.eos_id is not None
+                                    and st.last_tok == st.req.eos_id)
+                          else "max_new")
+                self.obs.on_finish(st.req.rid, i, st.n_out, reason)
                 self.sched.evict(i, self.cache.release, outputs)
                 self._dirty = True
 
     def step(self) -> None:
-        """One engine iteration: admit -> decide -> fused step -> evict."""
+        """One engine iteration: admit -> decide -> fused step -> evict.
+        With ``obs_trace`` each phase (admit, schedule, decide, dispatch,
+        fetch, deliver) is a span and a histogram sample."""
         self.last_emitted = []
-        self._admit()
-        self._evict_finished()
-        live = [i for i, s in enumerate(self.sched.slots) if s.active]
+        ph = self.obs.step_phases(self.stats["steps"])
+        with ph("admit"):
+            self._admit()
+        with ph("schedule"):
+            self._evict_finished()
+            live = [i for i, s in enumerate(self.sched.slots) if s.active]
         if live and self.speculative and any(
                 not self.sched.slots[i].mid_prefill for i in live):
             # a row has a token to extend; pure-prefill steps take the mixed
@@ -1046,7 +1129,7 @@ class ServeEngine:
                 spec_now = self._probe_i % self._DRAFT_PROBE_EVERY == 0
                 self._probe_i += 1
             if spec_now:
-                self._step_live_spec(live)
+                self._step_live_spec(live, ph)
                 live = []
         if live:
             slots = self.sched.slots
@@ -1060,67 +1143,78 @@ class ServeEngine:
                          if slots[i].prefilled + q_host[i]
                          == slots[i].prompt_len]
             t0 = time.perf_counter()
-            self._maybe_decide()
+            with ph("decide"):
+                self._maybe_decide()
             if self.cache.factored and decoding:
                 # a factored slot's kt rows are only consistent after its
                 # first decision re-projects them (decode_i == 0 is always
                 # a boundary); mid-prefill rows read dense K
                 assert all(self.has_rank[i] for i in decoding), \
                     "factored slot would read unseeded kt rows"
-            self._sync_control()
-            active_dec = np.array([s.active and not s.mid_prefill
-                                   for s in self.sched.slots])
-            self.rank_history.append(
-                (self.stats["steps"], self.cache.ranks, active_dec))
-            # a speculative engine's decode-only steps ride the mixed step
-            # (q_lens == 1), as the reference's do
-            use_mixed = bool(mid) or self.speculative
-            step_fn = self._step_mixed if use_mixed else self._step
-            extra = (self.prompt_buf,) if use_mixed else ()
-            pools, tok, ob, lens = step_fn(
-                self.params, self.cache.k_pool, self.cache.v_pool,
-                self.cache.kt_pool, self.cache.mass_pool,
-                self._pt_dev, self.tokens, self._lens_dev,
-                self.cache.ranks, self.cache.basis, self._active_dev,
-                self.out_buf, self._plen_dev, self._temp_dev,
-                self._topk_dev, self._topp_dev, self._seed_dev, *extra)
-            self._adopt_pools(pools)
-            self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
-            dt = None
-            if self.time_per_token:
-                self._sync_device()
-                dt = time.perf_counter() - t0
+            with ph("dispatch"):
+                self._sync_control()
+                active_dec = np.array([s.active and not s.mid_prefill
+                                       for s in self.sched.slots])
+                self.rank_history.append(
+                    (self.stats["steps"], self.cache.ranks, active_dec))
+                # a speculative engine's decode-only steps ride the mixed
+                # step (q_lens == 1), as the reference's do
+                use_mixed = bool(mid) or self.speculative
+                step_fn = self._step_mixed if use_mixed else self._step
+                extra = (self.prompt_buf,) if use_mixed else ()
+                pools, tok, ob, lens = step_fn(
+                    self.params, self.cache.k_pool, self.cache.v_pool,
+                    self.cache.kt_pool, self.cache.mass_pool,
+                    self._pt_dev, self.tokens, self._lens_dev,
+                    self.cache.ranks, self.cache.basis, self._active_dev,
+                    self.out_buf, self._plen_dev, self._temp_dev,
+                    self._topk_dev, self._topp_dev, self._seed_dev, *extra)
+                self._adopt_pools(pools)
+                self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
+                dt = None
+                if self.time_per_token:
+                    self._sync_device()
+                    dt = time.perf_counter() - t0
             emitting = decoding + finishing
             # the one host sync of a step, taken only when EOS detection or
             # a streaming consumer needs this step's token values
             need_tok = (self._stream_sync and emitting) or any(
                 slots[i].req.eos_id is not None for i in emitting)
-            tok_host = tok[:, 0].tolist() if need_tok else None
+            with ph("fetch"):
+                tok_host = tok[:, 0].tolist() if need_tok else None
             now_t = time.perf_counter()
-            for i in live:
-                st = slots[i]
-                if i in q_host:                   # mid-prefill row
-                    st.prefilled += q_host[i]
-                    self.cache.lens[i] += q_host[i]   # host mirror of _lens_dev
-                    done_pf = st.prefilled == st.prompt_len
-                    self._maybe_snapshot(i, st, done_pf)
-                    if done_pf:
-                        self._stamp_first_token(i, st, now_t, now_t - st.admit_s)
-                        if tok_host is not None:
-                            st.last_tok = tok_host[i]
-                        self._insert_prefix(i, st)
-                    continue
-                st.decode_i += 1
-                st.n_out += 1
-                self.cache.lens[i] += 1           # host mirror of _lens_dev
+            with ph("deliver"):
+                for i in live:
+                    st = slots[i]
+                    if i in q_host:               # mid-prefill row
+                        q = q_host[i]
+                        st.prefilled += q
+                        self.cache.lens[i] += q   # host mirror of _lens_dev
+                        done_pf = st.prefilled == st.prompt_len
+                        self._maybe_snapshot(i, st, done_pf)
+                        self.obs.on_prefill_chunk(i, st.req.rid, q,
+                                                  st.prefilled)
+                        if done_pf:
+                            self._stamp_first_token(i, st, now_t,
+                                                    now_t - st.admit_s)
+                            if tok_host is not None:
+                                st.last_tok = tok_host[i]
+                            self._insert_prefix(i, st)
+                        continue
+                    st.decode_i += 1
+                    st.n_out += 1
+                    self.cache.lens[i] += 1       # host mirror of _lens_dev
+                    if self.trace is not None:
+                        self.trace.on_step(i, 1, dt)
+                    if tok_host is not None:
+                        st.last_tok = tok_host[i]
+                    if dt is not None:
+                        st.latencies.append(dt)
+                        self.obs.on_token_latency(dt)
                 if tok_host is not None:
-                    st.last_tok = tok_host[i]
-                if dt is not None:
-                    st.latencies.append(dt)
-            if tok_host is not None:
-                self.last_emitted.extend(
-                    (slots[i].req.rid, slots[i].n_out - 1, tok_host[i])
-                    for i in emitting)
+                    self.last_emitted.extend(
+                        (slots[i].req.rid, slots[i].n_out - 1, tok_host[i])
+                        for i in emitting)
             self.stats["steps"] += 1
             self.stats["tokens_decoded"] += len(decoding)
             if mid:

@@ -180,19 +180,6 @@ def test_streaming_tokens_match_result(models):
     assert out[-1] == eos and len(out) == streamed.index(eos) + 1
 
 
-UNPORTED = [
-    dict(record_traces="traces"), dict(obs_trace=True), dict(flight_dir="flight"),
-]
-
-
-@pytest.mark.parametrize("knobs", UNPORTED, ids=[next(iter(k)) for k in UNPORTED])
-def test_unported_knobs_fail_loudly(knobs, models):
-    _, tcfg, _, tparams, _, _ = models["adaptive"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tcfg, tparams, device="cpu",
-               config=EngineConfig(**{**KNOBS, **knobs}))
-
-
 def _both(mode, knobs, params=None, driver=None):
     """Serve WORKLOAD on the JAX engine and on the port's, ``params``
     (SamplingParams kwargs) for every request, each with its own seed;

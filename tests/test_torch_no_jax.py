@@ -8,8 +8,11 @@ cancel, a chunked ``forward_dense`` runs its flash branch at s = 1040, the
 forward runs in rank modes 'random', 'performer' and 'nystrom', the rank-r
 cache prefills and decodes, the reduced
 drrl-paper model in its own rank mode 'drrl' runs the forward and serves
-with the port's own seeded agent, and ``examples/quickstart_torch.py``
-trains that agent (BC, then PPO) on the CPU."""
+with the port's own seeded agent, an engine records serving traces with
+obs tracing and flight dumps on, serves through a ``FrontEnd`` and a
+2-replica ``Router``, the serving policy trains on the trace, loads and
+serves in rank mode 'learned', and ``examples/quickstart_torch.py``
+trains the DR-RL agent (BC, then PPO) on the CPU."""
 import os
 import subprocess
 import sys
@@ -97,6 +100,37 @@ eng = Engine(cfg, params, agent, device="cpu", config=EngineConfig(
 hs3 = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [len(h.result()) for h in hs3] == [5, 5] and eng.stats["decides"] >= 2
+import tempfile                     # the front end, router, traces, learned policy
+from repro_torch.serve import FleetConfig, FrontEnd, Router, make_workload
+from repro_torch.train.serve_policy import load_policy, train_serve_policy
+acfg = cfg.with_(rank=RankConfig(mode="adaptive", rank_grid=(4, 8, 12, 16), segment_len=8))
+tmp = tempfile.mkdtemp()
+eng = Engine(acfg, params, device="cpu", config=EngineConfig(
+    n_slots=2, max_len=64, prefill_chunk=8, segment_len=8, record_traces=tmp + "/tr",
+    obs_trace=True, flight_dir=tmp + "/fl", nucleus=True, prefix_cache=True))
+for name in ("bursty", "shared_prefix", "mixed_sampling"):
+    for r in make_workload(name, seed=1, n_requests=3, max_new=6, max_prompt=24).requests:
+        eng.submit(r["tokens"], SamplingParams(max_new=6, temperature=r.get("temperature", 0.0),
+                   top_k=r.get("top_k", 0), top_p=r.get("top_p", 1.0), seed=r.get("seed", 0)),
+                   arrival=r["arrival"])
+    eng.run()
+assert eng.core.trace.flush()["n_records"] > 0 and eng.obs.prometheus()
+with FrontEnd(eng, idle_poll_s=0.01) as fe:
+    h = fe.submit(np.arange(12) % 256, SamplingParams(max_new=5))
+    assert fe.drain(60) and len(h.result()) == 5
+fleet = FleetConfig(engine=EngineConfig(n_slots=2, max_len=64, prefill_chunk=8,
+                                        prefix_cache=True), n_replicas=2, idle_poll_s=0.01)
+with Router(acfg, params, fleet=fleet, device="cpu") as router:
+    hr = [router.submit(np.arange(20 + i) % 256, SamplingParams(max_new=4)) for i in range(3)]
+    assert router.drain(60) and [len(x.result()) for x in hr] == [4, 4, 4]
+pol, hist = train_serve_policy(tmp + "/tr", acfg.rank, out_dir=tmp + "/pol", bc_steps=4,
+                               ppo_steps=1, ppo_epochs=1, device="cpu")
+lcfg = acfg.with_(rank=RankConfig(mode="learned", rank_grid=(4, 8, 12, 16), segment_len=8))
+eng = Engine(lcfg, params, load_policy(tmp + "/pol", device="cpu"), device="cpu",
+             config=EngineConfig(n_slots=2, max_len=64, prefill_chunk=8, segment_len=8))
+hl = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
+eng.run()
+assert [len(x.result()) for x in hl] == [5, 5] and eng.stats["decides"] >= 2
 import runpy                        # the agent's training: BC, then PPO
 sys.argv = ["quickstart_torch.py", "--device", "cpu"]
 runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
