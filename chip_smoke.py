@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and forward paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, forward and training paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -128,6 +128,21 @@ Phases (one line each, plus detail lines):
      flight dump when a ``FrontEnd``'s step raises; (f) ``python -m
      repro_torch.launch.serve``; (g) the reduced model's traces and
      'learned' serving, card with the kernel against the CPU without it.
+ 17. the LM training stack at full width (drrl-paper in its rank mode
+     'drrl', phase 10's seeded agent): (a) ``launch.train.main`` on 8 x 256
+     tokens, 4 steps with checkpoints, then 6 steps resumed from step 4 (the
+     line ``[ckpt] resumed from step 4``, finite losses, s/step; neither
+     kernel launched: the step calls ``loss`` unchunked, as the reference
+     does); (b) ``run_training`` 4 steps straight against 2 steps, a
+     synchronous checkpoint and a resume to 4, under deterministic
+     algorithms: equal; (c) one step with 2 microbatches and bf16
+     error-feedback accumulation against one step on the whole batch;
+     (d) one step profiled: device busy and idle, eigh's forward and
+     backward, cuBLAS, eager ops, copies, AdamW, peak memory; (e) the last
+     checkpoint loaded into a fresh (params, AdamWState) template and phase
+     3's workload served from it, tokens equal to serving the in-memory
+     params, 12 flash_decode launches per fused step; (f) the reduced model
+     trained 3 steps on the card and on the CPU.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -135,8 +150,11 @@ phase fails. The last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -152,22 +170,26 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import RankConfig  # noqa: E402
+from repro_torch.configs.base import RankConfig, TrainConfig  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
-from repro_torch.core import drrl, ppo, prng  # noqa: E402
+from repro_torch.core import drrl, lowrank, ppo, prng  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import lowrank_cache  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.schedules import make_lr_fn  # noqa: E402
 from repro_torch.obs import validate_chrome_trace  # noqa: E402
 from repro_torch.serve import (Engine, EngineConfig, FleetConfig, FrontEnd,  # noqa: E402
                                Router, SamplingParams, TraceReader, make_workload,
                                workload_names)
 from repro_torch.serve.engine import params_to  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import rl  # noqa: E402
 from repro_torch.train import serve_policy  # noqa: E402
 
@@ -597,6 +619,24 @@ def device_kernels(prof):
     if not kern:
         raise AssertionError("the profiler recorded no device time")
     return kern
+
+
+KernelSum = collections.namedtuple("KernelSum", "key count self_device_time_total")
+
+
+def raw_device_kernels(prof):
+    """``device_kernels`` summed from the profiler's raw events: the same
+    sums by kernel name, without building the profile's Python event tree
+    (tens of seconds for a training step's 10^5 device events)."""
+    from torch.autograd import DeviceType
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.name() not in PROFILER_OVERHEAD:
+            n, us = agg.get(e.name(), (0, 0.0))
+            agg[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    if not agg:
+        raise AssertionError("the profiler recorded no device time")
+    return [KernelSum(k, n, us) for k, (n, us) in agg.items()]
 
 
 def kernel_us(fn, n=10, attempts=3) -> dict:
@@ -2661,6 +2701,358 @@ def check_front_reference(out) -> None:
         f"ranks identical ({len(kg)} steps, ranks {ranks})")
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+LM_BATCH, LM_SEQ = 8, 256          # the training CLI's defaults
+# 17f: the reduced model's training, card vs CPU (tests/test_torch_train_loop.py's
+# tolerances for rank mode 'drrl'): loss and grad norm relative; parameters:
+# AdamW normalises each element's step, so a gradient element near zero in the
+# last bits can move its parameter by up to about lr more on one side: every
+# element within 2 x the summed lr, 99 % of each leaf's elements within 5e-5
+LM_LOSS_TOL, LM_GNORM_TOL, LM_P99_TOL = 2e-5, 1e-4, 5e-5
+# 17c: two bf16-accumulated microbatches against one batch, one step from the
+# same params: the microbatches' mean loss is the batch's loss up to f32
+# summation order; the bf16 accumulator rounds each summed gradient element
+# once more (at most 2^-9 of it, the f32 error carried but not added back), so
+# the grad norm moves by at most 2^-8 relative; the params by at most 2 lr
+ACC_LOSS_TOL, ACC_GNORM_TOL = 1e-5, 2 ** -8
+
+
+class _Tee:
+    """stdout that also keeps what passes through it."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def lm_loss_fn(cfg, agent):
+    """The training CLI's loss: rank mode 'drrl' with ``agent`` and the
+    step's rank key."""
+    fns = get_model(cfg)
+    return lambda p, b, rng: fns.loss(p, b, policy_params=agent, rank_rng=rng)
+
+
+def _tree_diff(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(tu.leaves(a), tu.leaves(b)))
+
+
+def check_train_cli(paper, out, card_name) -> dict:
+    """17a: ``launch.train.main`` at full width, 4 steps with checkpoints,
+    then 6 steps resumed from step 4. Returns the numbers and the second
+    run's params (in memory) and checkpoint directory."""
+    ckpt = os.path.join(out, "cli_ckpt")
+    argv = ["--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--ckpt-dir", ckpt,
+            "--device", DEV]
+    runs = []
+    for steps in (4, 6):
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            res = train_launch.main(argv + ["--steps", str(steps)])
+        torch.cuda.synchronize()
+        runs.append((res, "".join(tee.text), time.perf_counter() - t0))
+    (r4, text4, wall4), (r6, text6, wall6) = runs
+    assert "[ckpt]" not in text4, text4
+    assert "[ckpt] resumed from step 4" in text6, text6
+    hist = r4["history"] + r6["history"]
+    assert [h["step"] for h in hist] == [0, 3, 5], hist
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist), hist
+    steady = [h["s_per_step"] for h in hist[1:]]
+    log(f"  launch.train.main, drrl-paper {paper.num_layers} x {paper.d_model} in rank "
+        f"mode '{paper.rank.mode}', {LM_BATCH} x "
+        f"{LM_SEQ} tokens: 4 steps in {wall4:.1f} s, then 6 resumed from step 4 in "
+        f"{wall6:.1f} s (init and checkpoints included); losses "
+        f"{[round(h['loss'], 4) for h in hist]} at steps 0, 3, 5; s/step "
+        f"{hist[0]['s_per_step']:.3f} (step 0), {steady[0]:.3f} and {steady[1]:.3f} "
+        f"(steps 3, 5) [{card_name}]")
+    return {"s_per_step": steady, "s_first_step": hist[0]["s_per_step"],
+            "losses": [h["loss"] for h in hist], "wall_s": [wall4, wall6],
+            "params": r6["params"], "opt_state": r6["opt_state"], "ckpt": ckpt}
+
+
+def check_train_resume(cfg, agent, out, card_name) -> float:
+    """17b: run_training straight to 4 steps against 2 steps, a synchronous
+    checkpoint and a resume to 4 (schedule 'constant', as
+    tests/test_system.py), under torch.use_deterministic_algorithms: the
+    index and gather backwards then sum in a fixed order instead of with
+    atomics, so the runs must be equal. ``warn_only``: the Eq. 6 features'
+    NER curve (a cumsum over each head's 64 eigenvalues, no gradient) has
+    no path the switch accepts."""
+    tc = TrainConfig(global_batch=2, seq_len=LM_SEQ, lr=3e-4, total_steps=4,
+                     warmup_steps=1, checkpoint_every=2, log_every=100,
+                     async_checkpoint=False, schedule="constant")
+    kw = dict(init_fn=get_model(cfg).init, loss_fn=lm_loss_fn(cfg, agent),
+              data=SyntheticLM(cfg.vocab_size, LM_SEQ, 2, seed=0), device=DEV)
+    cm = CheckpointManager(os.path.join(out, "resume_ckpt"), async_save=False)
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            straight = train_loop.run_training(cfg, tc, **kw)
+            train_loop.run_training(cfg, dataclasses.replace(tc, total_steps=2),
+                                    ckpt_manager=cm, **kw)
+            resumed = train_loop.run_training(cfg, tc, ckpt_manager=cm, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    assert cm.all_steps() == [2, 4], cm.all_steps()
+    diff = max(_tree_diff(straight["params"], resumed["params"]),
+               _tree_diff(straight["opt_state"], resumed["opt_state"]))
+    assert diff == 0.0, f"resumed run differs from the straight one by {diff}"
+    log(f"  run_training 4 steps straight vs 2 + checkpoint + resume to 4 (2 x "
+        f"{LM_SEQ} tokens, deterministic algorithms): max|dparam| = max|dAdamW| = "
+        f"{diff} (equality required); final loss {straight['history'][-1]['loss']:.6f} "
+        f"[{card_name}]")
+    return diff
+
+
+def check_accumulation(cfg, agent, card_name) -> dict:
+    """17c: one step with 2 microbatches and bf16 error-feedback
+    accumulation against one step on the whole batch, same params and
+    batch."""
+    params = get_model(cfg).init(torch.Generator(DEV).manual_seed(0), device=DEV)
+    batch = SyntheticLM(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch_at(0, device=DEV)
+    res = {}
+    for mb, comp in ((1, "none"), (2, "bf16")):
+        tc = TrainConfig(global_batch=LM_BATCH, seq_len=LM_SEQ, lr=3e-4, warmup_steps=1,
+                         total_steps=4, microbatches=mb, grad_compression=comp)
+        step = train_loop.make_train_step(cfg, tc, lm_loss_fn(cfg, agent))
+        p, _, m = step(params, adamw.init(params), batch, prng.fold_in(prng.key(0), 0))
+        res[comp] = (p, {k: float(v) for k, v in m.items()})
+    (p1, m1), (p2, m2) = res["none"], res["bf16"]
+    loss_err = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+    gn_err = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    dp = _tree_diff(p1, p2)
+    assert loss_err <= ACC_LOSS_TOL, (m1, m2)
+    assert gn_err <= ACC_GNORM_TOL, (m1, m2)
+    assert dp <= 2 * m1["lr"], dp
+    log(f"  one step, microbatches 1 ('none') vs 2 ('bf16'): loss {m1['loss']:.7f} vs "
+        f"{m2['loss']:.7f} (relative {loss_err:.3g}, tol {ACC_LOSS_TOL}), grad norm "
+        f"{m1['grad_norm']:.7f} vs {m2['grad_norm']:.7f} (relative {gn_err:.3g}, tol "
+        f"{ACC_GNORM_TOL:.3g}), max|dparam| {dp:.3g} (lr {m1['lr']:.3g}) [{card_name}]")
+    return {"loss": [m1["loss"], m2["loss"]], "grad_norm": [m1["grad_norm"], m2["grad_norm"]],
+            "max_dparam": dp}
+
+
+def profile_train_step(cfg, agent, card_name) -> dict:
+    """17d: one training step of the CLI's shape (8 x 256): wall, and under
+    torch.profiler (device activity) busy and idle, eigh's forward
+    (cuSOLVER), cuBLAS, eager ops and copies; then the step's backward alone
+    under torch.profiler with host activity too (eigh's backward, the
+    autograd engine's LinalgEighBackward0, and the whole backward) and
+    AdamW by CUDA events; peak memory and both kernels' launches. The
+    forward's per-matrix eigh makes some 10^5 device events per step, so
+    only device activity is traced over the whole step, and one eigh call
+    of the forward's shape is profiled alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    params = get_model(cfg).init(torch.Generator(DEV).manual_seed(0), device=DEV)
+    batch = SyntheticLM(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch_at(0, device=DEV)
+    tc = TrainConfig(global_batch=LM_BATCH, seq_len=LM_SEQ, lr=3e-4, warmup_steps=1,
+                     total_steps=4)
+    loss_fn = lm_loss_fn(cfg, agent)
+    rng = prng.fold_in(prng.key(0), 0)
+    step = train_loop.make_train_step(cfg, tc, loss_fn)
+    opt = adamw.init(params)
+    step(params, opt, batch, rng)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step(params, opt, batch, rng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch, rng)
+        torch.cuda.synchronize()
+    kern = raw_device_kernels(prof)
+    t_prof = time.perf_counter() - t0
+    launches = {"flash_decode": decode_attn.LAUNCHES["flash_decode"],
+                "lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"]}
+    assert launches == {"flash_decode": 0, "lowrank_flash": 0}, launches
+    busy = sum(dev_us(e) for e in kern)
+    layers = by_layer(kern)
+    n_eigh_kernels = sum(e.count for e in kern if by_layer([e])["eigh (cuSOLVER)"])
+    n_dtoh = sum(e.count for e in kern if "DtoH" in e.key)
+    # the backward alone, host activity too: the autograd engine's functions
+    live = tu.tree_map(lambda x: x.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss = loss_fn(live, batch, rng)[0]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as bprof:
+            grads = torch.autograd.grad(loss, tu.leaves(live))
+            torch.cuda.synchronize()
+    cpu_ops = [e for e in bprof.key_averages() if e.device_type == DeviceType.CPU]
+    eigh_bwd = sum(device_total_us(e) for e in cpu_ops if "LinalgEighBackward" in e.key)
+    backward = sum(device_total_us(e) for e in cpu_ops
+                   if e.key.startswith("autograd::engine::evaluate_function"))
+    grads = tu.unflatten(params, list(grads))
+    del live, loss
+    adamw_ms = time_ms(lambda: adamw.update(tc, make_lr_fn(tc), opt, params,
+                                            grads), n=5)
+    # one eigh call of the forward's shape alone: does cuSOLVER loop per matrix?
+    hd = cfg.resolved_head_dim()
+    x = torch.randn((LM_BATCH, cfg.num_heads, LM_SEQ, hd), device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(5))
+    gram = lowrank.gram(x)
+    lowrank.gram_spectrum(gram)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as eprof:
+        lowrank.gram_spectrum(gram)
+        torch.cuda.synchronize()
+    ek = raw_device_kernels(eprof)
+    eigh_one = {"matrices": LM_BATCH * cfg.num_heads,
+                "cusolver_kernels": sum(e.count for e in ek
+                                        if by_layer([e])["eigh (cuSOLVER)"]),
+                "dtoh_copies": sum(e.count for e in ek if "DtoH" in e.key),
+                "device_ms": by_layer(ek)["eigh (cuSOLVER)"] / 1e3}
+    n_par = sum(p.numel() for p in tu.leaves(params))
+    state_gib = 3 * 4 * n_par / 2 ** 30
+    log(f"  one step, {LM_BATCH} x {LM_SEQ} tokens: wall {wall * 1e3:.1f} ms unprofiled, "
+        f"device busy {busy / 1e3:.2f} ms (idle {1 - busy / (wall * 1e6):.1%}); "
+        f"{n_par / 1e6:.1f} M parameters, with AdamW's two moments {state_gib:.2f} GiB; "
+        f"the step's peak allocation {peak / 2 ** 30:.2f} GiB beyond what it started with; "
+        f"{n_eigh_kernels} cuSOLVER kernels and {n_dtoh} device-to-host copies; "
+        f"flash_decode / lowrank_flash launches {launches['flash_decode']} / "
+        f"{launches['lowrank_flash']} (profiled in {t_prof:.1f} s) [{card_name}]")
+    log_layers(layers, busy)
+    log(f"  the backward alone: {backward / 1e3:.3f} ms of device time, of which eigh's "
+        f"backward {eigh_bwd / 1e3:.3f} ms; AdamW over {n_par / 1e6:.1f} M parameters "
+        f"{adamw_ms:.3f} ms (CUDA events, flushed L2)")
+    log(f"  one eigh call of the forward's shape alone ({eigh_one['matrices']} Grams of "
+        f"{hd} x {hd}): {eigh_one['device_ms']:.2f} ms of cuSOLVER device time, "
+        f"{eigh_one['cusolver_kernels']} cuSOLVER kernels, {eigh_one['dtoh_copies']} "
+        f"device-to-host copies")
+    log("  top kernels:")
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        log(f"    {dev_us(e) / 1e3:9.2f} ms {dev_us(e) / busy:6.1%} "
+            f"x{e.count:<6d} {e.key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "idle": 1 - busy / (wall * 1e6),
+            "eigh_fwd_ms": layers["eigh (cuSOLVER)"] / 1e3, "eigh_bwd_ms": eigh_bwd / 1e3,
+            "cusolver_kernels": n_eigh_kernels, "dtoh_copies": n_dtoh,
+            "cublas_ms": layers["matrix products (cuBLAS)"] / 1e3,
+            "eager_ms": layers[OTHER] / 1e3, "copies_ms": layers["copies"] / 1e3,
+            "adamw_ms": adamw_ms, "backward_ms": backward / 1e3,
+            "peak_above_gib": peak / 2 ** 30, "state_gib": state_gib, "eigh_one": eigh_one,
+            "launches": launches}
+
+
+def check_trained_serving(paper, trained, card_name) -> int:
+    """17e: 17a's last checkpoint loaded into a fresh template, then phase
+    3's workload served from it with the kernel (phase 3's adaptive
+    settings), against serving the params 17a's run holds in memory."""
+    fresh = get_model(paper).init(torch.Generator(DEV).manual_seed(123), device=DEV)
+    cm = CheckpointManager(trained["ckpt"])
+    (params, opt), step, _ = cm.load((fresh, adamw.init(fresh)))
+    assert step == 6 and type(opt) is adamw.AdamWState, (step, type(opt))
+    assert _tree_diff(params, trained["params"]) == 0.0
+    assert _tree_diff(opt, trained["opt_state"]) == 0.0
+    cfg = paper.with_(rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
+    knobs = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                 use_kernel=True)
+    runs = []
+    for tree in (params, trained["params"]):
+        eng, outs, launches, _ = serve(cfg, tree, **knobs)
+        n_steps = eng.stats["steps"] + eng.core.warmup_steps
+        assert launches == cfg.num_layers * n_steps, (launches, n_steps)
+        runs.append((outs, launches, eng.stats))
+    (outs, launches, st), (outs_mem, _, _) = runs
+    for i, (a, b) in enumerate(zip(outs, outs_mem)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}: checkpoint vs memory")
+    log(f"  step-6 checkpoint loaded into a fresh (params, AdamWState) template: equal to "
+        f"the run's; phase 3's workload served from it: {len(outs)} requests x 64 tokens "
+        f"equal to serving the in-memory params, flash_decode launches {launches} = "
+        f"{cfg.num_layers} x {launches // cfg.num_layers} fused steps (warmup's 2 "
+        f"included), {st['tokens_decoded'] / st['decode_s']:.1f} decoded tokens/s "
+        f"[{card_name}]")
+    return launches
+
+
+def check_train_reference(card_name) -> None:
+    """17f: the reduced model (its own rank mode 'drrl', a seeded agent)
+    trained 3 steps on the card and on the CPU from the same params,
+    agent and batches, TF32 off."""
+    cfg = get_config("drrl-paper", reduced=True)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    agent = drrl.init_agent(torch.Generator().manual_seed(7), cfg.rank, cfg.d_model,
+                            device="cpu")
+    data = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
+    tc = TrainConfig(global_batch=4, seq_len=64, lr=1e-2, warmup_steps=1, total_steps=3)
+    out = {}
+    for dev in (DEV, "cpu"):
+        step = train_loop.make_train_step(cfg, tc, lm_loss_fn(cfg, params_to(agent, dev)))
+        p = params_to(params, dev)
+        opt, hist = adamw.init(p), []
+        for i in range(3):
+            p, opt, m = step(p, opt, data.batch_at(i, device=dev), prng.fold_in(prng.key(0), i))
+            hist.append({k: float(v) for k, v in m.items()})
+        out[dev] = (params_to(p, "cpu"), hist)
+    (pg, hg), (pc, hc) = out[DEV], out["cpu"]
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for a, b in zip(hg, hc):
+        for k in worst:
+            worst[k] = max(worst[k], abs(a[k] - b[k]) / abs(b[k]))
+    assert worst["loss"] <= LM_LOSS_TOL and worst["grad_norm"] <= LM_GNORM_TOL, (hg, hc)
+    lr_sum = sum(h["lr"] for h in hc)
+    p_max, p99 = 0.0, 0.0
+    for (path, g), c in zip(tu.leaves_with_path(pg), tu.leaves(pc)):
+        d = (g - c).abs().flatten()
+        q = torch.quantile(d, 0.99).item()
+        assert d.max().item() <= 2 * lr_sum and q <= LM_P99_TOL, (path, d.max().item(), q)
+        p_max, p99 = max(p_max, d.max().item()), max(p99, q)
+    log(f"  reduced model, 3 steps of 4 x 64 tokens, card vs CPU: loss within "
+        f"{worst['loss']:.3g} (tol {LM_LOSS_TOL}), grad norm within "
+        f"{worst['grad_norm']:.3g} (tol {LM_GNORM_TOL}), params max|diff| {p_max:.3g} "
+        f"(tol {2 * lr_sum:.3g}), largest leaf 99th percentile {p99:.3g} (tol "
+        f"{LM_P99_TOL}) [{card_name}]")
+
+
+def check_lm_training(paper, agent, card_name) -> dict:
+    """Phase 17 on drrl-paper's own config (rank mode 'drrl') with phase
+    10's seeded agent: 17a-f. Returns the launches of both kernels in 17a's
+    training steps and of flash_decode in 17e's serving."""
+    out = os.path.join(ROOT, ".scratch", "phase17")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    reset_launches()
+    run = check_train_cli(paper, out, card_name)
+    step_launches = {"flash_decode": decode_attn.LAUNCHES["flash_decode"],
+                     "lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"]}
+    assert step_launches == {"flash_decode": 0, "lowrank_flash": 0}, step_launches
+    phase("  run_training resumed against straight; microbatches with bf16 accumulation")
+    resume_diff = check_train_resume(paper, agent, out, card_name)
+    accum = check_accumulation(paper, agent, card_name)
+    phase("  one training step profiled")
+    prof = profile_train_step(paper, agent, card_name)
+    phase("  the trained checkpoint served; the reduced model card vs CPU")
+    serve_launches = check_trained_serving(paper, run, card_name)
+    check_train_reference(card_name)
+    cli = {k: run[k] for k in ("s_per_step", "s_first_step", "losses", "wall_s")}
+    del run
+    shutil.rmtree(out, ignore_errors=True)
+    log("phase 17 numbers: " + json.dumps({
+        "cli": cli, "resume_max_dparam": resume_diff, "accumulation": accum,
+        "step_profile": prof, "step_launches": step_launches,
+        "serve_launches": serve_launches, "card": card_name}))
+    return {"step_launches": step_launches, "serve_launches": serve_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -2670,7 +3062,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/16] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/17] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -2679,10 +3071,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/16] flash_decode kernel vs its plain version on the card")
+    phase("[2/17] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/16] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/17] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -2699,26 +3091,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/16] full-width engine step: kernel vs plain attention")
+    phase("[4/17] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/16] times at the serving shapes")
+    phase("[5/17] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/16] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/17] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/16] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/17] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/16] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/17] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/16] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/17] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -2727,17 +3119,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/16] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/17] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/16] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/17] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/16] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/17] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/16] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/17] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -2748,7 +3140,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/16] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/17] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -2757,7 +3149,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/16] full-width speculative decoding and the prefix cache")
+    phase("[15/17] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -2769,7 +3161,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/16] the serving front end at full width: traces, the learned policy, "
+    phase("[16/17] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -2790,6 +3182,9 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
+    phase("[17/17] the LM training stack at full width")
+    lm = check_lm_training(paper, agent, card_name)
+
     phase("all phases passed")
     print(json.dumps({"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -2803,12 +3198,15 @@ def main() -> int:
          "front_launches": {"traced": traced["launches"], "learned": learned["launches"],
                             "router": {k: v["launches"] for k, v in routed.items()}},
          "max_abs_err": max_err, **t_dec, "chunk": t_chunk, "draft": t_draft,
-         "verify": t_verify},
+         "verify": t_verify,
+         "train_lm_launches": {"train_step": lm["step_launches"]["flash_decode"],
+                               "serve_trained": lm["serve_launches"]}},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
          "launches": flash_launches, "drrl_launches": drrl_flash,
          "train_launches": train_flash, "random_launches": comp["launches"],
+         "train_lm_launches": {"train_step": lm["step_launches"]["lowrank_flash"]},
          "max_abs_err": flash_err, **t_flash, "r32": t_static}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

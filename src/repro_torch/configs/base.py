@@ -68,8 +68,13 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The optimiser and schedule fields of ``repro.configs.base.TrainConfig``:
-    the ones :mod:`repro_torch.optim` reads."""
+    """``repro.configs.base.TrainConfig``, field for field with its
+    defaults: the batch and sequence the LM trainer draws, the optimiser
+    and schedule (:mod:`repro_torch.optim`), gradient accumulation and its
+    compression, the seed, checkpointing and logging
+    (:mod:`repro_torch.train.loop`)."""
+    global_batch: int = 32
+    seq_len: int = 1024
     lr: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000
@@ -79,3 +84,10 @@ class TrainConfig:
     b2: float = 0.95
     eps: float = 1e-8
     schedule: str = "cosine"        # linear | cosine | constant
+    microbatches: int = 1           # gradient accumulation
+    grad_compression: str = "none"  # none | bf16
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    log_every: int = 10

@@ -1,1 +1,1 @@
-"""Synthetic data of the port."""
+"""Data of the port: synthetic streams and the byte-level text corpus."""

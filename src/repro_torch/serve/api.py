@@ -418,12 +418,15 @@ class Engine:
 
     def step(self) -> bool:
         """One engine iteration; returns True while work remains. Each
-        step's wall time accrues into ``stats['decode_s']``."""
+        step's wall time, less the one-shot prefill that accrued inside it
+        (``stats['prefill_s']``), accrues into ``stats['decode_s']``."""
         with self._step_lock:
             stats = self.core.stats
+            p0 = stats["prefill_s"]
             t0 = time.perf_counter()
             self.core.step()
-            stats["decode_s"] += time.perf_counter() - t0
+            stats["decode_s"] += max(
+                time.perf_counter() - t0 - (stats["prefill_s"] - p0), 0.0)
             for rid, idx, tok in self.core.last_emitted:
                 h = self._handles.get(rid)
                 if h is not None:

@@ -31,6 +31,8 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.train.loop", "repro_torch.data.text", "repro_torch.launch.train",
+        "repro_torch.checkpoint.manager"} <= set(names), names
 import chip_smoke                   # its work sits under __main__
 import numpy as np, torch
 from repro_torch.configs import get_config
