@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, forward and training paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, forward and training paths and the
+paper's tables on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -143,6 +143,22 @@ Phases (one line each, plus detail lines):
      3's workload served from it, tokens equal to serving the in-memory
      params, 12 flash_decode launches per fused step; (f) the reduced model
      trained 3 steps on the card and on the CPU.
+ 18. the paper's tables and figures (``benchmarks/torch_*.py``): (a) the
+     runner's canary, ``python -m benchmarks.torch_run --smoke``, in its own
+     process; (b) every table and figure in quick mode (``bench_cfg``, 8 x
+     128 tokens), Table 3 through ``examples/finetune_classification_torch.
+     py``: each result's keys, lengths, finite perplexities, accuracies and
+     curves, fractions in (0, 1], its CSV ``derived`` string and wall time;
+     the paper's claims reported, not asserted; one ``train_lm`` step of
+     ``bench_cfg`` profiled (eigh's share); (c) the same functions on
+     drrl-paper at full width with phase 10's agent: 2 ``train_lm`` steps in
+     'fixed', ``eval_ppl``, the FLOPs fraction in 'adaptive' and 'drrl', one
+     Table 3 fine-tune step, Fig. 4's mean rank over 2 x 4096 tokens and the
+     reduction at L = 4096, Fig. 5's heatmap on grid 16 ... 64; (d)
+     ``train_lm`` and ``eval_ppl`` of ``bench_cfg`` on the card and on the
+     CPU from the same weights (1e-4 relative, ranks equal); (e) neither
+     kernel launched: the tables run unchunked at 128 tokens, as the
+     reference's do.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -158,6 +174,7 @@ import io
 import json
 import os
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -173,9 +190,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RankConfig, TrainConfig  # noqa: E402
+from repro_torch import nn  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.core import drrl, lowrank, ppo, prng  # noqa: E402
-from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.data.synthetic import SyntheticClassification, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
@@ -192,6 +210,9 @@ from repro_torch.serve.engine import params_to  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import rl  # noqa: E402
 from repro_torch.train import serve_policy  # noqa: E402
+from benchmarks import (torch_common, torch_fig4_flops_scaling,  # noqa: E402
+                        torch_fig5_perturbation, torch_run, torch_table1_lm,
+                        torch_table2_ablation, torch_table3_downstream)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -3053,6 +3074,293 @@ def check_lm_training(paper, agent, card_name) -> dict:
     return {"step_launches": step_launches, "serve_launches": serve_launches}
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+QUICK = ("table1", "table2", "table3", "fig2", "fig3", "fig4", "fig5")
+# 18d: bench_cfg trained 2 steps on the card and on the CPU from the same
+# weights and batches, TF32 off: f32 up to summation order and the two
+# eigensolvers' last bits, amplified through eigh's backward and AdamW's
+# normalised first step (tests/test_torch_train_loop.py: 2e-5 / 1e-4)
+TABLES_TOL = 1e-4
+PAPER_FLOPS_FRAC = 0.6             # Table 1's claim: DR-RL under 0.6 of full rank
+PAPER_L4096_PCT = 41.5             # Fig. 4's claim at L = 4096
+
+
+def check_tables_canary(card_name) -> dict:
+    """18a: ``python -m benchmarks.torch_run --smoke`` in its own process:
+    the CSV header and one line, a finite perplexity, a FLOPs fraction in
+    (0, 1]."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "benchmarks.torch_run", "--smoke",
+                          "--device", DEV], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[0] == "name,us_per_call,derived" and len(lines) == 2, lines
+    name, us, derived = lines[1].split(",")
+    fields = dict(kv.split("=") for kv in derived.split(";"))
+    ppl, frac = float(fields["ppl"]), float(fields["attn_flops_frac"])
+    assert name == "smoke" and np.isfinite(ppl) and 0.0 < frac <= 1.0, lines
+    log(f"  canary: {lines[1]} ({wall:.1f} s with the process's start) [{card_name}]")
+    return {"csv": lines[1], "wall_s": wall}
+
+
+def _fracs_ok(res) -> None:
+    for k, v in res.items():
+        assert np.isfinite(v["ppl"]) and v["ppl"] > 0, (k, v)
+        assert 0.0 < v["attn_flops_frac"] <= 1.0, (k, v)
+
+
+def check_quick_result(name, res) -> None:
+    """18b: the structure of one quick-mode result: its keys and lengths,
+    finite perplexities, accuracies and curves, fractions in (0, 1]."""
+    cfg = torch_common.bench_cfg("adaptive")
+    grid = cfg.rank.rank_grid
+    if name == "table1":
+        assert tuple(res) == torch_table1_lm.METHODS, list(res)
+        _fracs_ok(res)
+    elif name == "table2":
+        assert tuple(res) == tuple(torch_table2_ablation.VARIANTS), list(res)
+        _fracs_ok(res)
+    elif name == "table3":
+        assert tuple(res) == torch_table3_downstream.METHODS, list(res)
+        assert all(0.0 <= v["accuracy"] <= 1.0 for v in res.values()), res
+    elif name == "fig2":
+        lens = {k: len(v) for k, v in res.items()}
+        assert lens == {"lm_loss_curve": 10, "bc_loss_curve": 3, "reward_curve": 5,
+                        "rank_curve": 5, "fidelity_curve": 5}, lens
+        assert np.isfinite([x for v in res.values() for x in v]).all(), res
+    elif name == "fig3":
+        assert set(res) == {"adaptive", "drrl"}, list(res)
+        for v in res.values():
+            assert len(v["per_layer_mean_rank"]) == cfg.num_layers, v
+            assert all(grid[0] <= r <= grid[-1] for r in v["per_layer_mean_rank"]), v
+    elif name == "fig4":
+        assert len(res["rows"]) == len(torch_fig4_flops_scaling.LENGTHS), res
+        assert grid[0] <= res["mean_rank"] <= grid[-1], res["mean_rank"]
+        assert all(np.isfinite(list(r.values())).all() and r["full"] > 0
+                   for r in res["rows"]), res["rows"]
+    elif name == "fig5":
+        n = len(grid)
+        heat = np.asarray(res["heatmap"])
+        assert heat.shape == (n, n) and np.isfinite(heat).all(), heat
+        assert np.array(res["trust_region"]).dtype == bool, res["trust_region"]
+        assert (np.diag(heat) == 0).all() and np.array(res["trust_region"]).diagonal().all()
+
+
+def run_quick(card_name) -> dict:
+    """18b: every table and figure in quick mode, Table 3 through
+    ``examples/finetune_classification_torch.py``: each result's structure,
+    its ``derived`` string and wall time; the paper's claims reported, not
+    asserted (the synthetic corpus at 4 x 128 need not reach them)."""
+    example = runpy.run_path(os.path.join(ROOT, "examples",
+                                          "finetune_classification_torch.py"))["main"]
+    results, walls, derived = {}, {}, {}
+    for name in QUICK:
+        sync()
+        t0 = time.perf_counter()
+        if name == "table3":
+            res = example(["--device", DEV])
+        else:
+            res = torch_run.bench(name, quick=True, device=DEV)[0]
+        sync()
+        walls[name] = time.perf_counter() - t0
+        check_quick_result(name, res)
+        results[name], derived[name] = res, torch_run.derived(name, res)
+        log(f"  {name}: {derived[name]} ({walls[name]:.1f} s) [{card_name}]")
+    t1 = results["table1"]
+    best = min(("fixed", "adaptive", "random"), key=lambda m: t1[m]["ppl"])
+    claims = {
+        "drrl_ppl": t1["drrl"]["ppl"], "full_ppl": t1["off"]["ppl"],
+        "drrl_over_full_ppl": t1["drrl"]["ppl"] / t1["off"]["ppl"],
+        "drrl_below_best_other": t1["drrl"]["ppl"] < t1[best]["ppl"],
+        "drrl_flops_frac": t1["drrl"]["attn_flops_frac"],
+        "drrl_flops_frac_below_0.6": t1["drrl"]["attn_flops_frac"] < PAPER_FLOPS_FRAC,
+        "reduction_at_L4096_pct": results["fig4"]["claim_L4096_reduction_pct"],
+        "paper_reduction_at_L4096_pct": PAPER_L4096_PCT}
+    log("  the paper's claims on this run (reported, not asserted): " + json.dumps(claims))
+    return {"derived": derived, "wall_s": walls, "claims": claims,
+            "table3_accuracy": {k: v["accuracy"] for k, v in results["table3"].items()}}
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def profile_bench_step(card_name) -> dict:
+    """18b: where a ``train_lm`` step of ``bench_cfg`` (8 x 128 tokens,
+    rank mode 'fixed') spends its device time: 3 steps under torch.profiler
+    (device activity), eigh's share of busy time, busy against the steps'
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = torch_common.bench_cfg("fixed")
+    torch_common.train_lm(cfg, steps=1, device=DEV)            # warm-up
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = torch_common.train_lm(cfg, steps=3, device=DEV)
+        sync()
+    kern = raw_device_kernels(prof)
+    busy = sum(dev_us(e) for e in kern)
+    layers = by_layer(kern)
+    eigh = layers["eigh (cuSOLVER)"]
+    n_eigh = sum(e.count for e in kern if by_layer([e])["eigh (cuSOLVER)"])
+    step_ms = out["wall_s"] * 1e3 / 3
+    log(f"  one train_lm step of bench_cfg('fixed'), 8 x 128 tokens: {step_ms:.1f} ms "
+        f"(profiled), device busy {busy / 3e3:.2f} ms per step, eigh {eigh / 3e3:.2f} ms "
+        f"({eigh / busy:.1%} of busy; {n_eigh // 3} cuSOLVER kernels per step) [{card_name}]")
+    log_layers(layers, busy)
+    return {"step_ms_profiled": step_ms, "busy_ms": busy / 3e3, "eigh_ms": eigh / 3e3,
+            "eigh_share": eigh / busy, "cusolver_kernels": n_eigh // 3}
+
+
+def check_tables_full_width(paper, agent, card_name) -> dict:
+    """18c: the tables' functions on drrl-paper at full width (seeded
+    weights, phase 10's agent): 2 ``train_lm`` steps in 'fixed', one eval
+    batch, the FLOPs fraction in 'adaptive' and 'drrl', one Table 3
+    fine-tune step in 'drrl', Fig. 4's mean rank over 2 x 4096 tokens and
+    the reduction at L = 4096 from it, Fig. 5's heatmap on grid 16 ... 64."""
+    fixed = paper.with_(rank=dataclasses.replace(paper.rank, mode="fixed"))
+    adaptive = paper.with_(rank=dataclasses.replace(paper.rank, mode="adaptive"))
+    walls = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    out = timed("train_lm_2_steps", lambda: torch_common.train_lm(fixed, steps=2,
+                                                                  device=DEV))
+    assert np.isfinite(out["losses"]).all(), out["losses"]
+    params = out["params"]
+    ppl = timed("eval_ppl_1_batch", lambda: torch_common.eval_ppl(
+        fixed, params, out["fns"], n_batches=1))
+    frac_a = timed("flops_adaptive", lambda: torch_common.attn_flops_fraction(
+        adaptive, params))
+    frac_d = timed("flops_drrl", lambda: torch_common.attn_flops_fraction(
+        paper, params, agent=agent))
+    assert np.isfinite(ppl) and 0.0 < frac_a <= 1.0 and 0.0 < frac_d <= 1.0, (
+        ppl, frac_a, frac_d)
+    cls_params = {"trunk": params, "head": nn.dense_init(
+        torch.Generator(DEV).manual_seed(5), paper.d_model, 2, device=DEV)}
+    batch = SyntheticClassification(paper.vocab_size, torch_table3_downstream.CLS_SEQ,
+                                    torch_common.BENCH_BATCH, seed=4).batch_at(0, device=DEV)
+    tc = TrainConfig(lr=2e-3, total_steps=25, warmup_steps=2, weight_decay=0.0)
+
+    def cls_step():
+        nll, g = rl.value_and_grad(lambda p, b: torch_table3_downstream.cls_loss(
+            paper, p, b, agent=agent)[0], cls_params, batch)
+        new, _, m = adamw.update(tc, make_lr_fn(tc), adamw.init(cls_params), cls_params, g)
+        return nll, g, new, m
+
+    nll, g, new, m = timed("cls_loss_step", cls_step)
+    with torch.no_grad():
+        nll_after, acc = torch_table3_downstream.cls_loss(paper, new, batch, agent=agent)
+    assert _finite(nll, nll_after, *tu.leaves(g)) and 0.0 <= float(acc) <= 1.0
+    r_mean = timed("mean_rank_L4096", lambda: torch_fig4_flops_scaling.mean_rank(
+        adaptive, params, L_run=4096))
+    grid = paper.rank.rank_grid
+    assert grid[0] <= r_mean <= grid[-1], r_mean
+    rows = torch_fig4_flops_scaling.flops_rows(adaptive, r_mean)
+    red = rows[torch_fig4_flops_scaling.LENGTHS.index(4096)]["reduction_qkv_pct"]
+    hm = timed("fig5_heatmap", lambda: torch_fig5_perturbation.heatmap(adaptive, params))
+    assert np.isfinite(hm["heatmap"]).all() and hm["heatmap"].shape == (len(grid),) * 2
+    res = {"losses": out["losses"], "train_s_per_step": out["wall_s"] / 2, "ppl": ppl,
+           "flops_frac_adaptive": frac_a, "flops_frac_drrl": frac_d,
+           "cls_nll": float(nll), "cls_nll_after": float(nll_after), "cls_acc": float(acc),
+           "cls_grad_norm": float(m["grad_norm"]), "mean_rank_L4096": r_mean,
+           "reduction_at_L4096_pct": red,
+           "trust_region_frac": float(np.mean(hm["trust_region"])), "wall_s": walls}
+    log(f"  {paper.name} {paper.num_layers} x {paper.d_model}, 8 x 128 tokens: train_lm "
+        f"losses {out['losses']} ({res['train_s_per_step']:.2f} s/step), ppl {ppl:.2f}, FLOPs fraction adaptive "
+        f"{frac_a:.4f} / drrl {frac_d:.4f}; Table 3 step in 'drrl': nll {float(nll):.4f} -> "
+        f"{float(nll_after):.4f}, grad norm {float(m['grad_norm']):.4f}; mean rank over "
+        f"2 x 4096 {r_mean:.3f} of {paper.resolved_head_dim()}, reduction at L = 4096 "
+        f"{red}% (paper {PAPER_L4096_PCT}%); Fig. 5 trust region "
+        f"{res['trust_region_frac']:.3f} of {len(grid)} x {len(grid)} [{card_name}]")
+    log("  walls (s): " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    return res
+
+
+@contextlib.contextmanager
+def same_init(params):
+    """``train_lm`` initialises from ``params`` (moved to its device) in
+    place of its seeded draw, which differs between the card's generator
+    and the CPU's."""
+    real = torch_common.get_model
+
+    def patched(cfg):
+        return real(cfg)._replace(init=lambda gen, device="cuda": params_to(params, device))
+    torch_common.get_model = patched
+    try:
+        yield
+    finally:
+        torch_common.get_model = real
+
+
+def check_tables_reference(card_name) -> dict:
+    """18d: ``train_lm(bench_cfg('fixed'), steps=2)`` and ``eval_ppl`` on the
+    card and on the CPU from the same initial weights: losses and perplexity
+    within TABLES_TOL relative; the trained model's ranks, and the adaptive
+    ranks of the initial weights, equal."""
+    cfg = torch_common.bench_cfg("fixed")
+    adaptive = torch_common.bench_cfg("adaptive")
+    init = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = SyntheticLM(cfg.vocab_size, torch_common.BENCH_SEQ, torch_common.BENCH_BATCH,
+                         seed=3).batch_at(0, device="cpu")["tokens"]
+    got = {}
+    for dev in (DEV, "cpu"):
+        with same_init(init):
+            out = torch_common.train_lm(cfg, steps=2, device=dev)
+        ppl = torch_common.eval_ppl(cfg, out["params"], out["fns"])
+        with torch.no_grad():
+            ranks = forward_dense(cfg, out["params"], tokens.to(dev),
+                                  collect_aux="ranks")[1]["layers"]["rank"].cpu()
+            ranks_a = forward_dense(adaptive, params_to(init, dev), tokens.to(dev),
+                                    collect_aux="ranks")[1]["layers"]["rank"].cpu()
+        got[dev] = (out["losses"], ppl, ranks, ranks_a)
+    (lg, pg, rg, ag), (lc, pc, rc, ac) = got[DEV], got["cpu"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lg + [pg], lc + [pc]))
+    assert worst <= TABLES_TOL, (lg, pg, lc, pc)
+    assert torch.equal(rg, rc) and torch.equal(ag, ac), (rg, rc, ag, ac)
+    log(f"  bench_cfg('fixed') 2 steps, card vs CPU: losses {lg} / {lc}, ppl {pg:.4f} / "
+        f"{pc:.4f}: within {worst:.3g} relative (tol {TABLES_TOL}); ranks equal, the "
+        f"adaptive ranks of the initial weights equal (mean {ag.float().mean():.3f}) "
+        f"[{card_name}]")
+    return {"worst_rel": worst, "losses": {"card": lg, "cpu": lc}, "ppl": {"card": pg,
+                                                                         "cpu": pc}}
+
+
+def check_tables(paper, agent, card_name) -> dict:
+    """Phase 18, the paper's tables and figures: 18a-e. Returns both kernels'
+    launches across the phase's in-process work (none expected: the tables
+    run unchunked at 128 tokens, Fig. 4's probe unchunked too, as the
+    reference's do)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    canary = check_tables_canary(card_name)
+    phase("  every table and figure in quick mode (bench_cfg, 8 x 128 tokens)")
+    quick = run_quick(card_name)
+    step = profile_bench_step(card_name)
+    phase("  the tables' functions at full width")
+    full = check_tables_full_width(paper, agent, card_name)
+    phase("  bench_cfg card vs CPU")
+    ref = check_tables_reference(card_name)
+    launches = {"flash_decode": decode_attn.LAUNCHES["flash_decode"],
+                "lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"]}
+    assert launches == {"flash_decode": 0, "lowrank_flash": 0}, launches
+    log("phase 18 numbers: " + json.dumps({
+        "canary": canary, "quick": quick, "bench_step": step, "full_width": full,
+        "card_vs_cpu": ref, "launches": launches,
+        "phase_s": time.perf_counter() - t0, "card": card_name}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -3062,7 +3370,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/17] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/18] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -3071,10 +3379,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/17] flash_decode kernel vs its plain version on the card")
+    phase("[2/18] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/17] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/18] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -3091,26 +3399,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/17] full-width engine step: kernel vs plain attention")
+    phase("[4/18] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/17] times at the serving shapes")
+    phase("[5/18] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/17] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/18] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/17] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/18] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/17] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/18] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/17] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/18] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -3119,17 +3427,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/17] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/18] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/17] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/18] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/17] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/18] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/17] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/18] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -3140,7 +3448,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/17] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/18] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -3149,7 +3457,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/17] full-width speculative decoding and the prefix cache")
+    phase("[15/18] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -3161,7 +3469,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/17] the serving front end at full width: traces, the learned policy, "
+    phase("[16/18] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -3182,8 +3490,11 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
-    phase("[17/17] the LM training stack at full width")
+    phase("[17/18] the LM training stack at full width")
     lm = check_lm_training(paper, agent, card_name)
+
+    phase("[18/18] the paper's tables and figures")
+    tables = check_tables(paper, agent, card_name)
 
     phase("all phases passed")
     print(json.dumps({"kernels": [
@@ -3200,13 +3511,15 @@ def main() -> int:
          "max_abs_err": max_err, **t_dec, "chunk": t_chunk, "draft": t_draft,
          "verify": t_verify,
          "train_lm_launches": {"train_step": lm["step_launches"]["flash_decode"],
-                               "serve_trained": lm["serve_launches"]}},
+                               "serve_trained": lm["serve_launches"]},
+         "tables_launches": tables["flash_decode"]},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
          "launches": flash_launches, "drrl_launches": drrl_flash,
          "train_launches": train_flash, "random_launches": comp["launches"],
          "train_lm_launches": {"train_step": lm["step_launches"]["lowrank_flash"]},
+         "tables_launches": tables["lowrank_flash"],
          "max_abs_err": flash_err, **t_flash, "r32": t_static}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

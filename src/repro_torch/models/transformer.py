@@ -185,11 +185,13 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
                   power_v0: Optional[Dict[str, torch.Tensor]] = None,
                   compute_fidelity=False, collect_aux: str = "none",
                   chunked: bool = False, collect_qkv: bool = False,
-                  collect_mass: bool = False, mass_q_len=None
+                  collect_mass: bool = False, mass_q_len=None,
+                  return_hidden: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: (b, s) integer. Returns (logits (b, s, V), aux) with
     aux['layers'] the per-layer aux selected by ``collect_aux``, stacked on
-    a leading L axis.
+    a leading L axis, and (``return_hidden``) aux['hidden'] the final
+    hidden state (b, s, d) after ``ln_f``, before the LM head.
     ``chunked`` sends every attention over more than 1024 keys through the
     ``lowrank_flash`` kernel. Every rank mode: 'off', 'fixed',
     'adaptive', 'random', 'drrl', 'performer' and 'nystrom'. In 'drrl' the
@@ -231,7 +233,10 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
         prev = aux.get("rank", prev)
         aux_layers.append(_aux_slim(aux, collect_aux))
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    return _logits(params, x), {"layers": _stack(aux_layers)}
+    out_aux: Dict[str, Any] = {"layers": _stack(aux_layers)}
+    if return_hidden:
+        out_aux["hidden"] = x
+    return _logits(params, x), out_aux
 
 
 def loss_dense(cfg: ModelConfig, params, batch, **kw):

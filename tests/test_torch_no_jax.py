@@ -12,7 +12,9 @@ with the port's own seeded agent, an engine records serving traces with
 obs tracing and flight dumps on, serves through a ``FrontEnd`` and a
 2-replica ``Router``, the serving policy trains on the trace, loads and
 serves in rank mode 'learned', and ``examples/quickstart_torch.py``
-trains the DR-RL agent (BC, then PPO) on the CPU."""
+trains the DR-RL agent (BC, then PPO) on the CPU. The paper's tables and
+figures (every ``benchmarks/torch_*.py``) and
+``examples/finetune_classification_torch.py`` import too."""
 import os
 import subprocess
 import sys
@@ -34,6 +36,12 @@ for name in names:
 assert {"repro_torch.train.loop", "repro_torch.data.text", "repro_torch.launch.train",
         "repro_torch.checkpoint.manager"} <= set(names), names
 import chip_smoke                   # its work sits under __main__
+import glob, os, runpy              # the paper's tables and figures, the fine-tune example
+tables = sorted(os.path.basename(p)[:-3] for p in glob.glob("benchmarks/torch_*.py"))
+for name in tables:
+    importlib.import_module("benchmarks." + name)
+assert len(tables) == 9 and "torch_run" in tables, tables
+assert callable(runpy.run_path("examples/finetune_classification_torch.py")["main"])
 import numpy as np, torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RankConfig
@@ -133,7 +141,7 @@ eng = Engine(lcfg, params, load_policy(tmp + "/pol", device="cpu"), device="cpu"
 hl = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [len(x.result()) for x in hl] == [5, 5] and eng.stats["decides"] >= 2
-import runpy                        # the agent's training: BC, then PPO
+# the agent's training: BC, then PPO
 sys.argv = ["quickstart_torch.py", "--device", "cpu"]
 runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -143,8 +151,10 @@ print("modules", len(names))
 
 
 def test_port_imports_and_serves_without_jax():
+    # one thread: the reduced models gain nothing from intra-op threads, and
+    # beside other test workers OpenMP's waiting threads slow them severalfold
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), ROOT]))
+        [os.path.join(ROOT, "src"), ROOT]), OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
