@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, forward and training paths and the
-paper's tables on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, forward and training paths, the
+paper's tables and the invariant checker on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -159,6 +159,20 @@ Phases (one line each, plus detail lines):
      CPU from the same weights (1e-4 relative, ranks equal); (e) neither
      kernel launched: the tables run unchunked at 128 tokens, as the
      reference's do.
+ 19. the invariant checker (``repro_torch.analysis``): (a) ``python
+     tools/check_invariants_torch.py --selftest`` and its static pass over
+     ``src/repro_torch`` in their own processes (clean; the suppressed
+     findings counted by rule); (b) the runtime sanitizer's four scenarios
+     (``mixed_sampling``, ``speculative``, ``learned_policy``,
+     ``observability``) at full width: warm then steady, every fused step of
+     the steady phase under ``torch.cuda.set_sync_debug_mode("error")``, zero
+     kernel builds or dynamo graphs in the steady phase, and flash_decode
+     launched 12 times per guarded step (48 per speculative one, draft_k 3);
+     (c) the negative control: a mixed step that also calls ``.item()`` and a
+     decode step that builds ``torch.tensor(0., device="cuda")`` must each trip
+     the guard; (d) reported, not asserted: phase 3's adaptive serving run
+     under ``set_sync_debug_mode("warn")``, every sync counted by the repo
+     call site that made it.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -180,6 +194,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -3361,6 +3377,188 @@ def check_tables(paper, agent, card_name) -> dict:
     return launches
 
 
+# -- phase 19 ----------------------------------------------------------------
+
+SANITIZER_DRAFT_K = 3        # the sanitizer's speculative scenario (the reference's knob)
+SYNC_MSG = "synchronizing CUDA operation"   # torch's sync debug mode, warn and error
+
+
+def check_static_checker() -> dict:
+    """19a: the port's checker in its own process: the seeded selftest, then
+    the static pass over src/repro_torch (clean). Returns the suppressed
+    findings by rule."""
+    tool = os.path.join(ROOT, "tools", "check_invariants_torch.py")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, tool, "--selftest"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    log("  " + res.stdout.strip().splitlines()[-2])
+    res = subprocess.run([sys.executable, tool, "--report", "json"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    doc = json.loads(res.stdout)
+    assert doc["ok"] and not doc["findings"], doc["findings"]
+    by_rule = dict(sorted(collections.Counter(f["rule"] for f in doc["suppressed"]).items()))
+    log(f"  static pass over src/repro_torch: invariants clean, suppressed by rule "
+        f"{by_rule}")
+    return by_rule
+
+
+def check_sanitizer(cfg, card_name) -> dict:
+    """19b: the four sanitizer scenarios at full width (drrl-paper 12 x 768,
+    vocabulary 50257): zero builds in the steady phase, every guarded fused
+    step free of syncs, and flash_decode launched in every guarded step, 12
+    per step and 12 x (draft_k + 1) per speculative one."""
+    from repro_torch.analysis import sanitizer
+
+    out = {}
+    for name in sanitizer.SCENARIOS:
+        t0 = time.perf_counter()
+        res = sanitizer.run_scenario(name, reduced=False, device=DEV)
+        calls = res["guarded_by_step"]
+        spec = calls.get("_step_spec", 0)
+        want = cfg.num_layers * (sum(calls.values()) - spec
+                                 + (SANITIZER_DRAFT_K + 1) * spec)
+        log(f"  {name}: warm {res['warm_executables']} builds, steady "
+            f"+{res['steady_new_executables']}, {res['guarded_steps']} guarded fused "
+            f"steps {calls}, {res['flash_decode_launches']} flash_decode launches in "
+            f"the guarded steady phase (expected {want}); "
+            f"{time.perf_counter() - t0:.1f} s [{card_name}]")
+        assert res["ok"], res
+        assert res["steady_new_executables"] == 0, res["steady_compiles"]
+        assert res["flash_decode_launches"] == want > 0, res
+        if name == "speculative":
+            assert spec > 0, calls
+        out[name] = {k: res[k] for k in ("warm_executables", "steady_new_executables",
+                                         "guarded_steps", "guarded_by_step",
+                                         "flash_decode_launches", "steps")}
+    return out
+
+
+def check_guard_trips() -> dict:
+    """19c: the negative control. One engine's mixed step also calls
+    ``.item()``, another's plain decode step builds ``torch.tensor(0.,
+    device="cuda")``: the guard must raise inside each, and restore the mode."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.serve import Request
+
+    leaks = {"_step_mixed": ("item", lambda tok: tok.sum().item()),
+             "_step": ("host tensor", lambda tok: torch.tensor(0., device="cuda"))}
+    tripped = {}
+    for attr, (label, leak) in leaks.items():
+        eng = sanitizer.scenario_engine("mixed_sampling", device=DEV)
+        real = getattr(eng, attr)
+
+        def leaky(*args, _real=real, _leak=leak):
+            out = _real(*args)
+            _leak(out[1])
+            return out
+        setattr(eng, attr, leaky)
+        calls = sanitizer.guard_steps(eng)
+        for w in sanitizer._workload(6, 12, seed=7, sampling=True):
+            eng.submit(Request(**w))
+        try:
+            eng.run()
+        except RuntimeError as e:
+            assert SYNC_MSG in str(e), e
+            tripped[attr] = {"leak": label, "guarded_calls": calls[attr],
+                             "error": str(e).splitlines()[0][:120]}
+        else:
+            raise AssertionError(f"the sync guard did not trip on {attr} + {label}")
+        assert torch.cuda.get_sync_debug_mode() == 0, "the guard left its mode set"
+        log(f"  negative control: {attr} + {label} tripped the guard at guarded call "
+            f"{calls[attr]}: {tripped[attr]['error']}")
+    return tripped
+
+
+def trace_sync_sites(cfg, params, card_name) -> dict:
+    """19d, reported only: phase 3's adaptive serving run at full width, warmed,
+    then its whole loop under ``set_sync_debug_mode("warn")`` with no guard.
+    Every sync warning is attributed to the innermost frame in this repo
+    (``file:line``, the call that synced). The same loop's device-to-host
+    copies are counted by torch.profiler, and those of one decision's
+    ``eigh`` alone (its L x h Grams), which the sync debug mode does not see:
+    cuSOLVER makes them inside the library."""
+    from torch.profiler import ProfilerActivity, profile
+
+    knobs = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                 use_kernel=True)
+    prompts, arrivals = phase3_workload(cfg.vocab_size)
+    eng = Engine(cfg, params, device=DEV, config=EngineConfig(**knobs))
+    for p, a in zip(prompts, arrivals):
+        eng.submit(p, SamplingParams(max_new=64), arrival=a)
+    eng.warmup()
+    torch.cuda.synchronize()
+    sites = collections.Counter()
+    src = os.path.join(ROOT, "src") + os.sep
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if SYNC_MSG not in str(message):
+            return
+        site = f"{os.path.relpath(filename, ROOT)}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if fr.filename.startswith(src):
+                site = f"{os.path.relpath(fr.filename, ROOT)}:{fr.lineno}"
+                break
+        sites[site] += 1
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    total = sum(sites.values())
+    dtoh = sum(e.count for e in raw_device_kernels(prof) if "DtoH" in e.key)
+    # one decision's eigh alone: the Grams of every layer and kv head
+    hd = cfg.resolved_head_dim()
+    x = torch.randn((cfg.num_layers, cfg.num_kv_heads, 256, hd), device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(5))
+    gram = lowrank.gram(x)
+    lowrank.gram_spectrum(gram)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as eprof:
+        lowrank.gram_spectrum(gram)
+        torch.cuda.synchronize()
+    eigh_dtoh = sum(e.count for e in raw_device_kernels(eprof) if "DtoH" in e.key)
+    log(f"  adaptive serving under sync warnings and the profiler: {total} syncs over "
+        f"{st['steps']} fused steps and {st['decides']} decisions ({wall:.1f} s) "
+        f"[{card_name}]; by site:")
+    for site, n in sites.most_common():
+        log(f"    {n:7d}  {site}")
+    log(f"  the profile's device-to-host copies: {dtoh}; one decision's eigh alone "
+        f"({cfg.num_layers * cfg.num_kv_heads} Grams of {hd} x {hd}) makes {eigh_dtoh}, "
+        f"so the run's {st['decides']} decisions make {eigh_dtoh * st['decides']} inside "
+        f"cuSOLVER, unseen by the sync debug mode")
+    return {"total": total, "steps": st["steps"], "decides": st["decides"],
+            "wall_s": wall, "sites": dict(sites.most_common()),
+            "profiled_dtoh_copies": dtoh, "eigh_dtoh_per_decision": eigh_dtoh}
+
+
+def check_invariants(cfg, params, card_name) -> dict:
+    """Phase 19, the invariant checker: 19a-d. Returns the sanitizer's
+    flash_decode launches by scenario and the phase's numbers."""
+    t0 = time.perf_counter()
+    static = check_static_checker()
+    phase("  the runtime sanitizer's four scenarios at full width")
+    scen = check_sanitizer(cfg, card_name)
+    phase("  negative control: a leaked sync trips the guard")
+    trips = check_guard_trips()
+    phase("  sync sites of a steady adaptive serving run (reported)")
+    sites = trace_sync_sites(cfg, params, card_name)
+    secs = time.perf_counter() - t0
+    log("phase 19 numbers: " + json.dumps({
+        "suppressed_by_rule": static, "scenarios": scen, "negative_control": trips,
+        "sync_sites": sites, "phase_s": secs, "card": card_name}))
+    return {name: s["flash_decode_launches"] for name, s in scen.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -3370,7 +3568,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/18] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/19] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -3379,10 +3577,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/18] flash_decode kernel vs its plain version on the card")
+    phase("[2/19] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/18] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/19] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -3399,26 +3597,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/18] full-width engine step: kernel vs plain attention")
+    phase("[4/19] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/18] times at the serving shapes")
+    phase("[5/19] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/18] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/19] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/18] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/19] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/18] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/19] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/18] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/19] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -3427,17 +3625,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/18] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/19] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/18] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/19] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/18] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/19] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/18] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/19] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -3448,7 +3646,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/18] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/19] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -3457,7 +3655,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/18] full-width speculative decoding and the prefix cache")
+    phase("[15/19] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -3469,7 +3667,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/18] the serving front end at full width: traces, the learned policy, "
+    phase("[16/19] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -3490,11 +3688,15 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
-    phase("[17/18] the LM training stack at full width")
+    phase("[17/19] the LM training stack at full width")
     lm = check_lm_training(paper, agent, card_name)
 
-    phase("[18/18] the paper's tables and figures")
+    phase("[18/19] the paper's tables and figures")
     tables = check_tables(paper, agent, card_name)
+
+    phase("[19/19] the invariant checker: the static pass, the runtime sanitizer at "
+          "full width, its negative control, the serving run's sync sites")
+    sanitizer_launches = check_invariants(cfg, params, card_name)
 
     phase("all phases passed")
     print(json.dumps({"kernels": [
@@ -3512,7 +3714,8 @@ def main() -> int:
          "verify": t_verify,
          "train_lm_launches": {"train_step": lm["step_launches"]["flash_decode"],
                                "serve_trained": lm["serve_launches"]},
-         "tables_launches": tables["flash_decode"]},
+         "tables_launches": tables["flash_decode"],
+         "sanitizer_launches": sanitizer_launches},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",

@@ -55,9 +55,15 @@ def delta_a_bound(q_sigmas_sq: torch.Tensor, k_sigmas_sq: torch.Tensor, r,
 
 def annealed_threshold(eps0: float, lam: float, t,
                        device=None) -> torch.Tensor:
-    """eps_t = eps0 * exp(-lam t)   (paper Eq. 11), in f32."""
-    return eps0 * torch.exp(-lam * torch.as_tensor(t, dtype=torch.float32,
-                                                   device=device))
+    """eps_t = eps0 * exp(-lam t)   (paper Eq. 11), in f32. A host ``t``
+    is filled on ``device`` (no host-to-device copy); a tensor ``t`` is
+    cast, and moved only when ``device`` is given."""
+    if isinstance(t, torch.Tensor):
+        t = t.to(device=t.device if device is None else device,
+                 dtype=torch.float32)
+    else:
+        t = torch.full((), t, dtype=torch.float32, device=device)
+    return eps0 * torch.exp(-lam * t)
 
 
 def guardrail_report(q_sigmas_sq: torch.Tensor, k_sigmas_sq: torch.Tensor,

@@ -63,7 +63,7 @@ def key(seed, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a seed in [0, 2**32): the word
     pair (0, seed). ``seed`` may be an integer tensor of seeds (one key
     each, stacked on the last axis)."""
-    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & MASK
+    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & MASK  # inv-ok-torch[R1]: the serving step's device seeds pass through uncopied; the segment decision's key(17) is built on the host
     return torch.stack([torch.zeros_like(s), s], dim=-1)
 
 
@@ -71,7 +71,7 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the hash of the counter pair
     (0, data as uint32). ``data`` broadcasts against the key's batch."""
     k1, k2 = _words(key)
-    d = torch.as_tensor(data, dtype=torch.int64, device=k1.device) & MASK
+    d = torch.as_tensor(data, dtype=torch.int64, device=k1.device) & MASK  # inv-ok-torch[R1]: the serving step's device output positions pass through uncopied; the segment decision folds host ints into a host key
     x0, x1 = threefry2x32(k1, k2, torch.zeros_like(d), d)
     return torch.stack([x0, x1], dim=-1)
 
@@ -106,8 +106,10 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     by exactly 1 and are always exact)."""
     b = bits32(key, shape)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    # fills on the device, not host tensors copied over (a copy would
+    # sync inside the serving step); both round the bound to f32 once
+    lo = torch.full((), minval, dtype=torch.float32, device=f.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=f.device)
     scaled = (f.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 

@@ -53,7 +53,7 @@ def _row_vector(x, b: int, device, name: str) -> torch.Tensor:
     """() or (b,) integer lengths as a contiguous (b,) int32 tensor."""
     if isinstance(x, torch.Tensor) and x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    t = torch.as_tensor(x, device=device)
+    t = torch.as_tensor(x, device=device)  # inv-ok-torch[R1]: the serving step's device lengths pass through uncopied; only a caller's host int is copied
     if t.dtype.is_floating_point or t.dtype == torch.bool:
         raise ValueError(f"{name} must be an integer tensor, got {t.dtype}")
     if t.numel() not in (1, b):

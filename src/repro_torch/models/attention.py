@@ -68,7 +68,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(score_dtype) * scale
     sq, skv = q.shape[1], k.shape[1]
-    neg = torch.tensor(-1e30, dtype=score_dtype, device=q.device)
+    neg = -1e30        # a Python scalar: torch.where takes it without a copy
     k_pos = torch.arange(skv, device=q.device)
     if causal:
         q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset

@@ -481,7 +481,9 @@ class ServeEngine:
         kth = torch.topk(logits, kcap, dim=-1).values          # (ns, kcap)
         sel = (topks.long() - 1).clamp(0, kcap - 1)
         thr = kth.gather(1, sel[:, None])
-        neg_inf = torch.tensor(float("-inf"), device=logits.device)
+        # infinities as Python scalars: torch.where takes them without a
+        # host-to-device copy (which would sync inside the step)
+        neg_inf = float("-inf")
         masked = torch.where((topks[:, None] > 0) & (logits < thr), neg_inf,
                              logits)
         scaled = masked / temps.clamp_min(1e-6)[:, None]
@@ -696,7 +698,7 @@ class ServeEngine:
             n_q = torch.where(spec_rows, a,
                               torch.where(is_pf, q_lens, torch.zeros_like(a)))
             pools["mass"] = spec_mod.apply_deferred_mass(
-                mass_pool, contrib[:, :, :n_q_max], lens, n_q)
+                mass_pool, contrib[:, :, :n_q_max], lens, n_q)  # inv-ok-torch[R2]: the accept loop's width; a host int (1 .. spec_chunk) that bounds the queries any row applies, so a captured spec step needs one graph per value (ROADMAP item 21(c))
         return pools, tok, out_buf, lens_after, a, n_emit, src
 
     def _sync_control(self) -> None:
@@ -893,11 +895,11 @@ class ServeEngine:
                 # and rank, copied out (the next decision rewrites the
                 # spectra in place)
                 sp = self.cache.spectra[i]
-                host = torch.cat([sp.reshape(-1).float(),
+                host = torch.cat([sp.reshape(-1).float(),  # inv-ok-torch[R1]: trace recording only (record_traces), once per decision: the decide cadence, never per decode step
                                   self.cache.ranks[i:i + 1].float()]).cpu()
                 self.trace.on_decision(
                     int(i), st.req.rid, st.t - 1, int(self.cache.lens[i]),
-                    int(host[-1]), host[:-1].reshape(sp.shape).numpy(),
+                    int(host[-1]), host[:-1].reshape(sp.shape).numpy(),  # inv-ok-torch[R1]: a view of the host copy fetched above, no device read
                     has_prev=not first)
             if first:
                 # the slot's first decision is its prompt's: keep its
@@ -920,7 +922,7 @@ class ServeEngine:
         dev = self.device
         k_tok = self.cache.k_pool[0][torch.as_tensor(phys, device=dev).long(),
                                      torch.as_tensor(pos % ps, device=dev)]
-        drift = self._drift(k_tok, self.cache.basis[0],
+        drift = self._drift(k_tok, self.cache.basis[0],  # inv-ok-torch[R1]: drift_threshold only: one (n_slots,) fetch per step that decodes, as the reference's code runs it
                             self.cache.ranks).cpu().numpy()
         for i in live:
             if self.has_rank[i] and drift[i] > self.drift_threshold:
@@ -1026,7 +1028,7 @@ class ServeEngine:
             self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
         with ph("fetch"):
             # the step's one host sync: the accepted runs and their tokens
-            host = torch.cat([acc[:, None], emitted], dim=1).tolist()
+            host = torch.cat([acc[:, None], emitted], dim=1).tolist()  # inv-ok-torch[R1]: the one sanctioned per-step sync of a speculative step: the accept/emission fetch doubles as the streaming emit
         dt = time.perf_counter() - t0 if self.time_per_token else None
         now_t = time.perf_counter()
         with ph("deliver"):
@@ -1092,7 +1094,7 @@ class ServeEngine:
     def _evict_finished(self) -> None:
         for i, st in enumerate(self.sched.slots):
             if st.active and self.sched.should_evict(i):
-                outputs = self.out_buf[i, :st.n_out].tolist()
+                outputs = self.out_buf[i, :st.n_out].tolist()  # inv-ok-torch[R1]: one-shot fetch of a finished request's output at eviction, not per step
                 if st.latencies:
                     self.first_token_s.append(st.latencies[0])
                     self.token_latencies.extend(st.latencies[1:])
@@ -1173,7 +1175,7 @@ class ServeEngine:
                 self.tokens, self.out_buf, self._lens_dev = tok, ob, lens
                 dt = None
                 if self.time_per_token:
-                    self._sync_device()
+                    self._sync_device()  # inv-ok-torch[R1]: opt-in timing mode (time_per_token) deliberately syncs to attribute per-step latency
                     dt = time.perf_counter() - t0
             emitting = decoding + finishing
             # the one host sync of a step, taken only when EOS detection or
@@ -1181,7 +1183,7 @@ class ServeEngine:
             need_tok = (self._stream_sync and emitting) or any(
                 slots[i].req.eos_id is not None for i in emitting)
             with ph("fetch"):
-                tok_host = tok[:, 0].tolist() if need_tok else None
+                tok_host = tok[:, 0].tolist() if need_tok else None  # inv-ok-torch[R1]: the plain path's one sanctioned per-step sync, taken only when EOS detection or a streaming consumer needs this step's token
             now_t = time.perf_counter()
             with ph("deliver"):
                 for i in live:
@@ -1237,7 +1239,7 @@ class ServeEngine:
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
-        self._sync_device()
+        self._sync_device()  # inv-ok-torch[R1]: end-of-run drain before the wall clock is read
         self.stats["decode_s"] += max(
             time.perf_counter() - t0 - (self.stats["prefill_s"] - p0), 0.0)
         return self.results()

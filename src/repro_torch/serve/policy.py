@@ -47,6 +47,12 @@ def median_mean(x: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) / 2
 
 
+def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a 0-dim device index, as a one-element gather: indexing
+    with a 0-dim tensor reads the index on the host, a sync."""
+    return x[idx.reshape(1)][0]
+
+
 def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
     """Returns ``decide(k_pool, mass_pool, kt_pool, page_table, lens,
     ranks, basis, spectra, slot, has_rank, t) -> (ranks', basis',
@@ -73,17 +79,20 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
     g_lo, g_hi = int(rcfg.rank_grid[0]), int(rcfg.rank_grid[-1])
     dh = cfg.resolved_head_dim()
     r_keep = min(g_hi, dh)
+    grids = {}          # device -> the rank grid, built at the first decision
 
     def decide(k_pool, mass_pool, kt_pool, page_table, lens, ranks, basis,
                spectra, slot, has_rank, t):
         slot, has_rank = int(slot), bool(has_rank)
         dev = k_pool.device
-        grid = torch.tensor(rcfg.rank_grid, dtype=torch.int32, device=dev)
+        grid = grids.get(dev)
+        if grid is None:
+            grid = grids[dev] = torch.tensor(rcfg.rank_grid, dtype=torch.int32, device=dev)  # inv-ok-torch[R1]: once per device, at the first decision (warmup's), never again
         kv_len = lens[slot]
         # a recycled slot's first decision must not see the previous
         # occupant's rank: fall back to the fresh-slot default r_max
         prev_rank = (ranks[slot] if has_rank else
-                     torch.tensor(g_hi, dtype=torch.int32, device=dev))
+                     torch.full((), g_hi, dtype=torch.int32, device=dev))
         gathered = k_pool[:, page_table[slot].long()]   # (L, pages, ps, h, d)
         L = gathered.shape[0]
         kv = gathered.reshape(L, -1, *gathered.shape[3:])
@@ -106,17 +115,17 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
         prev_s2 = spectra[slot] if has_rank else s2
 
         if rcfg.mode == "fixed":
-            chosen = torch.tensor(rcfg.fixed_rank, dtype=torch.int32,
-                                  device=dev)
+            chosen = torch.full((), rcfg.fixed_rank, dtype=torch.int32,
+                                device=dev)
         elif rcfg.mode == "adaptive":
             r = lr.rank_for_energy(s2, rcfg.energy_threshold, g_lo, g_hi)
             med = median_mean(r.float())
-            chosen = grid[torch.argmin((grid.float() - med).abs())]
+            chosen = _at(grid, torch.argmin((grid.float() - med).abs()))
         elif rcfg.mode == "random":
             # both the slot and its segment clock fold into the key; the
             # draw's tiny integer ops run on the host, the index moves over
             key = prng.fold_in(prng.fold_in(prng.key(17), t), slot)
-            chosen = grid[prng.randint(key, (), 0, grid.shape[0]).to(dev).long()]
+            chosen = _at(grid, prng.randint(key, (), 0, grid.shape[0]).to(dev).long())
         else:
             # 'drrl' / 'learned': zero h_t and w_t, layer 0, spectra-only
             # state (the recipe the serving-policy trainer records)
@@ -131,13 +140,13 @@ def make_decide_fn(cfg: ModelConfig, policy_params=None) -> Callable:
             G = logits.shape[-1]
             ok = pert.safety_mask(bounds_rel.reshape(-1, G), eps_t)
             logits = torch.where(ok, logits, -1e30)
-            chosen = grid[torch.argmax(logits.mean(dim=0))]
+            chosen = _at(grid, torch.argmax(logits.mean(dim=0)))
 
         # transition veto (Eq. 9): head-mean relative bound at the chosen
         # bucket must clear the slot's annealed threshold
         bounds, norm = pert.guardrail_report(prev_s2, s2, rcfg.rank_grid, dh)
         rel = (bounds / norm.clamp_min(1e-30)[..., None]).mean(dim=0)
-        rel_c = rel[torch.argmin((grid - chosen).abs())]
+        rel_c = _at(rel, torch.argmin((grid - chosen).abs()))
         vetoed = (chosen != prev_rank) & (rel_c > eps_t) & has_rank
         chosen = torch.where(vetoed, prev_rank, chosen)
         short = kv_len < 8

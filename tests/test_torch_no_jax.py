@@ -14,7 +14,9 @@ obs tracing and flight dumps on, serves through a ``FrontEnd`` and a
 serves in rank mode 'learned', and ``examples/quickstart_torch.py``
 trains the DR-RL agent (BC, then PPO) on the CPU. The paper's tables and
 figures (every ``benchmarks/torch_*.py``) and
-``examples/finetune_classification_torch.py`` import too."""
+``examples/finetune_classification_torch.py`` import too, and the port's
+invariant checker (every ``repro_torch.analysis`` module) runs
+``tools/check_invariants_torch.py --selftest`` and its static pass."""
 import os
 import subprocess
 import sys
@@ -26,7 +28,7 @@ pytest.importorskip("torch")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, pkgutil, runpy, sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
 sys.modules["repro"] = None        # and so does any import of the JAX package
 import repro_torch
@@ -35,8 +37,12 @@ for name in names:
     importlib.import_module(name)
 assert {"repro_torch.train.loop", "repro_torch.data.text", "repro_torch.launch.train",
         "repro_torch.checkpoint.manager"} <= set(names), names
+assert {"repro_torch.analysis." + m for m in ("callgraph", "fixtures", "pragmas", "registry",
+        "report", "rules", "sanitizer")} <= set(names), names
+check = runpy.run_path("tools/check_invariants_torch.py")["main"]
+assert check(["--selftest"]) == 0 and check([]) == 0
 import chip_smoke                   # its work sits under __main__
-import glob, os, runpy              # the paper's tables and figures, the fine-tune example
+import glob, os                     # the paper's tables and figures, the fine-tune example
 tables = sorted(os.path.basename(p)[:-3] for p in glob.glob("benchmarks/torch_*.py"))
 for name in tables:
     importlib.import_module("benchmarks." + name)
