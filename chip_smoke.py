@@ -57,7 +57,8 @@ Phases (one line each, plus detail lines):
      workload): flash_decode launches, decisions, vetoes, tokens/s, device
      time per decision in eigh and in the policy; a reduced model in 'drrl'
      served on the card with the kernel and on the CPU without it must give
-     identical greedy tokens and ranks;
+     identical greedy tokens and ranks; the profiled rerun (device time per
+     decision in eigh and the policy) runs the first 4 layers;
  12. the agent's training at full width (``train.rl.train_agent``, 2 x 4096
      tokens of ``SyntheticLM``, chunked): 3 BC steps from the greedy oracle
      (108 lowrank_flash launches each: 12 forward + 12 x 8 oracle), then 3
@@ -67,7 +68,8 @@ Phases (one line each, plus detail lines):
      ratio_mean (1 within 1e-5); the first BC step again through the
      kernel's plain version (oracle rewards within 1e-4, actions equal where
      the top-two gap exceeds it, bc_loss and gradients within 1e-4
-     relative); one BC step profiled by layer and part; the reduced model's
+     relative); one BC step of the first 4 layers profiled by layer and
+     part; the reduced model's
      BC stage on the card with the kernel and on the CPU without it
      (bc_loss within 1e-5 relative, identical oracle actions);
  13. full-width sampled serving (phase 3's engine with ``sampling=True,
@@ -173,6 +175,30 @@ Phases (one line each, plus detail lines):
      the guard; (d) reported, not asserted: phase 3's adaptive serving run
      under ``set_sync_debug_mode("warn")``, every sync counted by the repo
      call site that made it.
+ 20. the dense configs and the MoE family at full width, bf16, seeded
+     weights drawn on the card: (a) both kernels against their plain
+     versions at the new shapes, f32 and bf16 (flash_decode at the serving
+     shapes of qwen2.5-14b, 40/8 heads of 128, C = 1 and 128, the factor
+     read at r = 64, granite's 24/8 of 64, and the GQA groups of internlm2,
+     phi3 and deepseek-coder; lowrank_flash at qwen's 2 x 4096, masked r =
+     128 and static r = 32 with dv = 128, and MLA's r = 192), timed in bf16
+     beside their bounds and SDPA, with the ptxas lines of the
+     instantiations they run; (b) qwen2.5-14b served at full width and depth
+     (phase 3's settings and workload shape), 'off' then 'adaptive': 48
+     flash_decode launches per fused step, ms/step, tokens/s, peak memory,
+     one decision's eigh (384 Grams of 128 x 128), tokens against the plain
+     run's; (e) its first 8 layers in forward_dense(chunked=True) over 2 x
+     4096, adaptive/masked and fixed/static, against the plain path; (c)
+     granite-moe-3b-a800m served at full depth in 'adaptive' (32 launches
+     per step), the share of (token, expert) pairs capacity drops in mixed
+     and decode steps, tokens against the plain run with the routing pinned,
+     and a guarded steady run of its fused step (no sync, no build); (d)
+     internlm2-20b, phi3-medium-14b and deepseek-coder-33b cut to 4 layers,
+     one 'adaptive' run each against the plain run; (f) DeepSeek-V3 cut to 1
+     dense + 1 MoE layer + MTP: forward_deepseek(chunked=True) over 2 x 4096
+     in adaptive/masked (3 lowrank_flash launches at r = 192) against the
+     plain path, then 16 decode_step_deepseek steps; (g) the reduced qwen,
+     granite and DeepSeek-V3 on the card with the kernels against the CPU.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -186,6 +212,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import runpy
@@ -215,6 +242,7 @@ from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import lowrank_cache  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
+from repro_torch.models.deepseek_v3 import forward_deepseek  # noqa: E402
 from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.schedules import make_lr_fn  # noqa: E402
@@ -233,6 +261,7 @@ from benchmarks import (torch_common, torch_fig4_flops_scaling,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 TOL = 2e-5                     # f32 kernel vs plain version
 # each kernel and its plain version both stay in f32 up to the one rounding
 # of the output, so in bf16 they may differ by one bf16 step (at most 2^-7 of
@@ -351,37 +380,45 @@ def make_inputs(case, dtype, seed, return_probs=True):
                                      q_start=ints(qs), q_lens=ints(ql))
 
 
+def check_decode_case(case, dtype, seed, label="") -> float:
+    """One case of flash_decode against its plain version: outputs f32
+    within 2e-5 + 2e-5 |plain|, bf16 within 2e-5 + two bf16 steps of
+    |plain|; probabilities (f32 on both sides, computed in f32 from the same
+    inputs) 2e-5 + 2e-5 |plain| in both types, and in f32 the plain
+    version's exact zero pattern. Returns the larger max error."""
+    args, kw = make_inputs(case, dtype, seed=seed)
+    o, p = decode_attn.flash_decode(*args, **kw)
+    torch.cuda.synchronize()
+    ro, rp = decode_attn.flash_decode_plain(*args, **kw)
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_p = (p - rp).abs().max().item()
+    rel = TOL if dtype == torch.float32 else BF16_REL
+    bad_o = ((o.float() - ro.float()).abs() > TOL + rel * ro.float().abs()).any().item()
+    bad_p = ((p - rp).abs() > TOL + TOL * rp.abs()).any().item()
+    zeros = torch.equal(p == 0, rp == 0) if dtype == torch.float32 else True
+    finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(p).all())
+    if bad_o or bad_p or not zeros or not finite:
+        raise AssertionError(f"flash_decode disagrees with its plain version at "
+                             f"{case} {dtype}: out {err_o:.3g} (tol {TOL:g} + "
+                             f"{rel:.3g}*|plain|), probs {err_p:.3g}, zero pattern "
+                             f"{zeros}, finite {finite}")
+    log(f"  {label}{str(dtype)[6:]:8s} b,hq,hkv,C,M,r,dv={case[:7]} kv_len={case[7]}: "
+        f"max|out-plain| {err_o:.3g} (tol {TOL:g} + {rel:.3g}*|plain|), "
+        f"max|probs-plain| {err_p:.3g}")
+    return max(err_o, err_p)
+
+
 def check_kernel() -> float:
-    """Every case in f32 and bf16. Outputs: f32 within 2e-5 + 2e-5 |plain|,
-    bf16 within 2e-5 + two bf16 steps of |plain|. Probabilities are f32 on
-    both sides, computed in f32 from the same inputs: 2e-5 + 2e-5 |plain|
-    in both types, and in f32 the plain version's exact zero pattern."""
+    """Every case in f32 and bf16 (``check_decode_case``); returns the
+    largest f32 error."""
     worst = 0.0
     cases = [(c, dt) for c in CHECK_CASES + split_cases()
              + [MAIN_DECODE, MAIN_CHUNK, MAIN_DRAFT, MAIN_VERIFY]
              for dt in (torch.float32, torch.bfloat16)]
     for i, (case, dtype) in enumerate(cases):
-        args, kw = make_inputs(case, dtype, seed=i)
-        o, p = decode_attn.flash_decode(*args, **kw)
-        torch.cuda.synchronize()
-        ro, rp = decode_attn.flash_decode_plain(*args, **kw)
-        err_o = (o.float() - ro.float()).abs().max().item()
-        err_p = (p - rp).abs().max().item()
-        rel = TOL if dtype == torch.float32 else BF16_REL
-        bad_o = ((o.float() - ro.float()).abs() > TOL + rel * ro.float().abs()).any().item()
-        bad_p = ((p - rp).abs() > TOL + TOL * rp.abs()).any().item()
-        zeros = torch.equal(p == 0, rp == 0) if dtype == torch.float32 else True
-        finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(p).all())
-        if bad_o or bad_p or not zeros or not finite:
-            raise AssertionError(f"flash_decode disagrees with its plain version at "
-                                 f"{case} {dtype}: out {err_o:.3g} (tol {TOL:g} + "
-                                 f"{rel:.3g}*|plain|), probs {err_p:.3g}, zero pattern "
-                                 f"{zeros}, finite {finite}")
+        err = check_decode_case(case, dtype, seed=i)
         if dtype == torch.float32:
-            worst = max(worst, err_o, err_p)
-        log(f"  {str(dtype)[6:]:8s} b,hq,hkv,C,M,r,dv={case[:7]} kv_len={case[7]}: "
-            f"max|out-plain| {err_o:.3g} (tol {TOL:g} + {rel:.3g}*|plain|), "
-            f"max|probs-plain| {err_p:.3g}")
+            worst = max(worst, err)
     return worst
 
 
@@ -571,21 +608,23 @@ def time_ms(fn, n=25) -> float:
     return statistics.median(times)
 
 
-def bound_ms(case, probs=True) -> tuple:
+def bound_ms(case, probs=True, elem=4) -> tuple:
     """Least time for the work these inputs need: bytes (q, the K/V rows
-    up to each row's kv_len, out, and probs when asked for) over HBM
-    bandwidth, and the f32 operations (2 (r + dv) per visible query-key
-    pair) over the f32 peak."""
+    up to each row's kv_len and out at ``elem`` bytes an element, and the
+    f32 probs when asked for) over HBM bandwidth, and the operations (2 (r +
+    dv) per visible query-key pair) over the peak of the inputs' type: bf16
+    (``elem`` 2) on the tensor cores, f32 outside them."""
     b, hq, hkv, C, M, r, dv, kl, qs, ql = case
     kl = np.minimum(np.asarray(kl), M)
     qs = np.asarray(kl) - C if qs is None else np.asarray(qs)
     ql = np.full(b, C) if ql is None else np.asarray(ql)
-    nbytes = 4 * (b * hq * C * r + hkv * kl.sum() * (r + dv)
-                  + b * hq * C * dv + (b * hq * C * M if probs else 0)) + 12 * b
+    nbytes = (elem * (b * hq * C * r + hkv * kl.sum() * (r + dv) + b * hq * C * dv)
+              + 4 * (b * hq * C * M if probs else 0) + 12 * b)
     j = np.arange(C)[None, :]
     vis = np.clip(np.minimum(kl[:, None], qs[:, None] + j + 1), 0, None) * (j < ql[:, None])
     flops = 2 * (r + dv) * hq * vis.sum()
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    peak = BF16_FLOPS if elem == 2 else F32_FLOPS
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -604,27 +643,30 @@ def library_call(case, q, k, v):
             & (pos < klt[:, None, None])
             & (j[None, :, None] < qlt[:, None, None]))[:, None]
     return lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
-                                                  scale=r ** -0.5)
+                                                  scale=r ** -0.5, enable_gqa=hq != hkv)
 
 
-def time_kernel(case, card_name):
+def time_kernel(case, card_name, dtype=torch.float32):
     """The kernel and its plain version without probabilities (the library
     call's output) and with them (the serving path's call), SDPA, bounds.
     The first five keys are the no-probabilities numbers."""
+    b, hq, hkv, C, M, r, dv, _, _, ql = case
+    elem = torch.finfo(dtype).bits // 8
     res = {}
     for probs in (False, True):
-        (q, k, v, kl), kw = make_inputs(case, torch.float32, seed=7, return_probs=probs)
+        (q, k, v, kl), kw = make_inputs(case, dtype, seed=7, return_probs=probs)
         ms = time_ms(lambda: decode_attn.flash_decode(q, k, v, kl, **kw))
         plain_ms = time_ms(lambda: decode_attn.flash_decode_plain(q, k, v, kl, **kw))
-        bnd, by = bound_ms(case, probs)
+        bnd, by = bound_ms(case, probs, elem)
         if not probs:
             lib_ms = time_ms(library_call(case, q, k, v))
             res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                        bound_by=by)
         else:
             res.update(ms_probs=ms, plain_ms_probs=plain_ms, bound_ms_probs=bnd)
-        log(f"  flash_decode C={case[3]} (b=8, hq=hkv=12, r={case[5]}, dv={case[6]}, "
-            f"M=2048{'' if case[9] is None else ', q_lens ' + str(case[9])}, f32, "
+        heads = f"hq=hkv={hq}" if hq == hkv else f"hq={hq}, hkv={hkv}"
+        log(f"  flash_decode C={C} (b={b}, {heads}, r={r}, dv={dv}, M={M}"
+            f"{'' if ql is None else ', q_lens ' + str(ql)}, {str(dtype)[6:]}, "
             f"{'with' if probs else 'no'} probs, L2 flushed): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound"
             + ("" if probs else f", sdpa (no probs) {lib_ms:.4f} ms") + f" [{card_name}]")
@@ -638,7 +680,7 @@ LAYERS = (("flash_decode kernel", ("flash_decode_kernel",)),
           ("lowrank_flash kernel", ("lowrank_flash_kernel",)),
           ("eigh (cuSOLVER)", ("syev", "jacobi", "rotate_batch", "cusolver",
                                "sytrd", "ormtr")),
-          ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv")),
+          ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "nvjet")),
           ("copies", ("memcpy", "memset")))
 OTHER = "other (elementwise, gather, reduce)"
 
@@ -648,23 +690,14 @@ def dev_us(e) -> float:
         e, "self_cuda_time_total", 0.0)
 
 
-def device_kernels(prof):
-    """The profile's device kernels (CUPTI's own buffer work left out)."""
-    from torch.autograd import DeviceType
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and dev_us(e) > 0 and e.key not in PROFILER_OVERHEAD]
-    if not kern:
-        raise AssertionError("the profiler recorded no device time")
-    return kern
-
-
 KernelSum = collections.namedtuple("KernelSum", "key count self_device_time_total")
 
 
 def raw_device_kernels(prof):
-    """``device_kernels`` summed from the profiler's raw events: the same
-    sums by kernel name, without building the profile's Python event tree
-    (tens of seconds for a training step's 10^5 device events)."""
+    """The profile's device kernels (CUPTI's own buffer work left out),
+    summed by kernel name from the profiler's raw events, without building
+    its Python event tree (tens of seconds for a serving run's or a
+    training step's 10^5 device events)."""
     from torch.autograd import DeviceType
     agg = {}
     for e in prof.profiler.kineto_results.events():
@@ -693,7 +726,7 @@ def kernel_us(fn, n=10, attempts=3) -> dict:
                 fn()
             torch.cuda.synchronize()
         try:
-            kern = device_kernels(prof)
+            kern = raw_device_kernels(prof)
             break
         except AssertionError:
             if attempt == attempts - 1:
@@ -739,7 +772,7 @@ def profile_serving(cfg, params, card_name, plain_wall_s):
         eng.run()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
-    kern = device_kernels(prof)
+    kern = raw_device_kernels(prof)
     busy = sum(dev_us(e) for e in kern)
     st = eng.stats
     plain_us = 1e6 * plain_wall_s
@@ -797,26 +830,34 @@ def flash_inputs(case, dtype, seed):
     return (q, k, v), dict(scale=r ** -0.5, causal=causal, q_offset=off)
 
 
+def check_flash_case(case, dtype, seed, label="") -> float:
+    """One case of lowrank_flash against its plain version: f32 within
+    2e-5 + 2e-5 |plain|, bf16 within 2e-5 + two bf16 steps of |plain|.
+    Returns the max error."""
+    args, kw = flash_inputs(case, dtype, seed=seed)
+    o = lowrank_flash.lowrank_flash(*args, **kw)
+    torch.cuda.synchronize()
+    ro = lowrank_flash.lowrank_flash_plain(*args, **kw)
+    diff = (o.float() - ro.float()).abs()
+    err = diff.max().item()
+    atol = TOL
+    rtol = atol if dtype == torch.float32 else BF16_REL
+    tol = f"{atol:g} + {rtol:.3g}*|plain|"
+    if (diff > atol + rtol * ro.float().abs()).any().item():
+        raise AssertionError(f"lowrank_flash disagrees with its plain version "
+                             f"at {case} {dtype}: {err:.3g} (tol {tol})")
+    log(f"  {label}{str(dtype)[6:]:8s} b,hq,hkv,sq,skv,r,dv,causal,q_offset={case}: "
+        f"max|out-plain| {err:.3g} (tol {tol})")
+    return err
+
+
 def check_flash() -> float:
     worst = 0.0
     for i, case in enumerate(FLASH_CASES + [PATH_MASKED, PATH_STATIC]):
         for dtype in (torch.float32, torch.bfloat16):
-            args, kw = flash_inputs(case, dtype, seed=100 + i)
-            o = lowrank_flash.lowrank_flash(*args, **kw)
-            torch.cuda.synchronize()
-            ro = lowrank_flash.lowrank_flash_plain(*args, **kw)
-            diff = (o.float() - ro.float()).abs()
-            err = diff.max().item()
-            atol = TOL
-            rtol = atol if dtype == torch.float32 else BF16_REL
-            tol = f"{atol:g} + {rtol:.3g}*|plain|"
-            if (diff > atol + rtol * ro.float().abs()).any().item():
-                raise AssertionError(f"lowrank_flash disagrees with its plain version "
-                                     f"at {case} {dtype}: {err:.3g} (tol {tol})")
+            err = check_flash_case(case, dtype, seed=100 + i)
             if dtype == torch.float32:
                 worst = max(worst, err)
-            log(f"  {str(dtype)[6:]:8s} b,hq,hkv,sq,skv,r,dv,causal,q_offset={case}: "
-                f"max|out-plain| {err:.3g} (tol {tol})")
     return max(worst, check_tf32_case())
 
 
@@ -967,23 +1008,30 @@ def check_oneshot(cfg, params, chunked_outs, card_name):
 
 # -- phase 9 ---------------------------------------------------------------
 
-def flash_bound_ms(case) -> tuple:
+def flash_bound_ms(case, dtype=torch.float32) -> tuple:
     """Least time for the work: q, k, v and out once over HBM bandwidth, and
-    the f32-accurate operations (2 (r + dv) per visible query-key pair) over
-    a peak. The kernel runs them on the tensor cores as three TF32 products
-    each (split TF32), so its bound is the larger of the byte time and
-    3 x operations over the TF32 peak. Returns (that bound in ms, what binds
-    it, the bound on the f32 CUDA cores in ms, which the CUDA-core design
-    before it was held to)."""
+    the operations (2 (r + dv) per visible query-key pair) over a peak.
+    bf16 inputs: the bf16 tensor-core peak. f32 inputs need f32-accurate
+    products, which the kernel runs on the tensor cores as three TF32
+    products each (split TF32): the TF32 peak over those passes. Returns
+    (the bound in ms, what binds it, {'bound_tf32_passes_ms': the byte time
+    or the kernel's own TF32 passes over the TF32 peak (bf16 inputs, exact
+    in TF32, take one for Q.K^T and two for P.V), 'bound_cuda_core_ms': the
+    bound on the f32 CUDA cores, which the CUDA-core design before it was
+    held to})."""
     b, hq, hkv, sq, skv, r, dv, causal, off = case
-    n_bytes = 4 * (b * hq * sq * r + b * hkv * skv * (r + dv) + b * hq * sq * dv)
+    elem = torch.finfo(dtype).bits // 8
+    n_bytes = elem * (b * hq * sq * r + b * hkv * skv * (r + dv) + b * hq * sq * dv)
     i = np.arange(sq)
     pairs = np.minimum(skv, off + i + 1).sum() if causal else sq * skv
     flops = 2.0 * b * hq * pairs * (r + dv)
+    passes = (3 * r + 3 * dv) if dtype == torch.float32 else (r + 2 * dv)
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_tc = 1e3 * 3 * flops / TF32_FLOPS
+    t_tc = max(t_bytes, 1e3 * 2.0 * b * hq * pairs * passes / TF32_FLOPS)
     t_cc = max(t_bytes, 1e3 * flops / F32_FLOPS)
-    return (t_bytes, "bytes", t_cc) if t_bytes >= t_tc else (t_tc, "operations", t_cc)
+    t_ops = 1e3 * flops / BF16_FLOPS if dtype == torch.bfloat16 else t_tc
+    extra = dict(bound_tf32_passes_ms=t_tc, bound_cuda_core_ms=t_cc)
+    return (t_bytes, "bytes", extra) if t_bytes >= t_ops else (t_ops, "operations", extra)
 
 
 def sdpa_backend(q, k, v, scale) -> str:
@@ -995,9 +1043,10 @@ def sdpa_backend(q, k, v, scale) -> str:
     return SDPBackend(choice).name
 
 
-def time_flash(case, label, card_name) -> dict:
+def time_flash(case, label, card_name, dtype=torch.float32, per_call=True) -> dict:
     import torch.nn.functional as F
-    (q, k, v), kw = flash_inputs(case, torch.float32, seed=9)
+    b, hq, hkv, sq, skv = case[:5]
+    (q, k, v), kw = flash_inputs(case, dtype, seed=9)
     ms = time_ms(lambda: lowrank_flash.lowrank_flash(q, k, v, **kw), n=15)
     plain_ms = time_ms(lambda: lowrank_flash.lowrank_flash_plain(q, k, v, **kw), n=15)
 
@@ -1006,18 +1055,25 @@ def time_flash(case, label, card_name) -> dict:
                                               enable_gqa=True)
     lib_ms = time_ms(lib, n=15)
     backend = sdpa_backend(q, k, v, kw["scale"])
-    bnd, by, bnd_cc = flash_bound_ms(case)
-    per_call = kernel_us(lambda: lowrank_flash.lowrank_flash(q, k, v, **kw))
-    prof_ms = sum(us for name, us in per_call.items() if "lowrank_flash_kernel" in name) / 1e3
-    lib_prof_ms = sum(kernel_us(lib).values()) / 1e3
-    log(f"  lowrank_flash {label} (b=2, hq=hkv=12, sq=skv=4096, causal, f32): kernel "
+    bnd, by, extra = flash_bound_ms(case, dtype)
+    prof_ms = lib_prof_ms = None
+    if per_call:
+        us = kernel_us(lambda: lowrank_flash.lowrank_flash(q, k, v, **kw))
+        prof_ms = sum(t for name, t in us.items() if "lowrank_flash_kernel" in name) / 1e3
+        lib_prof_ms = sum(kernel_us(lib).values()) / 1e3
+    heads = f"hq=hkv={hq}" if hq == hkv else f"hq={hq}, hkv={hkv}"
+    log(f"  lowrank_flash {label} (b={b}, {heads}, sq=skv={sq}, causal, "
+        f"{str(dtype)[6:]}): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {lib_ms:.4f} ms; bound "
-        f"(tensor cores, 3 TF32 passes) {bnd:.4f} ms ({by}), {bnd / ms:.1%} of it; f32 "
-        f"CUDA-core bound {bnd_cc:.4f} ms, {bnd_cc / ms:.1%} of it; torch.profiler per call: "
-        f"kernel {prof_ms:.4f} ms, sdpa {lib_prof_ms:.4f} ms [{card_name}]")
+        f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of it; the kernel's TF32 passes "
+        f"{extra['bound_tf32_passes_ms']:.4f} ms, {extra['bound_tf32_passes_ms'] / ms:.1%} "
+        f"of it; f32 CUDA-core bound {extra['bound_cuda_core_ms']:.4f} ms, "
+        f"{extra['bound_cuda_core_ms'] / ms:.1%} of it"
+        + (f"; torch.profiler per call: kernel {prof_ms:.4f} ms, sdpa {lib_prof_ms:.4f} ms"
+           if per_call else "") + f" [{card_name}]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
-                bound_tc_ms=bnd, bound_cuda_core_ms=bnd_cc, profiler_ms=prof_ms,
-                library_profiler_ms=lib_prof_ms)
+                **extra, profiler_ms=prof_ms,
+                library_profiler_ms=lib_prof_ms, sdpa_backend=backend)
 
 
 def profile_forwards(cfg_base, params, card_name) -> None:
@@ -1031,7 +1087,7 @@ def profile_forwards(cfg_base, params, card_name) -> None:
         wall = statistics.median(run_forward(cfg, params, tokens, fid)[2] for _ in range(3))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_forward(cfg, params, tokens, fid)
-        kern = device_kernels(prof)
+        kern = raw_device_kernels(prof)
         busy = sum(dev_us(e) for e in kern)
         log(f"  forward {mode}/{real}{' + fidelity' if fid else ''}, 2 x 4096 tokens: wall "
             f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
@@ -1097,7 +1153,7 @@ def profile_with_agent(fn, parts=AGENT_PARTS):
                                                   ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in device_kernels(prof) if e.key not in names]
+    kern = [e for e in raw_device_kernels(prof) if e.key not in names]
     ranges = {e.key: device_total_us(e) for e in prof.key_averages()
               if e.key in names and e.device_type == DeviceType.CPU}
     return kern, ranges, prof
@@ -1168,12 +1224,26 @@ def check_drrl_forward(cfg, params, agent, card_name) -> int:
     return launches
 
 
+# the profiled reruns of phases 11 (a drrl serving run) and 12 (a BC step)
+# record host activity too, whose event tree takes minutes to build at 12
+# layers: they run the first PROFILE_LAYERS layers (width unchanged)
+PROFILE_LAYERS = 4
+
+
+def profile_cut(cfg, params):
+    """``cfg`` and ``params`` cut to their first PROFILE_LAYERS layers."""
+    n = PROFILE_LAYERS
+    return (cfg.with_(num_layers=n),
+            {**params, "layers": tu.tree_map(lambda t: t[:n], params["layers"])})
+
+
 def check_drrl_serving(cfg, params, agent, card_name) -> int:
     """Phase 3's workload and engine settings in rank mode 'drrl'; returns
     the kernel's launches."""
     _, launches, st = check_serving(cfg, params, "drrl", card_name, agent,
                                     segment_len=32)
-    eng = Engine(cfg, params, agent, device=DEV, config=EngineConfig(
+    cut, cut_params = profile_cut(cfg, params)
+    eng = Engine(cut, cut_params, agent, device=DEV, config=EngineConfig(
         n_slots=8, max_len=2048, page_size=16, prefill_chunk=128, use_kernel=True,
         segment_len=32))
     rng = np.random.default_rng(1)
@@ -1185,7 +1255,8 @@ def check_drrl_serving(cfg, params, agent, card_name) -> int:
     n_dec = eng.stats["decides"]
     layers = by_layer(kern)
     busy = sum(dev_us(e) for e in kern)
-    log(f"  profiled drrl serving run: {n_dec} decisions, device busy {busy / 1e3:.1f} ms; "
+    log(f"  profiled drrl serving run, cut to {cut.num_layers} of {cfg.num_layers} layers "
+        f"(width unchanged): {n_dec} decisions, device busy {busy / 1e3:.1f} ms; "
         f"per decision {layers['eigh (cuSOLVER)'] / 1e3 / n_dec:.3f} ms of eigh, "
         f"{parts.get('policy network', 0.0) / 1e3 / n_dec:.3f} ms of policy network, "
         f"{parts.get('Eq. 6 features', 0.0) / 1e3 / n_dec:.3f} ms of Eq. 6 features "
@@ -1358,7 +1429,7 @@ def check_training(cfg, params, agent, card_name) -> int:
     bad = [x for x in ratios if abs(x - 1.0) > RATIO_TOL]
     assert not bad, f"first-epoch ratio_mean {ratios} not 1 within {RATIO_TOL}"
     check_training_plain(cfg, params, agent, data, rec, bc_grads[0]["out"])
-    profile_bc_step(cfg, params, agent, data, card_name)
+    profile_bc_step(*profile_cut(cfg, params), agent, data, card_name)
     check_training_reference()
     return launches
 
@@ -1438,7 +1509,8 @@ def profile_bc_step(cfg, params, agent, data, card_name):
     backward = sum(device_total_us(e) for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU
                    and e.key.startswith("autograd::engine::evaluate_function"))
-    log(f"  one BC step profiled: wall {wall * 1e3:.1f} ms unprofiled, device busy "
+    log(f"  one BC step profiled, cut to {cfg.num_layers} layers (width unchanged): wall "
+        f"{wall * 1e3:.1f} ms unprofiled, device busy "
         f"{busy / 1e3:.2f} ms (idle {1 - busy / (wall * 1e6):.1%}) [{card_name}]")
     log_layers(by_layer(kern), busy)
     log("  of which (device time of the kernels each part launched):")
@@ -1638,7 +1710,7 @@ def profile_tail(cfg, params, card_name):
             torch.cuda.synchronize()
         res["wall"] = 1e6 * (time.perf_counter() - t0)
         eng.run()
-        kern = [e for e in device_kernels(prof) if e.key != "sampling tail"]
+        kern = [e for e in raw_device_kernels(prof) if e.key != "sampling tail"]
         res["busy"] = sum(dev_us(e) for e in kern)
         res["tail"] = sum(device_total_us(e) for e in prof.key_averages()
                           if e.key == "sampling tail" and e.device_type == DeviceType.CPU)
@@ -1899,7 +1971,7 @@ def check_comparison_forwards(cfg_base, params, card_name) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(mcfg, fid)
-        kern = device_kernels(prof)
+        kern = raw_device_kernels(prof)
         busy = sum(dev_us(e) for e in kern)
         walls[mode] = wall * 1e3
         log(f"  forward {mode}{' + fidelity' if fid else ''}, 2 x 4096 tokens: wall "
@@ -2056,9 +2128,9 @@ def record_gaps(eng, gaps):
     core._select_token = select
 
 
-def compare_streams(got, want, rerun_ref, label) -> int:
+def compare_streams(got, want, rerun_ref, label, tol=SPEC_GAP_TOL) -> int:
     """Tokens equal, or each differing stream's first difference at a
-    top-two gap under SPEC_GAP_TOL in the reference run; ``rerun_ref(gaps)``
+    top-two gap under ``tol`` in the reference run; ``rerun_ref(gaps)``
     serves the reference again with ``record_gaps`` and returns its tokens
     (they must be the first run's). Returns the count of differing
     streams."""
@@ -2076,8 +2148,8 @@ def compare_streams(got, want, rerun_ref, label) -> int:
     for i, j in sorted(diff.items()):
         g = gaps[(i, j)]
         log(f"  {label}: request {i} first differs at token {j}; the reference's "
-            f"top-two gap there {g:.3g} (tol {SPEC_GAP_TOL:g})")
-        assert g < SPEC_GAP_TOL, f"{label}: request {i} differs at a top-two gap of {g}"
+            f"top-two gap there {g:.3g} (tol {tol:g})")
+        assert g < tol, f"{label}: request {i} differs at a top-two gap of {g}"
     log(f"  {label}: {len(diff)} of {len(got)} streams differ, each first at a near-tie")
     return len(diff)
 
@@ -2175,7 +2247,7 @@ def profile_spec_window(cfg, params, card_name) -> dict:
             res["wall"] = 1e6 * (time.perf_counter() - t0)
         res["spec"] = eng.stats["spec_steps"] - spec0
         eng.run()
-        res["kern"] = device_kernels(prof)
+        res["kern"] = raw_device_kernels(prof)
     eng, _, _, _ = serve(cfg, params, driver=driver, **SPEC_KNOBS)
     start, n = SPEC_WINDOW
     assert eng.stats["steps"] > start + n and res["spec"] == n, "the window leaves the spec steps"
@@ -3559,6 +3631,617 @@ def check_invariants(cfg, params, card_name) -> dict:
     return {name: s["flash_decode_launches"] for name, s in scen.items()}
 
 
+# -- phase 20 ----------------------------------------------------------------
+
+def _family_case(hq, hkv, C, r, dv):
+    """A flash_decode case at phase 3's engine settings (8 slots, 2048
+    positions): MAIN_DECODE's lengths for C = 1, MAIN_CHUNK's chunk else."""
+    if C == 1:
+        return (8, hq, hkv, 1, 2048, r, dv, MAIN_DECODE[7], None, None)
+    return (8, hq, hkv, C, 2048, r, dv, MAIN_CHUNK[7], MAIN_CHUNK[8], None)
+
+
+# 20a: the serving shapes of the dense configs (head_dim 128: 'off' and a
+# mixed step read it whole, an 'adaptive' decode row reads the factor cache
+# at r_max = 64 of it) and granite (head_dim 64), and the GQA groups of
+# internlm2 (6), phi3 (4) and deepseek-coder (7) at C = 1
+FAMILY_DECODE = {
+    "qwen2.5-14b decode": _family_case(40, 8, 1, 128, 128),
+    "qwen2.5-14b factor decode": _family_case(40, 8, 1, 64, 128),
+    "qwen2.5-14b chunk": _family_case(40, 8, 128, 128, 128),
+    "granite decode": _family_case(24, 8, 1, 64, 64),
+    "granite chunk": _family_case(24, 8, 128, 64, 64),
+    "internlm2-20b decode": _family_case(48, 8, 1, 128, 128),
+    "phi3-medium-14b decode": _family_case(40, 10, 1, 128, 128),
+    "deepseek-coder-33b decode": _family_case(56, 8, 1, 128, 128),
+}
+FAMILY_DECODE_TIMED = ("qwen2.5-14b decode", "qwen2.5-14b factor decode",
+                       "qwen2.5-14b chunk", "granite decode", "granite chunk")
+# lowrank_flash at the chunked forwards' shapes: qwen's 2 x 4096 (40/8 heads,
+# dv 128; masked r = 128, static r = 32) and MLA's (128 heads, r = qk_nope +
+# qk_rope = 192, dv 128; one sequence of 4096, the plain version's scores
+# 8.6 GB): b, hq, hkv, sq, skv, r, dv, causal, q_offset
+FAMILY_FLASH = {
+    "qwen2.5-14b masked r=128": (2, 40, 8, 4096, 4096, 128, 128, True, 0),
+    "qwen2.5-14b static r=32": (2, 40, 8, 4096, 4096, 32, 128, True, 0),
+    "deepseek-v3 MLA r=192": (1, 128, 128, 4096, 4096, 192, 128, True, 0),
+}
+# a bf16 stream may differ, kernel vs plain attention, only where the plain
+# run's top-two logit gap is under four bf16 steps at a logit of 8 (the
+# largest logit of a random-weight model: rms-normed states through a fan-in
+# scaled head give logits of about unit spread): 4 x 2^-8 x 8
+BF16_GAP_TOL = 0.125
+# qwen's forward (20e): its first layers, 2 x 4096 tokens
+FAMILY_FWD_LAYERS = 8
+# 20d: the other dense configs, cut in depth for time
+DENSE_CUT_LAYERS = 4
+# DeepSeek-V3 (20f): 1 dense + 1 MoE layer + the MTP block
+DEEPSEEK_CUT = dict(num_layers=2, first_dense_layers=1)
+DEEPSEEK_DECODE_STEPS = 16
+# 20g: DeepSeek-V3 reduced, card (kernel) vs CPU (plain), f32 logits
+REDUCED_LOGIT_TOL = 1e-5
+# 20e/20f: full-width bf16 logits, kernel vs plain path. They are rounded to
+# bf16 last, so they cannot agree closer than one bf16 step at the largest
+# logit's magnitude; the readings were one step (0.03125 at max |logit| 6.31,
+# qwen's 8-layer forward) and 1.25 steps (0.039 at 5.97, DeepSeek-V3's MTP
+# logits). Held to two steps, and the greedy pick to agree at this share of
+# the positions at least: random weights leave many top-two pairs tied at
+# bf16's resolution, so it read 0.9911 (qwen), 0.9877 and 0.9811 (DeepSeek-V3
+# and its MTP head)
+LOGIT_BF16_STEPS = 2
+GREEDY_FLOOR = 0.97
+
+
+def family_ptxas() -> None:
+    """The ptxas register and spill lines of the instantiations phase 20
+    runs: lowrank_flash at r = 128 / 192 and dv = 128 (KR 16 / 24, ND 16)
+    and r = 32 with dv = 128, flash_decode at r, dv up to 128."""
+    for name, keys in (("lowrank_flash", ("Li24E", "Li16E")),
+                       ("decode_attn", ("Li4E", "Li16E"))):
+        for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
+            if any(k in line for k in keys):
+                log("  ptxas: " + line)
+
+
+def check_family_kernels(card_name) -> dict:
+    """20a: both kernels against their plain versions at the new shapes, f32
+    and bf16, then timed in bf16 (the models' type)."""
+    family_ptxas()
+    err = {"flash_decode": 0.0, "lowrank_flash": 0.0}
+    for i, (label, case) in enumerate(FAMILY_DECODE.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = check_decode_case(case, dtype, seed=300 + i, label=f"{label}: ")
+            if dtype == torch.float32:
+                err["flash_decode"] = max(err["flash_decode"], e)
+    for i, (label, case) in enumerate(FAMILY_FLASH.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = check_flash_case(case, dtype, seed=400 + i, label=f"{label}: ")
+            if dtype == torch.float32:
+                err["lowrank_flash"] = max(err["lowrank_flash"], e)
+        torch.cuda.empty_cache()
+    times = {"flash_decode": {}, "lowrank_flash": {}}
+    for label in FAMILY_DECODE_TIMED:
+        times["flash_decode"][label] = time_kernel(FAMILY_DECODE[label], card_name,
+                                                   torch.bfloat16)
+    for label, case in FAMILY_FLASH.items():
+        times["lowrank_flash"][label] = time_flash(case, label, card_name, torch.bfloat16,
+                                                   per_call=False)
+        torch.cuda.empty_cache()
+    return {"max_abs_err": err, "times": times}
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_params(cfg, seed=0):
+    """Seeded random weights drawn on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tu.leaves(params))
+    log(f"  {cfg.name}: seeded init of {n / 1e9:.3f} B parameters ({cfg.param_dtype}; "
+        f"n_params() {cfg.n_params() / 1e9:.3f} B) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    return params
+
+
+def family_rank(cfg, mode):
+    return cfg.with_(rank=RankConfig(mode=mode, rank_grid=cfg.rank.rank_grid
+                                     if mode == "off" else GRID, segment_len=32))
+
+
+def serve_family(cfg, params, label, card_name, *, use_kernel=True, gaps=None,
+                 **knobs):
+    """Phase 3's workload (prompts from ``cfg``'s vocabulary) through Engine at
+    phase 3's settings; asserts one flash_decode launch per layer per fused
+    step with the kernel (none without it). Returns (tokens, stats, engine,
+    ms/step, the run's flash_decode launches)."""
+    knobs = dict(n_slots=8, max_len=2048, page_size=16, prefill_chunk=128,
+                 use_kernel=use_kernel, **knobs)
+    prompts, arrivals = phase3_workload(cfg.vocab_size)
+
+    def driver(eng, hs):
+        if gaps is not None:
+            record_gaps(eng, gaps)
+        eng.run()
+    torch.cuda.reset_peak_memory_stats()
+    eng, outs, launches, vetoes = serve_prompts(cfg, params, prompts=prompts,
+                                                arrivals=arrivals, driver=driver, **knobs)
+    st = eng.stats
+    n_steps = st["steps"] + eng.core.warmup_steps
+    want = cfg.num_layers * n_steps if use_kernel else 0
+    assert launches == want, f"{label}: {launches} flash_decode launches, expected {want}"
+    for i, o in enumerate(outs):
+        assert o.shape == (64,), f"{label}: request {i} returned {o.shape} tokens"
+        assert ((o >= 0) & (o < cfg.vocab_size)).all(), f"{label}: request {i}: bad ids"
+    ranks = sorted({int(r) for step in eng.ranks_per_step() for r in step if r >= 0})
+    if cfg.rank.mode != "off":
+        assert ranks and set(ranks) <= set(cfg.rank.rank_grid), f"{label}: ranks {ranks}"
+        assert st["decides"] >= len(outs), f"{label}: {st['decides']} decisions"
+    ms_step = 1e3 * st["decode_s"] / st["steps"]
+    log(f"  {label}{'' if use_kernel else ' (plain attention)'}: {len(outs)} requests x "
+        f"64 tokens, {st['steps']} fused steps ({st['mixed_steps']} mixed), "
+        f"{st['decides']} decisions ({vetoes} vetoed), ranks {ranks}; flash_decode launches "
+        f"{launches} = {cfg.num_layers} x {n_steps}; "
+        f"{st['tokens_decoded'] / st['decode_s']:.1f} decoded tokens/s, {ms_step:.2f} "
+        f"ms/step; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card_name}]")
+    return outs, st, eng, ms_step, launches
+
+
+def plain_family_run(cfg, params, label, card_name, replay=None):
+    """The plain-attention run a kernel run is held to, its top-two gaps
+    recorded as it serves (``record_gaps``; under ``replay``'s pinned
+    routing for the MoE family). Returns (tokens, gaps)."""
+    gaps = {}
+    with replay.replaying() if replay is not None else contextlib.nullcontext():
+        toks = serve_family(cfg, params, label, card_name, use_kernel=False,
+                            gaps=gaps)[0]
+    return toks, gaps
+
+
+def compare_family_streams(cfg, got, plain, label) -> int:
+    """Kernel tokens against the plain run's by ``compare_streams``' rule,
+    at BF16_GAP_TOL for a bf16 model; the gaps come from the plain run
+    itself, so nothing is served again."""
+    want, gaps = plain
+    tol = SPEC_GAP_TOL if cfg.dtype == "float32" else BF16_GAP_TOL
+    return compare_streams(got, want, lambda g: g.update(gaps) or want, label, tol)
+
+
+def eigh_ms_per_decision(cfg, card_name) -> float:
+    """Device time of one segment decision's eigh: the Grams of every layer
+    and kv head (head_dim square), torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    hd = cfg.resolved_head_dim()
+    x = torch.randn((cfg.num_layers, cfg.num_kv_heads, 256, hd), device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(5))
+    gram = lowrank.gram(x)
+    lowrank.gram_spectrum(gram)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lowrank.gram_spectrum(gram)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in raw_device_kernels(prof))
+    log(f"  one decision's eigh: {cfg.num_layers * cfg.num_kv_heads} Grams of {hd} x {hd}, "
+        f"{us / 1e3:.2f} ms of device time [{card_name}]")
+    return us / 1e3
+
+
+def check_qwen_serving(card_name):
+    """20b: qwen2.5-14b at full width and depth, 'off' then 'adaptive'
+    (segment 32, grid 16..64), kernel tokens against the plain run's."""
+    base = get_config("qwen2.5-14b")
+    params = family_params(base)
+    out = {}
+    for mode in ("off", "adaptive"):
+        cfg = family_rank(base, mode)
+        toks, st, eng, ms, launches = serve_family(cfg, params, f"qwen2.5-14b {mode}",
+                                                   card_name)
+        out[mode] = dict(ms_step=ms, tok_s=st["tokens_decoded"] / st["decode_s"],
+                         steps=st["steps"], mixed_steps=st["mixed_steps"],
+                         decides=st["decides"], launches_per_step=cfg.num_layers,
+                         launches=launches,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del eng
+        if mode == "adaptive":
+            plain = plain_family_run(cfg, params, f"qwen2.5-14b {mode}", card_name)
+            out[mode]["streams_differ"] = compare_family_streams(
+                cfg, toks, plain, f"qwen2.5-14b {mode} vs plain")
+    out["adaptive"]["eigh_ms_per_decision"] = eigh_ms_per_decision(base, card_name)
+    return params, out
+
+
+class RouteReplay:
+    """Records the experts each ``moe.route`` call picks (the kernel run),
+    then hands the same experts back to the same calls in the same order
+    (the plain run), each with its own router probabilities and gates.
+    Top-k routing is discontinuous: a hidden state one bf16 step away can
+    flip an expert at the k-th place, a whole expert's output for that
+    token and, through capacity, which pairs of the other rows are dropped.
+    With the routing pinned, the plain run differs from the kernel run only
+    through the attention's rounding, so ``compare_streams``' rule holds
+    it row by row again."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.idx, self.pos = moe, [], None
+
+    @contextlib.contextmanager
+    def recording(self):
+        inner = self.mod.route
+
+        def rec(cfg, p, xf):
+            probs, idx, gates = inner(cfg, p, xf)
+            self.idx.append(idx)
+            return probs, idx, gates
+        self.mod.route, self.idx = rec, []
+        try:
+            yield self
+        finally:
+            self.mod.route = inner
+
+    def dropped_share(self, cfg, n_slots) -> dict:
+        """Of the recorded calls' (token, expert) pairs, the share capacity
+        dropped, in mixed steps (more than ``n_slots`` rows) and in decode
+        steps (``n_slots`` rows): the reference's C = max(int(T K / E x
+        capacity_factor), 1) per expert."""
+        m = cfg.moe
+        out = {}
+        for kind, pick in (("mixed", lambda t: t > n_slots), ("decode", lambda t: t == n_slots)):
+            sel = [idx for idx in self.idx if pick(idx.shape[0])]
+            if not sel:
+                continue
+            dropped = sum(
+                (torch.bincount(idx.flatten(), minlength=m.num_experts)
+                 - max(int(idx.shape[0] * m.top_k / m.num_experts * m.capacity_factor), 1)
+                 ).clamp_min(0).sum() for idx in sel)
+            out[kind] = int(dropped) / sum(idx.numel() for idx in sel)
+        return out
+
+    @contextlib.contextmanager
+    def replaying(self):
+        inner = self.mod.route
+        self.pos = 0
+
+        def rep(cfg, p, xf):
+            probs, _, _ = inner(cfg, p, xf)
+            idx = self.idx[self.pos]
+            self.pos += 1
+            gates = probs.gather(-1, idx)
+            return probs, idx, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        self.mod.route = rep
+        try:
+            yield self
+        finally:
+            self.mod.route = inner
+            assert self.pos == len(self.idx), (self.pos, len(self.idx))
+
+
+def check_granite_serving(card_name):
+    """20c: granite-moe-3b-a800m at full width and depth in 'adaptive':
+    tokens against the plain run's with the kernel run's routing pinned
+    (``RouteReplay``), the share of (token, expert) pairs the kernel run's
+    capacity dropped, and a guarded steady run of its fused step."""
+    base = get_config("granite-moe-3b-a800m")
+    params = family_params(base)
+    cfg = base.with_(rank=RankConfig(mode="adaptive", rank_grid=base.rank.rank_grid,
+                                     segment_len=32))
+    replay = RouteReplay()
+    with replay.recording():
+        toks, st, eng, ms, launches = serve_family(cfg, params, "granite adaptive",
+                                                   card_name)
+    n_slots = eng.core.n_slots
+    out = dict(ms_step=ms, tok_s=st["tokens_decoded"] / st["decode_s"], steps=st["steps"],
+               mixed_steps=st["mixed_steps"], decides=st["decides"],
+               launches_per_step=cfg.num_layers, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               dropped_share=replay.dropped_share(cfg, n_slots))
+    del eng
+    log(f"  granite: (token, expert) pairs dropped by capacity in the kernel run, "
+        f"mixed and decode steps (warmup's included): {out['dropped_share']}")
+    plain = plain_family_run(cfg, params, "granite adaptive, routing pinned", card_name,
+                             replay)
+    out["streams_differ"] = compare_family_streams(
+        cfg, toks, plain, "granite adaptive vs plain (routing pinned)")
+    out["sanitizer"] = guarded_family_run(cfg, params, card_name)
+    return params, out
+
+
+def guarded_family_run(cfg, params, card_name) -> dict:
+    """The sanitizer's warm-then-steady run (phase 19's ``mixed_sampling``
+    workload and knobs) on ``cfg``'s engine: zero builds in the steady
+    phase, every fused step under ``set_sync_debug_mode("error")``."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.serve import Request, ServeEngine
+
+    counter = sanitizer.CompileCounter()
+    with counter.attached():
+        eng = ServeEngine(cfg, params, device=DEV, n_slots=4, max_len=64, page_size=16,
+                          segment_len=8, max_new_cap=12, prefill_chunk=8, use_kernel=True,
+                          sampling=True, nucleus=True)
+        for w in sanitizer._workload(6, 12, seed=0, sampling=True):
+            eng.submit(Request(**w))
+        eng.warmup()
+        eng.run()
+        warm = counter.count
+        eng.reset()
+        calls = sanitizer.guard_steps(eng)
+        for w in sanitizer._workload(6, 12, seed=7, sampling=True):
+            eng.submit(Request(**w))
+        reset_launches()
+        eng.run()
+        launches = decode_attn.LAUNCHES["flash_decode"]
+        steady = counter.count - warm
+    guarded = sum(calls.values())
+    log(f"  granite under the sync guard: warm {warm} builds, steady +{steady}, "
+        f"{guarded} guarded fused steps {calls}, {launches} flash_decode launches "
+        f"(expected {cfg.num_layers * guarded}) [{card_name}]")
+    assert steady == 0, counter.messages[warm:]
+    assert guarded > 0 and launches == cfg.num_layers * guarded
+    return {"warm_builds": warm, "steady_builds": steady, "guarded_steps": guarded,
+            "launches": launches}
+
+
+def check_dense_cut(card_name) -> dict:
+    """20d: internlm2, phi3 and deepseek-coder at full width, cut to
+    DENSE_CUT_LAYERS layers; one 'adaptive' serving run each (phase 3's
+    workload), tokens against the plain run's."""
+    out = {}
+    for arch in ("internlm2-20b", "phi3-medium-14b", "deepseek-coder-33b"):
+        full = get_config(arch)
+        cfg = family_rank(full.with_(num_layers=DENSE_CUT_LAYERS), "adaptive")
+        log(f"  {arch}: cut from {full.num_layers} to {cfg.num_layers} layers, width "
+            f"unchanged ({full.num_heads}/{full.num_kv_heads} heads of "
+            f"{full.resolved_head_dim()}, d_model {full.d_model})")
+        params = family_params(cfg)
+        toks, st, eng, ms, _ = serve_family(cfg, params, f"{arch} adaptive", card_name)
+        del eng
+        plain = plain_family_run(cfg, params, f"{arch} adaptive", card_name)
+        out[arch] = dict(layers=cfg.num_layers, ms_step=ms, steps=st["steps"],
+                         streams_differ=compare_family_streams(
+                             cfg, toks, plain, f"{arch} vs plain"))
+        del params
+        free_memory()
+    return out
+
+
+@contextlib.contextmanager
+def plain_flash_by_heads(group=16):
+    """Route the model's flash branch through the kernel's plain version,
+    ``group`` query heads (and their kv heads) at a time: the same function,
+    head by head, within the card's memory at MLA's 128 heads x 4096^2."""
+    kernel = ops.flash_attention
+
+    def plain(q, k, v, **kw):
+        rep = q.shape[1] // k.shape[1]
+        outs = [lowrank_flash.lowrank_flash_plain(
+            q[:, h:h + group], k[:, h // rep:(h + group) // rep],
+            v[:, h // rep:(h + group) // rep], **kw) for h in range(0, q.shape[1], group)]
+        return torch.cat(outs, dim=1)
+    ops.flash_attention = plain
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def logits_err(a, b) -> tuple:
+    """max |a - b|, its tolerance (LOGIT_BF16_STEPS bf16 steps at max |b|),
+    and the share of positions whose argmax agrees."""
+    err = (a.float() - b.float()).abs().max().item()
+    top = b.float().abs().max().item()
+    step = 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 7)
+    same = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    return err, LOGIT_BF16_STEPS * step, same
+
+
+def check_qwen_forward(params, card_name) -> dict:
+    """20e: qwen's first FAMILY_FWD_LAYERS layers (full width) in
+    forward_dense(chunked=True) over 2 x 4096 tokens, adaptive/masked and
+    fixed/static: launches, logits and ranks against the plain path."""
+    full = get_config("qwen2.5-14b")
+    n = FAMILY_FWD_LAYERS
+    cut = {**params, "layers": tu.tree_map(lambda t: t[:n], params["layers"])}
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, full.vocab_size, (2, 4096), generator=g, device=DEV)
+    out = {}
+    log(f"  qwen2.5-14b cut from {full.num_layers} to {n} layers for the forward, width "
+        f"unchanged")
+    for mode, real, fid in FORWARDS:
+        cfg = forward_cfg(full.with_(num_layers=n), mode, real)
+        reset_launches()
+        logits, aux, wall = run_forward(cfg, cut, tokens, fid)
+        launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+        want = n * (2 if fid else 1)
+        assert launches == want, f"{launches} lowrank_flash launches, expected {want}"
+        assert torch.isfinite(logits).all()
+        with plain_flash():
+            logits_p, aux_p, wall_p = run_forward(cfg, cut, tokens, fid)
+        err, tol, same = logits_err(logits, logits_p)
+        ranks_eq = torch.equal(aux["rank"], aux_p["rank"])
+        ranks = sorted(set(aux["rank"].flatten().tolist()))
+        log(f"  qwen2.5-14b {mode}/{real}{' + fidelity' if fid else ''}: {launches} "
+            f"lowrank_flash launches = {n} layers x {want // n}; max|logits - plain| "
+            f"{err:.4g} (tol {tol:.4g}; {cfg.dtype}), greedy agreement {same:.4f} (floor "
+            f"{GREEDY_FLOOR}), ranks "
+            f"{'identical' if ranks_eq else 'DIFFER'} {ranks}; wall {wall * 1e3:.1f} ms "
+            f"kernel, {wall_p * 1e3:.1f} ms plain [{card_name}]")
+        assert err <= tol, f"qwen forward {mode}/{real}: kernel vs plain logits differ by {err}"
+        assert same >= GREEDY_FLOOR, f"qwen forward {mode}/{real}: greedy agreement {same}"
+        assert ranks_eq, f"qwen forward {mode}/{real}: ranks differ"
+        out[f"{mode}/{real}"] = dict(launches=launches, max_logit_err=err, wall_ms=1e3 * wall,
+                                     plain_wall_ms=1e3 * wall_p, greedy_agreement=same)
+        del logits, logits_p, aux, aux_p
+        free_memory()
+    return out
+
+
+def check_deepseek(card_name) -> dict:
+    """20f: DeepSeek-V3 at full width, cut to DEEPSEEK_CUT with MTP kept:
+    forward_deepseek(chunked=True) over 2 x 4096 tokens in adaptive/masked
+    (3 lowrank_flash launches at r = 192) against the plain path, then
+    DEEPSEEK_DECODE_STEPS greedy decode_step_deepseek steps after a 64-token
+    prompt."""
+    full = get_config("deepseek-v3-671b")
+    cfg = full.with_(**DEEPSEEK_CUT, rank=RankConfig(mode="adaptive", rank_grid=GRID))
+    log(f"  deepseek-v3-671b cut from {full.num_layers} layers ({full.first_dense_layers} "
+        f"dense) to {cfg.num_layers} ({cfg.first_dense_layers} dense + "
+        f"{cfg.num_layers - cfg.first_dense_layers} MoE) + the MTP block; width unchanged")
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(cfg)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 4096), generator=g, device=DEV)
+    rank_ctx = {"cfg": cfg.rank}
+
+    def fwd():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, aux = forward_deepseek(cfg, params, tokens, rank_ctx0=rank_ctx, chunked=True)
+        torch.cuda.synchronize()
+        return lg, aux, time.perf_counter() - t0
+    reset_launches()
+    replay = RouteReplay()
+    with replay.recording():
+        logits, aux, wall = fwd()
+    launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert launches == 3, f"{launches} lowrank_flash launches, expected 3"
+    assert logits.shape == (2, 4096, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert aux["mtp_logits"].shape == (2, 4095, cfg.vocab_size)
+    with plain_flash_by_heads(), replay.replaying():
+        logits_p, aux_p, wall_p = fwd()
+    assert lowrank_flash.LAUNCHES["lowrank_flash"] == launches
+    err, tol, same = logits_err(logits, logits_p)
+    err_m, tol_m, same_m = logits_err(aux["mtp_logits"], aux_p["mtp_logits"])
+    log(f"  forward_deepseek adaptive/masked, 2 x 4096: {launches} lowrank_flash launches "
+        f"(dense, MoE and MTP blocks; r = 192, dv = 128); against the plain path with "
+        f"the routing pinned: max|logits - plain| {err:.4g} (tol {tol:.4g}), greedy "
+        f"agreement {same:.4f}; MTP {err_m:.4g} (tol {tol_m:.4g}), {same_m:.4f} (floor "
+        f"{GREEDY_FLOOR}); aux_loss "
+        f"{aux['aux_loss'].item():.5g} (plain {aux_p['aux_loss'].item():.5g}); wall "
+        f"{wall * 1e3:.1f} ms kernel, {wall_p * 1e3:.1f} ms plain (first calls); peak "
+        f"{peak:.1f} GiB [{card_name}]")
+    assert err <= tol and err_m <= tol_m, "forward_deepseek: kernel vs plain logits differ"
+    assert min(same, same_m) >= GREEDY_FLOOR, \
+        f"forward_deepseek: greedy agreement {same}, MTP {same_m}"
+    out = dict(launches=launches, max_logit_err=err, max_mtp_logit_err=err_m,
+               greedy_agreement=same, mtp_greedy_agreement=same_m,
+               wall_ms=1e3 * wall, plain_wall_ms=1e3 * wall_p, peak_gib=peak,
+               n_params=cfg.n_params(), params=sum(p.numel() for p in tu.leaves(params)))
+    del logits, aux, logits_p, aux_p
+    free_memory()
+
+    # decode: a 64-token prompt in one step, then greedy single tokens
+    prompt = tokens[:, :64]
+    cache = get_model(cfg).init_cache(2, 64 + DEEPSEEK_DECODE_STEPS, device=DEV)
+    step = get_model(cfg).decode_step
+    with torch.no_grad():
+        lg, cache = step(params, cache, prompt)
+        seq = [prompt]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DEEPSEEK_DECODE_STEPS):
+            nxt = lg[:, -1:].argmax(-1)
+            seq.append(nxt)
+            lg, cache = step(params, cache, nxt)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        assert torch.isfinite(lg).all() and cache["len"] == 64 + DEEPSEEK_DECODE_STEPS
+        full_seq = torch.cat(seq, dim=1)
+        ref, _ = forward_deepseek(cfg.with_(rank=RankConfig()), params, full_seq)
+    agree = (ref[:, 63:-1].argmax(-1) == full_seq[:, 64:]).float().mean().item()
+    log(f"  decode_step_deepseek: {DEEPSEEK_DECODE_STEPS} greedy steps after a 64-token "
+        f"prompt, {1e3 * dec_s / DEEPSEEK_DECODE_STEPS:.1f} ms/step; the unchunked forward "
+        f"over the same tokens picks the decoded token at {agree:.3f} of the steps "
+        f"(reported: the step routes 2 tokens at a time, capacity 1 per expert) [{card_name}]")
+    out.update(decode_ms_step=1e3 * dec_s / DEEPSEEK_DECODE_STEPS, decode_agreement=agree)
+    del params, cache, ref
+    free_memory()
+    return out
+
+
+def check_family_reference() -> None:
+    """20g: the reduced qwen2.5-14b and granite served on the card with the
+    kernel and on the CPU without it (identical greedy tokens and ranks, in
+    'adaptive'), and the reduced DeepSeek-V3's chunked forward at 2 x 1040
+    (logits within 1e-5)."""
+    for arch in ("qwen2.5-14b", "granite-moe-3b-a800m"):
+        base = get_config(arch, reduced=True)
+        cfg = base.with_(rank=RankConfig(mode="adaptive", rank_grid=base.rank.rank_grid,
+                                         segment_len=8))
+        params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+        knobs = dict(n_slots=3, max_len=64, page_size=16, segment_len=8, max_new_cap=12,
+                     prefill_chunk=8)
+        outs = {}
+        for device, use_kernel in ((DEV, True), ("cpu", False)):
+            rng = np.random.default_rng(0)
+            eng = Engine(cfg, params, device=device,
+                         config=EngineConfig(use_kernel=use_kernel, **knobs))
+            hs = [eng.submit(rng.integers(0, 256, int(n)), SamplingParams(max_new=12),
+                             arrival=2 * i) for i, n in enumerate(rng.integers(8, 33, 6))]
+            eng.run()
+            outs[device] = ([h.result() for h in hs], eng.ranks_per_step())
+        for a, b in zip(outs[DEV][0], outs["cpu"][0]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(outs[DEV][1], outs["cpu"][1]):
+            np.testing.assert_array_equal(a, b)
+        log(f"  reduced {arch}, adaptive: 6 requests, GPU kernel tokens and ranks == CPU "
+            f"plain tokens and ranks ({len(outs[DEV][1])} steps)")
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    cfg = cfg.with_(rank=RankConfig(mode="adaptive", rank_grid=cfg.rank.rank_grid))
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1040),
+                           generator=torch.Generator().manual_seed(6))
+    res = {}
+    for device, p in ((DEV, params_to(params, DEV)), ("cpu", params)):
+        reset_launches()
+        lg, aux = forward_deepseek(cfg, p, tokens.to(device), rank_ctx0={"cfg": cfg.rank},
+                                   chunked=True)
+        res[device] = (lg.cpu(), aux["mtp_logits"].cpu(),
+                       lowrank_flash.LAUNCHES["lowrank_flash"])
+    (lg, mtp, n), (lg_c, mtp_c, n_c) = res[DEV], res["cpu"]
+    assert n == cfg.num_layers + 1 and n_c == 0, (n, n_c)
+    err = max((lg - lg_c).abs().max().item(), (mtp - mtp_c).abs().max().item())
+    assert err <= REDUCED_LOGIT_TOL, f"reduced DeepSeek-V3: card vs CPU logits differ by {err}"
+    log(f"  reduced deepseek-v3-671b, 2 x 1040 tokens, adaptive/masked: card ({n} "
+        f"lowrank_flash launches at r = 24) vs CPU plain, max|logits| and MTP diff "
+        f"{err:.3g} (tol {REDUCED_LOGIT_TOL:g})")
+
+
+def check_families(card_name) -> dict:
+    """Phase 20, the dense configs and the MoE family: 20a-g. Returns the
+    phase's numbers."""
+    t0 = time.perf_counter()
+    kern = check_family_kernels(card_name)
+    free_memory()
+    phase("  qwen2.5-14b served at full width and depth")
+    qwen_params, qwen = check_qwen_serving(card_name)
+    phase("  qwen2.5-14b forward_dense(chunked=True), 2 x 4096")
+    qwen_fwd = check_qwen_forward(qwen_params, card_name)
+    del qwen_params
+    free_memory()
+    phase("  granite-moe-3b-a800m served at full width and depth")
+    granite_params, granite = check_granite_serving(card_name)
+    del granite_params
+    free_memory()
+    phase("  internlm2-20b, phi3-medium-14b, deepseek-coder-33b cut in depth")
+    dense = check_dense_cut(card_name)
+    phase("  deepseek-v3-671b at full width: forward with MLA and MTP, decode")
+    deepseek = check_deepseek(card_name)
+    phase("  reduced qwen2.5-14b, granite and deepseek-v3, card vs CPU")
+    check_family_reference()
+    secs = time.perf_counter() - t0
+    nums = {"kernels": kern, "qwen_serving": qwen, "qwen_forward": qwen_fwd,
+            "granite": granite, "dense_cut": dense, "deepseek": deepseek,
+            "phase_s": secs, "card": card_name}
+    log("phase 20 numbers: " + json.dumps(nums))
+    return nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -3568,7 +4251,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/19] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/20] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -3577,10 +4260,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/19] flash_decode kernel vs its plain version on the card")
+    phase("[2/20] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/19] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/20] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -3597,26 +4280,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/19] full-width engine step: kernel vs plain attention")
+    phase("[4/20] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/19] times at the serving shapes")
+    phase("[5/20] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/19] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/20] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/19] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/20] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/19] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/20] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/19] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/20] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -3625,17 +4308,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/19] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/20] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/19] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/20] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/19] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/20] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/19] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/20] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -3646,7 +4329,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/19] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/20] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -3655,7 +4338,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/19] full-width speculative decoding and the prefix cache")
+    phase("[15/20] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -3667,7 +4350,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/19] the serving front end at full width: traces, the learned policy, "
+    phase("[16/20] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -3688,15 +4371,22 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
-    phase("[17/19] the LM training stack at full width")
+    phase("[17/20] the LM training stack at full width")
     lm = check_lm_training(paper, agent, card_name)
 
-    phase("[18/19] the paper's tables and figures")
+    phase("[18/20] the paper's tables and figures")
     tables = check_tables(paper, agent, card_name)
 
-    phase("[19/19] the invariant checker: the static pass, the runtime sanitizer at "
+    phase("[19/20] the invariant checker: the static pass, the runtime sanitizer at "
           "full width, its negative control, the serving run's sync sites")
     sanitizer_launches = check_invariants(cfg, params, card_name)
+
+    del params
+    free_memory()
+    phase("[20/20] the dense configs and the MoE family at full width: qwen2.5-14b and "
+          "granite served, internlm2, phi3, deepseek-coder cut in depth, DeepSeek-V3 "
+          "with MLA and MTP")
+    fam = check_families(card_name)
 
     phase("all phases passed")
     print(json.dumps({"kernels": [
@@ -3715,7 +4405,13 @@ def main() -> int:
          "train_lm_launches": {"train_step": lm["step_launches"]["flash_decode"],
                                "serve_trained": lm["serve_launches"]},
          "tables_launches": tables["flash_decode"],
-         "sanitizer_launches": sanitizer_launches},
+         "sanitizer_launches": sanitizer_launches,
+         "families_launches": {
+             "qwen2.5-14b": {m: fam["qwen_serving"][m]["launches"] for m in ("off", "adaptive")},
+             "granite": fam["granite"]["launches"],
+             "granite_guarded": fam["granite"]["sanitizer"]["launches"]},
+         "families": fam["kernels"]["times"]["flash_decode"],
+         "families_max_abs_err": fam["kernels"]["max_abs_err"]["flash_decode"]},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
@@ -3723,7 +4419,12 @@ def main() -> int:
          "train_launches": train_flash, "random_launches": comp["launches"],
          "train_lm_launches": {"train_step": lm["step_launches"]["lowrank_flash"]},
          "tables_launches": tables["lowrank_flash"],
-         "max_abs_err": flash_err, **t_flash, "r32": t_static}]}))
+         "families_launches": {"qwen2.5-14b": {k: v["launches"]
+                                               for k, v in fam["qwen_forward"].items()},
+                               "deepseek-v3": fam["deepseek"]["launches"]},
+         "max_abs_err": flash_err, **t_flash, "r32": t_static,
+         "families": fam["kernels"]["times"]["lowrank_flash"],
+         "families_max_abs_err": fam["kernels"]["max_abs_err"]["lowrank_flash"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

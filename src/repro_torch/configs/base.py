@@ -1,12 +1,35 @@
 """Config dataclasses of the port: its own copies of the fields of
-``repro.configs.base.ModelConfig`` / ``RankConfig`` that the serving path
-reads, and of the optimiser and schedule fields of ``TrainConfig``, with
-the same names and defaults."""
+``repro.configs.base.ModelConfig`` / ``RankConfig`` / ``MoEConfig`` /
+``MLAConfig`` that the port's model families read, and of
+``TrainConfig``, with the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+from repro_torch import not_ported
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                  # ffn hidden size per expert
+    num_shared_experts: int = 0
+    d_shared: int = 0              # ffn hidden of the shared expert(s)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001  # load-balancing loss coefficient
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -40,7 +63,7 @@ class RankConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # only 'dense' is ported
+    family: str                    # 'dense' or 'moe' (granite; DeepSeek-V3 with mla)
     num_layers: int
     d_model: int
     num_heads: int
@@ -53,7 +76,14 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     max_seq_len: int = 32768
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rank: RankConfig = field(default_factory=RankConfig)
+    # dense layers at the bottom of a MoE stack (deepseek-v3: 3)
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    # multi-token prediction depth (deepseek-v3 MTP)
+    mtp_depth: int = 0
     mrope: bool = False
     dtype: str = "float32"         # activation/compute dtype
     param_dtype: str = "float32"
@@ -64,6 +94,43 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula for the families the port runs."""
+        d, h = self.d_model, self.resolved_head_dim()
+        nq, nkv = self.num_heads, self.num_kv_heads
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "dense":
+            per_layer = d * h * (nq + 2 * nkv) + nq * h * d + 3 * d * self.d_ff + 2 * d
+        elif self.family == "moe":
+            if self.mla is not None:
+                m = self.mla
+                attn = (d * m.q_lora_rank
+                        + m.q_lora_rank * nq * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                        + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                        + m.kv_lora_rank * nq * (m.qk_nope_head_dim + m.v_head_dim)
+                        + nq * m.v_head_dim * d)
+            else:
+                attn = d * h * (nq + 2 * nkv) + nq * h * d
+            moe = self.moe
+            expert = 3 * d * moe.d_expert
+            shared = 3 * d * moe.d_shared * moe.num_shared_experts
+            router = d * moe.num_experts
+            per_layer = attn + moe.num_experts * expert + shared + router + 2 * d
+        else:
+            raise not_ported(f"family {self.family!r}", "item 18")
+        return emb + self.num_layers * per_layer
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.family != "moe" or self.moe is None:
+            return self.n_params()
+        moe = self.moe
+        expert = 3 * self.d_model * moe.d_expert
+        inactive = (moe.num_experts - moe.top_k) * expert * (
+            self.num_layers - self.first_dense_layers)
+        return self.n_params() - inactive
 
 
 @dataclass(frozen=True)

@@ -3,9 +3,16 @@
 The JAX tree (``repro.models.transformer.init_dense``) is a nested dict:
 ``embed`` (V, d), ``layers`` with every leaf stacked on a leading L axis
 (``attn/{wq,wk,wv,wo[,bq,bk,bv]}``, ``ffn/{w_gate,w_up,w_down}``,
-``ln1``, ``ln2``), ``ln_f`` and ``lm_head`` (d, V). The port keeps exactly
-this tree and JAX's (in, out) matrix layout (``x @ w``), so conversion is
-a leaf-wise copy: no transpose. The DR-RL agent's tree
+``ln1``, ``ln2``), ``ln_f`` and ``lm_head`` (d, V). The MoE family without
+MLA (granite) has ``layers/moe`` in place of ``ffn``: the f32 router (L,
+d, E), the experts ``w_gate``/``w_up`` (L, E, d, f) and ``w_down`` (L, E,
+f, d) and, with shared experts, ``shared/{w_gate,w_up,w_down}``.
+DeepSeek-V3 (``repro.models.deepseek_v3.init_deepseek``) has
+``dense_layers`` a list of unstacked blocks, ``moe_layers`` stacked on a
+leading axis (MLA ``attn/{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}``,
+``moe``) and ``mtp`` (``proj``, one MoE ``block``, ``ln_h``, ``ln_e``).
+The port keeps exactly these trees and JAX's (in, out) matrix layout
+(``x @ w``), so conversion is a leaf-wise copy: no transpose. The DR-RL agent's tree
 (``repro.core.drrl.init_agent``) converts the same way: its policy
 ``layers`` is a list, and its ``conv`` kernel keeps JAX's (k, d, f) layout.
 The Performer baseline's feature matrices convert the same way

@@ -6,7 +6,8 @@
 //
 //   q (b, hq, sq, r), k (b, hkv, skv, r), v (b, hkv, skv, dv) -> out
 //   (b, hq, sq, dv) in v's type. The score contraction runs over r, which may
-//   be a truncated rank (the DR-RL factors) or the full head dim. Query i sits
+//   be a truncated rank (the DR-RL factors) or the full head dim, up to 192
+//   (MLA's q.k: qk_nope 128 + qk_rope 64); dv is at most 128. Query i sits
 //   at position q_offset + i (q_offset >= 0) and sees key j iff j < skv and,
 //   when causal, j <= q_offset + i; so every query sees key 0 and no row is
 //   ever empty. GQA maps row bh = b * hq + h to kv row bh / (hq / hkv), so K
@@ -78,7 +79,8 @@ constexpr int kNT = kBK / 8;                 // mma columns of 8 keys per tile
 constexpr int kQRegSteps = 8;                // Q fragments stay in registers up to r = 64 ...
 constexpr int kQRegCols = 8;                 // ... when dv <= 64
 constexpr int kPVCols = 8;                   // mma columns per pass over V's fragments
-constexpr int kMaxDim = 128;                 // largest r and dv this kernel takes
+constexpr int kMaxRank = 192;                // largest r this kernel takes (MLA: 128 + 64)
+constexpr int kMaxDim = 128;                 // largest dv this kernel takes
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -448,7 +450,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   return cudaGetLastError();
 }
 
-// the kernel's padded widths: 16, 32, 64 or 128
+// the kernel's padded widths: r 16, 32, 64, 128 or 192; dv 16, 32, 64 or 128
 #define LF_ARGS q, k, v, out, b, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v, s
 
 template <typename T, int KR>
@@ -472,7 +474,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
   if (r <= 16) return by_dv<T, 2>(LF_ARGS);
   if (r <= 32) return by_dv<T, 4>(LF_ARGS);
   if (r <= 64) return by_dv<T, 8>(LF_ARGS);
-  return by_dv<T, 16>(LF_ARGS);
+  if (r <= 128) return by_dv<T, 16>(LF_ARGS);
+  // MLA's q.k (qk_nope 128 + qk_rope 64): f32 with dv = 128 takes 4 ((64 +
+  // 128) 200 + 2 x 64 x 128) = 219,136 bytes of shared memory, under the
+  // H100's 227 KB per block
+  return by_dv<T, 24>(LF_ARGS);
 }
 
 #undef LF_ARGS
@@ -486,7 +492,7 @@ extern "C" int lowrank_flash_launch(const void* q, const void* k, const void* v,
                                     int hq, int hkv, int sq, int skv, int r, int dv, int q_offset,
                                     int causal, float scale, int dtype, void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || r < 1 ||
-      r > kMaxDim || dv < 1 || dv > kMaxDim || q_offset < 0 || (long long)b * hq > 0x7fffffffLL ||
+      r > kMaxRank || dv < 1 || dv > kMaxDim || q_offset < 0 || (long long)b * hq > 0x7fffffffLL ||
       (sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -29,7 +29,8 @@ import torch
 # launches the kernel and nowhere else
 LAUNCHES: Dict[str, int] = {"lowrank_flash": 0}
 
-MAX_DIM = 128          # largest r and dv the CUDA kernel takes
+MAX_RANK = 192         # largest r the CUDA kernel takes (MLA: qk_nope 128 + qk_rope 64)
+MAX_DIM = 128          # largest dv the CUDA kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,9 +77,9 @@ def _check(q, k, v):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if hq % k.shape[1]:
         raise ValueError(f"hq={hq} is not a multiple of hkv={k.shape[1]}")
-    if r > MAX_DIM or v.shape[3] > MAX_DIM:
-        raise ValueError(f"the kernel takes r, dv <= {MAX_DIM}, got r={r}, "
-                         f"dv={v.shape[3]}")
+    if r > MAX_RANK or v.shape[3] > MAX_DIM:
+        raise ValueError(f"the kernel takes r <= {MAX_RANK} and dv <= {MAX_DIM}, "
+                         f"got r={r}, dv={v.shape[3]}")
     if min(q.shape[2], k.shape[2], r, v.shape[3]) < 1:
         raise ValueError("empty q, k or v")
     for name, t in (("q", q), ("k", k), ("v", v)):

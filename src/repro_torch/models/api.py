@@ -1,10 +1,12 @@
 """Model API of the port: family-dispatched init, loss, dense-cache decode
-and the paged decode step (the dense-family subset of
-``repro.models.api.get_model``)."""
+and the paged decode step (``repro.models.api.get_model`` for the families
+the port runs: dense, and the MoE family with dense attention (granite) or
+with MLA (DeepSeek-V3, which has no paged step, as in the reference))."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
+from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 
 
@@ -18,10 +20,15 @@ class ModelFns(NamedTuple):
 
 
 def get_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "item 18: remaining families)")
+    fam = cfg.family
+    if fam == "moe" and cfg.mla is not None:
+        return _deepseek_fns(cfg)
+    if fam in ("dense", "moe"):                  # granite: dense attn + moe ffn
+        return _dense_fns(cfg)
+    raise not_ported(f"family {fam!r}", "item 18")
+
+
+def _dense_fns(cfg: ModelConfig) -> ModelFns:
     from repro_torch.models import transformer as tr
 
     def loss(params, batch, **kw):
@@ -38,4 +45,17 @@ def get_model(cfg: ModelConfig) -> ModelFns:
         decode_step_paged=(None if cfg.mrope else
                            lambda params, *a, **kw:
                            tr.decode_step_paged(cfg, params, *a, **kw)),
+    )
+
+
+def _deepseek_fns(cfg: ModelConfig) -> ModelFns:
+    from repro_torch.models import deepseek_v3 as ds
+
+    return ModelFns(
+        init=lambda gen, device="cuda": ds.init_deepseek(cfg, gen, device=device),
+        loss=lambda params, batch, **kw: ds.loss_deepseek(cfg, params, batch, **kw),
+        init_cache=lambda b, m, device="cuda": ds.init_cache_deepseek(
+            cfg, b, m, device=device),
+        decode_step=lambda params, cache, tokens, **kw:
+            ds.decode_step_deepseek(cfg, params, cache, tokens, **kw),
     )

@@ -1,7 +1,8 @@
 """Dense decoder-only transformer of the port (``repro.models.
 transformer``): stacked-layer init, the cache-free forward and its loss,
 the dense-cache decode step, and the fused paged decode step of the
-continuous-batching engine."""
+continuous-batching engine. The MoE family without MLA (granite) runs here
+too, with ``models.moe.moe_ffn`` in place of the SwiGLU FFN."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -13,24 +14,17 @@ from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import baselines, drrl, prng
 from repro_torch.kernels.ops import decode_attention
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import attend, mhsa
 from repro_torch.models.common import apply_rope, kv_group_mean
 
 
-def init_dense(cfg: ModelConfig, gen: torch.Generator, *,
-               device="cuda") -> Dict[str, Any]:
-    """Seeded random parameters with the shapes and scales of the JAX
-    ``init_dense``: layers stacked on a leading L axis, matrices (in, out),
-    truncated-normal fan-in init with the ``wo``/``w_down`` depth scaling.
-    ``gen`` must live on ``device``."""
-    dtype = nn.dt(cfg.param_dtype)
-    d, dh, f = cfg.d_model, cfg.resolved_head_dim(), cfg.d_ff
+def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype, *, device,
+              batch=()) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_attn``'s shapes and scales, stacked on ``batch``."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim()
     hq, hkv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
-    kw = dict(device=device, dtype=dtype, batch=(L,))
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
-
+    kw = dict(device=device, dtype=dtype, batch=batch)
     attn = {
         "wq": nn.dense_init(gen, d, hq * dh, **kw),
         "wk": nn.dense_init(gen, d, hkv * dh, **kw),
@@ -40,18 +34,55 @@ def init_dense(cfg: ModelConfig, gen: torch.Generator, *,
     }
     if cfg.qkv_bias:
         for name, width in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
-            attn[name] = torch.zeros((L, width), dtype=dtype, device=device)
+            attn[name] = torch.zeros((*batch, width), dtype=dtype, device=device)
+    return attn
+
+
+def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype, *, device,
+             d_ff: Optional[int] = None, batch=()) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_ffn``'s shapes and scales, stacked on ``batch``."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    kw = dict(device=device, dtype=dtype, batch=batch)
+    return {
+        "w_gate": nn.dense_init(gen, d, f, **kw),
+        "w_up": nn.dense_init(gen, d, f, **kw),
+        "w_down": nn.dense_init(gen, f, d,
+                                scale=f ** -0.5 / (2 * cfg.num_layers) ** 0.5, **kw),
+    }
+
+
+def ffn(cfg: ModelConfig, lp, xin) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """A block's FFN on the normed input: ``models.moe.moe_ffn`` where the
+    layer's parameters hold ``moe`` (returning its aux), the SwiGLU FFN
+    else (no aux)."""
+    if "moe" in lp:
+        return moe_mod.moe_ffn(cfg, lp["moe"], xin)
+    return nn.swiglu(xin, lp["ffn"]["w_gate"], lp["ffn"]["w_up"],
+                     lp["ffn"]["w_down"]), {}
+
+
+def init_dense(cfg: ModelConfig, gen: torch.Generator, *,
+               device="cuda") -> Dict[str, Any]:
+    """Seeded random parameters with the shapes and scales of the JAX
+    ``init_dense``: layers stacked on a leading L axis, matrices (in, out),
+    truncated-normal fan-in init with the ``wo``/``w_down`` depth scaling;
+    the MoE family (granite) has ``moe`` (``models.moe.init_moe``) where
+    the dense family has ``ffn``. ``gen`` must live on ``device``."""
+    dtype = nn.dt(cfg.param_dtype)
+    L, d = cfg.num_layers, cfg.d_model
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
     layers = {
-        "attn": attn,
+        "attn": init_attn(cfg, gen, dtype, device=device, batch=(L,)),
         "ln1": ones(L, d),
         "ln2": ones(L, d),
-        "ffn": {
-            "w_gate": nn.dense_init(gen, d, f, **kw),
-            "w_up": nn.dense_init(gen, d, f, **kw),
-            "w_down": nn.dense_init(gen, f, d,
-                                    scale=f ** -0.5 / (2 * L) ** 0.5, **kw),
-        },
     }
+    if cfg.family == "moe" and cfg.moe is not None:
+        layers["moe"] = moe_mod.init_moe(cfg, gen, dtype, device=device, batch=(L,))
+    else:
+        layers["ffn"] = init_ffn(cfg, gen, dtype, device=device, batch=(L,))
     params = {
         "embed": nn.embed_init(gen, cfg.vocab_size, d, device=device,
                                dtype=dtype),
@@ -74,19 +105,18 @@ def _block(cfg: ModelConfig, lp, x, positions, rank_ctx, cache, chunked):
                              positions, rank_ctx=rank_ctx, cache=cache,
                              chunked=chunked)
     x = x + h
-    f = nn.swiglu(nn.rms_norm(x, lp["ln2"], cfg.rms_eps),
-                  lp["ffn"]["w_gate"], lp["ffn"]["w_up"], lp["ffn"]["w_down"])
-    return x + f, new_cache, aux
+    f, ffn_aux = ffn(cfg, lp, nn.rms_norm(x, lp["ln2"], cfg.rms_eps))
+    return x + f, new_cache, {**aux, **ffn_aux}
 
 
 def _aux_slim(aux: Dict[str, Any], collect: str) -> Dict[str, Any]:
     """Select which per-layer aux to keep.
     collect: 'none' | 'ranks' | 'rl' (also the agent's actions, logits,
     values, masks and features, the spectra, bounds and the serve prefill's
-    qkv and mass)."""
+    qkv and mass); both keep the MoE layers' 'aux_loss'."""
     if collect == "none":
         return {}
-    keep = {"rank", "delta_a_rel", "fidelity"}
+    keep = {"rank", "delta_a_rel", "fidelity", "aux_loss"}
     if collect == "rl":
         keep |= {"action_idx", "logp", "value", "action_mask", "features",
                  "logits", "delta_a_grid", "delta_a_norm", "k_s2", "qkv",
@@ -103,11 +133,15 @@ def _stack(per_layer: List[Dict[str, Any]]) -> Dict[str, Any]:
             for k, v in per_layer[0].items()}
 
 
+def _pick(tree, li: int):
+    """Entry ``li`` of every leaf of a stacked tree (views)."""
+    return ({k: _pick(v, li) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree[li])
+
+
 def _layer(params, li: int) -> Dict[str, Any]:
     """Layer ``li``'s parameters out of the stacked tree (views)."""
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[li]
-    return pick(params["layers"])
+    return _pick(params["layers"], li)
 
 
 def _logits(params, x):
@@ -241,12 +275,15 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
 
 def loss_dense(cfg: ModelConfig, params, batch, **kw):
     """Mean next-token cross-entropy of ``batch`` {'tokens', 'labels'[,
-    'mask']} over the last ``labels.shape[1]`` positions; returns
-    (loss, aux)."""
+    'mask']} over the last ``labels.shape[1]`` positions, plus the MoE
+    layers' mean auxiliary loss where ``collect_aux`` keeps it (as in the
+    reference); returns (loss, aux)."""
     logits, aux = forward_dense(cfg, params, batch["tokens"], **kw)
     n_txt = batch["labels"].shape[1]
     loss = nn.softmax_cross_entropy(logits[:, -n_txt:], batch["labels"],
                                     batch.get("mask"))
+    if "aux_loss" in aux["layers"]:
+        loss = loss + aux["layers"]["aux_loss"].mean()
     return loss, aux
 
 
@@ -493,9 +530,10 @@ def decode_step_paged(cfg: ModelConfig, params, pool_k, pool_v, page_table,
             wq = kv_group_mean(wq.transpose(1, 2), hkv)       # (ns, C, hkv, M)
             mass_q[li] = wq.transpose(2, 3)                   # (ns, C, M, hkv)
         x = x + o.reshape(ns, C, hq * dh) @ p["wo"].to(x.dtype)
-        f = nn.swiglu(nn.rms_norm(x, lay["ln2"][li], cfg.rms_eps),
-                      lay["ffn"]["w_gate"][li], lay["ffn"]["w_up"][li],
-                      lay["ffn"]["w_down"][li])
+        # an MoE FFN routes every row, idle slots and padding queries too:
+        # they take capacity exactly as in the reference's step
+        f, _ = ffn(cfg, {k: _pick(lay[k], li) for k in ("ffn", "moe") if k in lay},
+                   nn.rms_norm(x, lay["ln2"][li], cfg.rms_eps))
         x = x + f
     if C > 1 and not return_all_logits:
         # only each row's last valid query feeds the LM head

@@ -25,7 +25,8 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, device,
     w = torch.empty((*batch, in_dim, out_dim), dtype=torch.float32,
                     device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (w * std).to(dtype)
+    # in place: a full-width expert stack is 15 GB in f32
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, *, device,

@@ -9,18 +9,27 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro_torch.configs.base import MLAConfig as TMLAConfig
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.configs.base import RankConfig as TRankConfig
 from repro_torch.convert import agent_from_jax, params_from_jax
 
 
 def torch_config(cfg):
-    """The port's ModelConfig holding the same values as JAX ``cfg``."""
+    """The port's ModelConfig holding the same values as JAX ``cfg`` (its
+    MoE and MLA sub-configs too)."""
     rank = TRankConfig(**{f.name: getattr(cfg.rank, f.name)
                           for f in dataclasses.fields(TRankConfig)})
-    kw = {f.name: getattr(cfg, f.name)
-          for f in dataclasses.fields(TModelConfig) if f.name != "rank"}
-    return TModelConfig(rank=rank, **kw)
+    subs = {"moe": TMoEConfig, "mla": TMLAConfig}
+    kw = {}
+    for f in dataclasses.fields(TModelConfig):
+        v = getattr(cfg, f.name)
+        if f.name in subs and v is not None:
+            v = subs[f.name](**dataclasses.asdict(v))
+        kw[f.name] = v
+    kw["rank"] = rank
+    return TModelConfig(**kw)
 
 
 def jax_and_torch_params(cfg, seed: int = 0):
