@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, forward and training paths, the
-paper's tables and the invariant checker on one NVIDIA GPU and check them.
+paper's tables, the invariant checker and every model family on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -199,6 +200,33 @@ Phases (one line each, plus detail lines):
      in adaptive/masked (3 lowrank_flash launches at r = 192) against the
      plain path, then 16 decode_step_deepseek steps; (g) the reduced qwen,
      granite and DeepSeek-V3 on the card with the kernels against the CPU.
+ 21. the remaining families at full width, bf16, seeded weights drawn on
+     the card (``tools/recurrent_families_smoke.py`` runs it alone): (a)
+     lowrank_flash against its plain version, f32 and bf16, at zamba2's
+     shared attention (2 x 4096, 32 heads of 112: r = dv = 112),
+     seamless's decoder (2 x 2048, 16 of 64) and qwen2-vl's (2 x 4096,
+     28/4 of 128), timed in bf16 beside its bound and SDPA, with the ptxas
+     lines of those instantiations; (b) zamba2-7b at full depth (54 Mamba2
+     blocks + 27 shared-attention invocations): forward_zamba(chunked=True)
+     over 2 x 4096 in 'off' (27 lowrank_flash launches) and 'adaptive'/
+     masked with fidelity (54) against the plain path, then 4064 tokens
+     prefilled into init_cache_zamba and 32 single-token decode steps (27
+     launches each) against the 'off' forward's logits; (c) rwkv6-1.6b at
+     full depth: forward_rwkv over 1 x 4096 (no kernel), 4032 tokens as one
+     decode step and 64 single-token steps against it (tokens/s), and layer
+     0's wkv6_chunked against wkv6_naive in f32 on its own inputs; (d)
+     seamless-m4t-medium: encode over 2 x 1024 frames, forward_encdec(
+     chunked=True) over 2 x 2048 tokens (12 launches) against the plain
+     path, then prefill_cross, a 64-token prompt and 16 decode steps against
+     the forward; (e) qwen2-vl-7b at full depth: forward_dense(chunked=True)
+     on 2 x (256 patch embeddings + 3840 tokens) at a 16 x 16 patch grid's
+     M-RoPE positions (28 launches) against the plain path, then a 2048-token
+     prompt and 16 decode_step_dense steps against the teacher-forced
+     forward; wall and peak memory of each; (f) the four reduced models'
+     chunked forwards over 1040 positions, card against CPU. Logits within
+     two bf16 steps of the largest; a forward's greedy picks agree with the
+     plain path's at 0.97 of the positions, and a decode's picks differ only
+     at a top-two gap the logits bound allows.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -240,7 +268,7 @@ from repro_torch.data.synthetic import SyntheticClassification, SyntheticLM  # n
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.models import lowrank_cache  # noqa: E402
+from repro_torch.models import encdec, lowrank_cache, rwkv6, rwkv_lm, zamba2  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.deepseek_v3 import forward_deepseek  # noqa: E402
 from repro_torch.models.transformer import decode_step_paged, forward_dense  # noqa: E402
@@ -4011,15 +4039,18 @@ def check_dense_cut(card_name) -> dict:
 @contextlib.contextmanager
 def plain_flash_by_heads(group=16):
     """Route the model's flash branch through the kernel's plain version,
-    ``group`` query heads (and their kv heads) at a time: the same function,
-    head by head, within the card's memory at MLA's 128 heads x 4096^2."""
+    about ``group`` query heads (and their kv heads) at a time: the same
+    function, head by head, within the card's memory at MLA's 128 heads x
+    4096^2. A slice takes whole GQA groups (a multiple of hq / hkv heads),
+    so each of its q heads keeps its own kv head."""
     kernel = ops.flash_attention
 
     def plain(q, k, v, **kw):
         rep = q.shape[1] // k.shape[1]
+        g = rep * max(1, group // rep)
         outs = [lowrank_flash.lowrank_flash_plain(
-            q[:, h:h + group], k[:, h // rep:(h + group) // rep],
-            v[:, h // rep:(h + group) // rep], **kw) for h in range(0, q.shape[1], group)]
+            q[:, h:h + g], k[:, h // rep:(h + g) // rep],
+            v[:, h // rep:(h + g) // rep], **kw) for h in range(0, q.shape[1], g)]
         return torch.cat(outs, dim=1)
     ops.flash_attention = plain
     try:
@@ -4242,6 +4273,529 @@ def check_families(card_name) -> dict:
     return nums
 
 
+# -- phase 21 ----------------------------------------------------------------
+
+# 21a: lowrank_flash at the chunked forwards' shapes of this phase: zamba2's
+# shared attention (32 heads of 112: r = dv = 112, padded to the r <= 128,
+# dv <= 128 instantiation), seamless's decoder self-attention (16 of 64, its
+# 2 x 2048 target tokens) and qwen2-vl's (28/4 of 128, M-RoPE'd q and k):
+# b, hq, hkv, sq, skv, r, dv, causal, q_offset
+RECURRENT_FLASH = {
+    "zamba2-7b r=dv=112": (2, 32, 32, 4096, 4096, 112, 112, True, 0),
+    "seamless decoder r=dv=64": (2, 16, 16, 2048, 2048, 64, 64, True, 0),
+    "qwen2-vl-7b r=dv=128": (2, 28, 4, 4096, 4096, 128, 128, True, 0),
+}
+ZAMBA_DECODE_STEPS = 32
+RWKV_DECODE_STEPS = 64
+SEAMLESS_DECODE_STEPS = 16
+SEAMLESS_PROMPT = 64
+VLM_DECODE_STEPS = 16
+VLM_PROMPT = 2048
+VLM_GRID = 16              # 256 patches on a 16 x 16 grid
+# 21c: one full-width layer's wkv6_chunked against wkv6_naive in f32, both
+# on the card: max |difference| relative to max |naive|
+WKV_REL_TOL = 1e-4
+# 21f: the reduced models in f32, card against CPU (the CPU tests' logit
+# tolerance against JAX)
+REDUCED_FAMILY_TOL = 1e-4
+# 21b-e: a deep bf16 stack amplifies the one-ulp differences between the
+# kernel's and the plain path's attention outputs (zamba2-7b's 81 layers:
+# 0.23 at the logits, 3.7 bf16 steps, in PR 25's first run). So each
+# full-width model also runs in f32 on the same weights, where the kernel
+# run is held to the plain path within LOGIT_TOL; in bf16 each run's
+# distance to the f32 plain run is compared, the kernel's at most this
+# factor of the plain bf16 run's (or of two bf16 steps), and over a
+# forward's 8192 positions its greedy agreement with the f32 run at most
+# DRIFT_AGREE_SLACK below the plain's (six standard errors at the 0.89
+# agreement zamba2's bf16 runs read)
+BF16_DRIFT_RATIO = 2.0
+DRIFT_AGREE_SLACK = 0.02
+
+
+def recurrent_ptxas() -> None:
+    """The ptxas lines of the lowrank_flash instantiations phase 21 runs:
+    KR 16 / ND 16 (r = dv = 112 and 128) and KR 8 / ND 8 (r = dv = 64)."""
+    for line in ptxas_summary(build.build_log.get("lowrank_flash", (0, ""))[1]):
+        if "Li16ELi16>" in line or "Li8ELi8>" in line:
+            log("  ptxas: " + line)
+
+
+def check_recurrent_kernels(card_name) -> dict:
+    """21a: lowrank_flash against its plain version at this phase's shapes,
+    f32 and bf16, then timed in bf16 beside its bound and SDPA."""
+    recurrent_ptxas()
+    err, times = 0.0, {}
+    for i, (label, case) in enumerate(RECURRENT_FLASH.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = check_flash_case(case, dtype, seed=500 + i, label=f"{label}: ")
+            if dtype == torch.float32:
+                err = max(err, e)
+        free_memory()
+        times[label] = time_flash(case, label, card_name, torch.bfloat16, per_call=False)
+        free_memory()
+    return {"max_abs_err": err, "times": times}
+
+
+def timed(fn):
+    """(fn()'s result, its wall in s), synchronised on both sides, no grad."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def upcast(cfg, params):
+    """The f32 twin of a bf16 model: the same weights, exactly, in f32, and
+    the config computing in f32."""
+    return (cfg.with_(dtype="float32", param_dtype="float32"),
+            tu.tree_map(lambda t: t.float(), params))
+
+
+def _agree(a, b) -> float:
+    return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
+def _flip_gap(got, want) -> float:
+    """want's largest top-two gap where the greedy picks differ (0 if none)."""
+    flips = got.argmax(-1) != want.argmax(-1)
+    if not flips.any():
+        return 0.0
+    top2 = want.float().topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1])[flips].max().item()
+
+
+def compare_runs(label, k16, p16, k32, p32, card_name, floor=GREEDY_FLOOR) -> dict:
+    """A kernel run against its plain reference in bf16 (k16, p16) and f32
+    (k32, p32; the same weights upcast): f32 logits within LOGIT_TOL of the
+    largest and the greedy picks agreeing at ``floor`` of the positions (a
+    forward's 8192; a decode's few positions, ``floor=None``, are held by
+    the logits bound, a pick differing only at a top-two gap under twice
+    it). In bf16, where a deep stack amplifies one-ulp differences, the
+    kernel run may stray from the f32 plain run at most BF16_DRIFT_RATIO as
+    far as the plain bf16 run does (or two bf16 steps, if more) and, over a
+    forward's positions, agree with its picks at most DRIFT_AGREE_SLACK
+    less (a decode's 32-128 picks are too few to tell such a gap from
+    chance: reported); the two bf16 runs' distance against LOGIT_BF16_STEPS
+    bf16 steps is reported. Logged."""
+    top = p32.abs().max().item()
+    err32 = (k32 - p32).abs().max().item()
+    tol32 = LOGIT_TOL * max(1.0, top)
+    same32, gap32 = _agree(k32, p32), _flip_gap(k32, p32)
+    e_k = (k16.float() - p32).abs().max().item()
+    e_p = (p16.float() - p32).abs().max().item()
+    a_k, a_p = _agree(k16, p32), _agree(p16, p32)
+    err16, tol16, same16 = logits_err(k16, p16)
+    log(f"  {label}: f32 max|logits - ref| {err32:.4g} (tol {tol32:.4g}), greedy "
+        f"agreement {same32:.4f} ({'floor ' + str(floor) if floor else 'reported'}; largest "
+        f"ref top-two gap at a differing pick {gap32:.4g}); bf16 against the f32 ref: this "
+        f"run {e_k:.4g} / {a_k:.4f}, the bf16 ref {e_p:.4g} / {a_p:.4f} (max|diff| / greedy "
+        f"agreement); bf16 run vs bf16 ref {err16:.4g} ({LOGIT_BF16_STEPS} bf16 steps: "
+        f"{tol16:.4g}, {'within' if err16 <= tol16 else 'beyond'}), agreement {same16:.4f} "
+        f"[{card_name}]")
+    assert err32 <= tol32, f"{label}: f32 logits differ by {err32} (tol {tol32})"
+    assert floor is None or same32 >= floor, f"{label}: f32 greedy agreement {same32}"
+    assert gap32 <= 2 * tol32, f"{label}: an f32 pick differs at a top-two gap of {gap32}"
+    assert e_k <= BF16_DRIFT_RATIO * max(e_p, tol16), \
+        f"{label}: the bf16 kernel run strays {e_k} from f32, the plain run {e_p}"
+    assert floor is None or a_k >= a_p - DRIFT_AGREE_SLACK, \
+        f"{label}: bf16 agreement {a_k} against {a_p}"
+    return {"f32_max_logit_err": err32, "f32_tol": tol32, "f32_greedy_agreement": same32,
+            "bf16_kernel_vs_f32": e_k, "bf16_plain_vs_f32": e_p,
+            "bf16_kernel_agreement_f32": a_k, "bf16_plain_agreement_f32": a_p,
+            "bf16_kernel_vs_plain": err16, "bf16_two_steps": tol16,
+            "bf16_greedy_agreement": same16}
+
+
+def decode_run(step, cache, prompt, rest):
+    """The prompt in one decode step, then ``rest``'s tokens one at a time
+    (teacher-forced). Returns (the prompt's logits, the steps' logits, the
+    final cache, prefill s, decode s)."""
+    (lg_p, cache), pre_s = timed(lambda: step(cache, prompt))
+    outs = []
+
+    def steps():
+        c = cache
+        for i in range(rest.shape[1]):
+            lg, c = step(c, rest[:, i:i + 1])
+            outs.append(lg)
+        return c
+    cache, dec_s = timed(steps)
+    return lg_p, torch.cat(outs, dim=1), cache, pre_s, dec_s
+
+
+def kernel_and_plain(fwd, want_launches, label):
+    """``fwd()`` through the kernel (its lowrank_flash launches counted,
+    ``want_launches`` expected), then through its plain version, group by
+    group of heads (no launch). Returns (kernel out, plain out, kernel s,
+    plain s)."""
+    reset_launches()
+    out, wall = timed(fwd)
+    launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+    assert launches == want_launches, f"{label}: {launches} launches, expected " \
+                                      f"{want_launches}"
+    with plain_flash_by_heads():
+        out_p, wall_p = timed(fwd)
+    assert lowrank_flash.LAUNCHES["lowrank_flash"] == launches
+    return out, out_p, wall, wall_p
+
+
+def check_zamba(card_name) -> dict:
+    """21b: zamba2-7b at full width and depth (54 mamba blocks + 27 shared
+    attention invocations): forward_zamba(chunked=True) over 2 x 4096 in
+    'off' (27 lowrank_flash launches) and 'adaptive'/masked with fidelity
+    (54), each against the plain path, in bf16 and in f32; then the first
+    4096 - 32 tokens prefilled into init_cache_zamba and 32 single-token
+    decode steps (27 launches each), against the 'off' forward's logits."""
+    full = get_config("zamba2-7b")
+    n_mamba, n_inv = zamba2.n_blocks(full)
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(full)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, full.vocab_size, (2, 4096), generator=g, device=DEV)
+    P = 4096 - ZAMBA_DECODE_STEPS
+    modes = (("off", False), ("adaptive", True))
+
+    def forward(cfg, p, fid):
+        return lambda: zamba2.forward_zamba(cfg, p, tokens, chunked=True,
+                                            collect_aux="ranks", compute_fidelity=fid)
+
+    def decode(cfg, p):
+        fns = get_model(cfg)
+        reset_launches()
+        res = decode_run(lambda c, t: fns.decode_step(p, c, t, chunked=True),
+                         fns.init_cache(2, 4096, device=DEV), tokens[:, :P], tokens[:, P:])
+        launches = lowrank_flash.LAUNCHES["lowrank_flash"]
+        assert launches == n_inv * (1 + ZAMBA_DECODE_STEPS) and res[2]["len"] == 4096
+        return res, launches
+
+    runs16 = {}
+    for mode, fid in modes:
+        cfg = full if mode == "off" else forward_cfg(full, mode, "masked")
+        runs16[mode] = kernel_and_plain(forward(cfg, params, fid), n_inv * (2 if fid else 1),
+                                        f"zamba2 {mode}")
+    (pre16, dec16, cache, pre_s, dec_s), launches_d = decode(full, params)
+    del cache
+    peak16 = torch.cuda.max_memory_allocated() / 2**30
+    cfg32, params = upcast(full, params)
+    free_memory()
+    out = {"n_mamba": n_mamba, "n_inv": n_inv}
+    ref32 = None
+    for mode, fid in modes:
+        cfg = cfg32 if mode == "off" else forward_cfg(cfg32, mode, "masked")
+        (k16, a16), (p16, ap16), wall, wall_p = runs16.pop(mode)
+        (k32, a32), (p32, ap32), wall32, wall32_p = kernel_and_plain(
+            forward(cfg, params, fid), n_inv * (2 if fid else 1), f"zamba2 {mode} f32")
+        res = compare_runs(f"zamba2-7b {mode}{' + fidelity' if fid else ''}, "
+                           f"{n_inv * (2 if fid else 1)} lowrank_flash launches per forward",
+                           k16, p16, k32, p32, card_name)
+        res.update(launches=n_inv * (2 if fid else 1), wall_ms=1e3 * wall,
+                   plain_wall_ms=1e3 * wall_p, f32_wall_ms=1e3 * wall32,
+                   f32_plain_wall_ms=1e3 * wall32_p)
+        if mode != "off":
+            assert torch.equal(a32["ranks"], ap32["ranks"]), "zamba2 f32: ranks differ"
+            res.update(bf16_ranks_equal=torch.equal(a16["ranks"], ap16["ranks"]),
+                       ranks=sorted(set(a32["ranks"].flatten().tolist())),
+                       fidelity=a16["fidelity"].float().mean().item())
+            log(f"  ranks: f32 identical {res['ranks']}, bf16 "
+                f"{'identical' if res['bf16_ranks_equal'] else 'differ'}; fidelity mean "
+                f"{res['fidelity']:.4f}")
+        log(f"  walls: bf16 {1e3 * wall:.1f} ms kernel, {1e3 * wall_p:.1f} ms plain; f32 "
+            f"{1e3 * wall32:.1f} / {1e3 * wall32_p:.1f} ms [{card_name}]")
+        out[mode] = res
+        if mode == "off":
+            ref16, ref32 = k16, k32
+        del k16, p16, k32, p32, a16, ap16, a32, ap32
+        free_memory()
+    (pre32, dec32, cache, _, dec32_s), _ = decode(cfg32, params)
+    del cache, params
+    ms = 1e3 * dec_s / ZAMBA_DECODE_STEPS
+    pre = compare_runs(f"zamba2-7b prefill of {P} tokens into init_cache_zamba "
+                       f"({pre_s:.2f} s) vs the forward", pre16, ref16[:, :P], pre32,
+                       ref32[:, :P], card_name)
+    dec = compare_runs(f"zamba2-7b {ZAMBA_DECODE_STEPS} single-token decode steps "
+                       f"({ms:.1f} ms/step bf16, {1e3 * dec32_s / ZAMBA_DECODE_STEPS:.1f} "
+                       f"f32; {launches_d} lowrank_flash launches in prefill and decode) vs "
+                       f"the teacher-forced forward", dec16, ref16[:, P:], dec32,
+                       ref32[:, P:], card_name, floor=None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  zamba2-7b peak {peak16:.1f} GiB in bf16, {peak:.1f} GiB with the f32 twin "
+        f"[{card_name}]")
+    out.update(prefill=dict(pre, s=pre_s), decode=dict(dec, ms_step=ms),
+               decode_launches=launches_d, peak_gib=peak16, peak_with_f32_gib=peak)
+    del ref16, ref32, pre16, dec16, pre32, dec32
+    free_memory()
+    return out
+
+
+def check_rwkv(card_name) -> dict:
+    """21c: rwkv6-1.6b at full width and depth: forward_rwkv over 1 x 4096
+    (no kernel launched), the first 4096 - 64 tokens as one decode step from
+    the zero state and 64 single-token steps against the forward's logits
+    (bf16, and f32 on the same weights), and layer 0's wkv6_chunked against
+    wkv6_naive in f32 on its own inputs."""
+    full = get_config("rwkv6-1.6b")
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(full)
+    g = torch.Generator(device=DEV).manual_seed(6)
+    tokens = torch.randint(0, full.vocab_size, (1, 4096), generator=g, device=DEV)
+    P = 4096 - RWKV_DECODE_STEPS
+    captured = []
+    chunked = rwkv6.wkv6_chunked
+
+    def capture(*a, **kw):
+        if not captured:
+            captured.append(a)
+        return chunked(*a, **kw)
+
+    def run(cfg, p):
+        fns = get_model(cfg)
+        (lg, _), wall = timed(lambda: rwkv_lm.forward_rwkv(cfg, p, tokens))
+        assert lg.shape == (1, 4096, cfg.vocab_size) and torch.isfinite(lg).all()
+        pre, dec, _, pre_s, dec_s = decode_run(
+            lambda c, t: fns.decode_step(p, c, t), fns.init_cache(1, 0, device=DEV),
+            tokens[:, :P], tokens[:, P:])
+        return lg, pre, dec, wall, pre_s, dec_s
+    reset_launches()
+    rwkv6.wkv6_chunked = capture
+    try:
+        lg16, pre16, dec16, wall, pre_s, dec_s = run(full, params)
+    finally:
+        rwkv6.wkv6_chunked = chunked
+    launches = sum(lowrank_flash.LAUNCHES.values()) + sum(decode_attn.LAUNCHES.values())
+    assert launches == 0, f"rwkv6 launched {launches} attention kernels"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg32, params = upcast(full, params)
+    lg32, pre32, dec32, wall32, _, dec32_s = run(cfg32, params)
+    del params
+    tps = RWKV_DECODE_STEPS / dec_s
+    log(f"  rwkv6-1.6b forward_rwkv, 1 x 4096: wall {1e3 * wall:.1f} ms bf16, "
+        f"{1e3 * wall32:.1f} ms f32; peak {peak:.1f} GiB (bf16); 0 kernel launches (no "
+        f"attention) [{card_name}]")
+    pre = compare_runs(f"rwkv6-1.6b {P} tokens in one decode step ({pre_s:.2f} s) vs the "
+                       f"forward", pre16, lg16[:, :P], pre32, lg32[:, :P], card_name)
+    dec = compare_runs(f"rwkv6-1.6b {RWKV_DECODE_STEPS} single-token steps "
+                       f"({1e3 * dec_s / RWKV_DECODE_STEPS:.1f} ms/step, {tps:.1f} tokens/s "
+                       f"at batch 1, bf16) vs the forward", dec16, lg16[:, P:], dec32,
+                       lg32[:, P:], card_name, floor=None)
+    a = captured[0]
+    f32 = [t.float() if torch.is_tensor(t) else t for t in a]
+    (y_c, s_c), wkv_ms = timed(lambda: rwkv6.wkv6_chunked(*f32))
+    (y_n, s_n), naive_ms = timed(lambda: rwkv6.wkv6_naive(*f32[:6], state0=f32[7]))
+    rel = max(((y_c - y_n).abs().max() / y_n.abs().max()).item(),
+              ((s_c - s_n).abs().max() / s_n.abs().max()).item())
+    log(f"  layer 0's wkv6_chunked vs wkv6_naive, f32, 1 x 4096 x 32 heads of 64: max "
+        f"|chunked - naive| / max |naive| {rel:.3g} (tol {WKV_REL_TOL:g}); chunked "
+        f"{1e3 * wkv_ms:.1f} ms, naive {1e3 * naive_ms:.1f} ms [{card_name}]")
+    assert rel <= WKV_REL_TOL, f"wkv6 chunked vs naive: {rel}"
+    out = dict(wall_ms=1e3 * wall, f32_wall_ms=1e3 * wall32, peak_gib=peak,
+               prefill=dict(pre, s=pre_s),
+               decode=dict(dec, ms_step=1e3 * dec_s / RWKV_DECODE_STEPS, tokens_s=tps,
+                           f32_ms_step=1e3 * dec32_s / RWKV_DECODE_STEPS),
+               wkv_rel_err=rel, wkv_chunked_ms=1e3 * wkv_ms, wkv_naive_ms=1e3 * naive_ms,
+               launches=launches)
+    del lg16, lg32, pre16, dec16, pre32, dec32, captured
+    free_memory()
+    return out
+
+
+def check_seamless(card_name) -> dict:
+    """21d: seamless-m4t-medium at full width: encode over 2 x 1024 frames,
+    forward_encdec(chunked=True) over 2 x 2048 target tokens (12
+    lowrank_flash launches, the decoder's self-attention) against the plain
+    path, then prefill_cross, a 64-token prompt and 16 single-token decode
+    steps against the forward's logits; bf16, and f32 on the same
+    weights."""
+    full = get_config("seamless-m4t-medium")
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(full)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    frames = torch.randn((2, full.frontend_positions, full.d_model), generator=g,
+                         device=DEV).to(torch.bfloat16)
+    tokens = torch.randint(0, full.vocab_size, (2, 2048), generator=g, device=DEV)
+    n = SEAMLESS_PROMPT + SEAMLESS_DECODE_STEPS
+
+    def run(cfg, p):
+        fr = frames.to(nn.dt(cfg.dtype))
+        memory, enc_s = timed(lambda: encdec.encode(cfg, p, fr))
+        assert memory.shape == fr.shape and torch.isfinite(memory).all()
+        lg, lg_p, wall, wall_p = kernel_and_plain(
+            lambda: encdec.forward_encdec(cfg, p, fr, tokens, chunked=True)[0],
+            cfg.num_layers, "seamless")
+        fns = get_model(cfg)
+        cache = encdec.prefill_cross(cfg, p, memory, fns.init_cache(2, n, device=DEV))
+        pre, dec, _, pre_s, dec_s = decode_run(
+            lambda c, t: fns.decode_step(p, c, t), cache, tokens[:, :SEAMLESS_PROMPT],
+            tokens[:, SEAMLESS_PROMPT:n])
+        return dict(lg=lg, lg_p=lg_p, pre=pre, dec=dec, enc_s=enc_s, wall=wall,
+                    wall_p=wall_p, dec_s=dec_s)
+    r16 = run(full, params)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg32, params = upcast(full, params)
+    free_memory()
+    r32 = run(cfg32, params)
+    del params
+    fwd = compare_runs(f"seamless forward_encdec, 2 x 2048 tokens over 2 x 1024 frames, "
+                       f"{full.num_layers} lowrank_flash launches, vs the plain path",
+                       r16["lg"], r16["lg_p"], r32["lg"], r32["lg_p"], card_name)
+    log(f"  seamless walls: encode {1e3 * r16['enc_s']:.1f} ms, forward "
+        f"{1e3 * r16['wall']:.1f} ms kernel, {1e3 * r16['wall_p']:.1f} ms plain (bf16; f32 "
+        f"{1e3 * r32['wall']:.1f} / {1e3 * r32['wall_p']:.1f} ms); peak {peak:.1f} GiB "
+        f"(bf16) [{card_name}]")
+    ms = 1e3 * r16["dec_s"] / SEAMLESS_DECODE_STEPS
+    pre = compare_runs(f"seamless {SEAMLESS_PROMPT}-token prompt after prefill_cross vs the "
+                       f"forward", r16["pre"], r16["lg"][:, :SEAMLESS_PROMPT], r32["pre"],
+                       r32["lg"][:, :SEAMLESS_PROMPT], card_name, floor=None)
+    dec = compare_runs(f"seamless {SEAMLESS_DECODE_STEPS} decode steps ({ms:.1f} ms/step "
+                       f"bf16) vs the forward", r16["dec"],
+                       r16["lg"][:, SEAMLESS_PROMPT:n], r32["dec"],
+                       r32["lg"][:, SEAMLESS_PROMPT:n], card_name, floor=None)
+    out = dict(fwd, launches=full.num_layers, encode_ms=1e3 * r16["enc_s"],
+               wall_ms=1e3 * r16["wall"], plain_wall_ms=1e3 * r16["wall_p"],
+               f32_wall_ms=1e3 * r32["wall"], peak_gib=peak, prompt=pre,
+               decode=dict(dec, ms_step=ms))
+    del r16, r32
+    free_memory()
+    return out
+
+
+def vlm_positions(b, n_patch, s_txt, grid_w, device):
+    """Qwen2-VL's (t, h, w) ids: one image's patches on a grid of ``grid_w``
+    columns, then text whose three streams continue together."""
+    i = torch.arange(n_patch, device=device)
+    img = torch.stack([torch.zeros_like(i), i // grid_w, i % grid_w])
+    txt = (img.max() + 1 + torch.arange(s_txt, device=device)).expand(3, s_txt)
+    return torch.cat([img, txt], dim=1)[None].expand(b, 3, n_patch + s_txt)
+
+
+def check_qwen_vl(card_name) -> dict:
+    """21e: qwen2-vl-7b at full width and depth: forward_dense(chunked=True)
+    on 2 x (256 patch embeddings + 3840 tokens) at patch-grid M-RoPE
+    positions (28 lowrank_flash launches) against the plain path; then a
+    2048-token text prompt and 16 single-token decode_step_dense steps (the
+    default 3-stream positions; 28 launches each, over more than 1024 keys)
+    against the teacher-forced forward over the same 2064 tokens; bf16, and
+    f32 on the same weights."""
+    full = get_config("qwen2-vl-7b")
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(full)
+    g = torch.Generator(device=DEV).manual_seed(8)
+    n_patch = full.frontend_positions
+    patches = torch.randn((2, n_patch, full.d_model), generator=g,
+                          device=DEV).to(torch.bfloat16)
+    text = torch.randint(0, full.vocab_size, (2, 4096 - n_patch), generator=g, device=DEV)
+    pos = vlm_positions(2, n_patch, text.shape[1], VLM_GRID, DEV)
+    n = VLM_PROMPT + VLM_DECODE_STEPS
+
+    def run(cfg, p):
+        pe = patches.to(nn.dt(cfg.dtype))
+        lg, lg_p, wall, wall_p = kernel_and_plain(
+            lambda: forward_dense(cfg, p, text, positions=pos, extra_embeddings=pe,
+                                  chunked=True)[0], cfg.num_layers, "qwen2-vl")
+        assert lg.shape == (2, 4096, cfg.vocab_size) and torch.isfinite(lg).all()
+        fns = get_model(cfg)
+        reset_launches()
+        _, dec, _, pre_s, dec_s = decode_run(
+            lambda c, t: fns.decode_step(p, c, t, chunked=True),
+            fns.init_cache(2, n, device=DEV), text[:, :VLM_PROMPT], text[:, VLM_PROMPT:n])
+        launches_d = lowrank_flash.LAUNCHES["lowrank_flash"]
+        assert launches_d == cfg.num_layers * (1 + VLM_DECODE_STEPS), launches_d
+        ref, _ = timed(lambda: forward_dense(cfg, p, text[:, :n], chunked=True)[0])
+        return dict(lg=lg, lg_p=lg_p, dec=dec, ref=ref[:, VLM_PROMPT:].clone(), wall=wall,
+                    wall_p=wall_p, pre_s=pre_s, dec_s=dec_s, launches_d=launches_d)
+    r16 = run(full, params)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg32, params = upcast(full, params)
+    free_memory()
+    r32 = run(cfg32, params)
+    del params
+    fwd = compare_runs(f"qwen2-vl-7b forward_dense, 2 x ({n_patch} patches + "
+                       f"{text.shape[1]} tokens), M-RoPE on a {VLM_GRID} x {VLM_GRID} grid, "
+                       f"{full.num_layers} lowrank_flash launches, vs the plain path",
+                       r16["lg"], r16["lg_p"], r32["lg"], r32["lg_p"], card_name)
+    log(f"  qwen2-vl-7b walls: forward {1e3 * r16['wall']:.1f} ms kernel, "
+        f"{1e3 * r16['wall_p']:.1f} ms plain (bf16; f32 {1e3 * r32['wall']:.1f} / "
+        f"{1e3 * r32['wall_p']:.1f} ms); peak {peak:.1f} GiB (bf16) [{card_name}]")
+    ms = 1e3 * r16["dec_s"] / VLM_DECODE_STEPS
+    dec = compare_runs(f"qwen2-vl-7b {VLM_DECODE_STEPS} decode_step_dense steps after a "
+                       f"{VLM_PROMPT}-token prompt ({r16['pre_s']:.2f} s; {ms:.1f} ms/step "
+                       f"bf16, {r16['launches_d']} lowrank_flash launches) vs the "
+                       f"teacher-forced forward", r16["dec"], r16["ref"], r32["dec"],
+                       r32["ref"], card_name, floor=None)
+    out = dict(fwd, launches=full.num_layers, wall_ms=1e3 * r16["wall"],
+               plain_wall_ms=1e3 * r16["wall_p"], f32_wall_ms=1e3 * r32["wall"],
+               peak_gib=peak, decode=dict(dec, ms_step=ms, launches=r16["launches_d"]))
+    del r16, r32
+    free_memory()
+    return out
+
+
+def reduced_family_forward(arch, cfg, params, device):
+    """The reduced model's chunked forward over 1040 positions on
+    ``device`` (logits on the CPU, lowrank_flash launches)."""
+    g = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1040), generator=g).to(device)
+    reset_launches()
+    if arch == "zamba2-7b":
+        lg, _ = zamba2.forward_zamba(cfg, params, tokens, chunked=True)
+    elif arch == "rwkv6-1.6b":
+        lg, _ = rwkv_lm.forward_rwkv(cfg, params, tokens)
+    elif arch == "seamless-m4t-medium":
+        frames = torch.randn((2, cfg.frontend_positions, cfg.d_model), generator=g)
+        lg, _ = encdec.forward_encdec(cfg, params, frames.to(device), tokens, chunked=True)
+    else:
+        patches = torch.randn((2, cfg.frontend_positions, cfg.d_model), generator=g)
+        pos = vlm_positions(2, cfg.frontend_positions, 1040 - cfg.frontend_positions, 4,
+                            "cpu")
+        lg, _ = forward_dense(cfg, params, tokens[:, cfg.frontend_positions:],
+                              positions=pos.to(device), extra_embeddings=patches.to(device),
+                              chunked=True)
+    return lg.cpu(), lowrank_flash.LAUNCHES["lowrank_flash"]
+
+
+def check_recurrent_reference() -> None:
+    """21f: the four reduced models (f32, 'adaptive' where attention has a
+    rank), their chunked forwards over 1040 positions on the card with the
+    kernel against the CPU without it."""
+    for arch in ("zamba2-7b", "rwkv6-1.6b", "seamless-m4t-medium", "qwen2-vl-7b"):
+        base = get_config(arch, reduced=True)
+        cfg = base.with_(rank=RankConfig(mode="off" if arch == "rwkv6-1.6b" else "adaptive",
+                                         rank_grid=base.rank.rank_grid))
+        params = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+        lg, n = reduced_family_forward(arch, cfg, params_to(params, DEV), DEV)
+        lg_c, n_c = reduced_family_forward(arch, cfg, params, "cpu")
+        want = {"zamba2-7b": zamba2.n_blocks(cfg)[1], "rwkv6-1.6b": 0}.get(arch,
+                                                                          cfg.num_layers)
+        assert n == want and n_c == 0, (arch, n, n_c)
+        err = (lg - lg_c).abs().max().item()
+        log(f"  reduced {arch}, 2 x 1040, {cfg.rank.mode}: card ({n} lowrank_flash "
+            f"launches) vs CPU plain, max|logits diff| {err:.3g} (tol "
+            f"{REDUCED_FAMILY_TOL:g})")
+        assert err <= REDUCED_FAMILY_TOL, f"reduced {arch}: card vs CPU logits differ by {err}"
+
+
+def check_recurrent_families(card_name) -> dict:
+    """Phase 21, the remaining model families: 21a-f. Returns the phase's
+    numbers."""
+    t0 = time.perf_counter()
+    kern = check_recurrent_kernels(card_name)
+    phase("  zamba2-7b at full width and depth")
+    zamba = check_zamba(card_name)
+    phase("  rwkv6-1.6b at full width and depth")
+    rwkv = check_rwkv(card_name)
+    phase("  seamless-m4t-medium at full width")
+    seamless = check_seamless(card_name)
+    phase("  qwen2-vl-7b at full width and depth")
+    qwen_vl = check_qwen_vl(card_name)
+    phase("  the reduced zamba2, rwkv6, seamless and qwen2-vl, card vs CPU")
+    check_recurrent_reference()
+    secs = time.perf_counter() - t0
+    nums = {"kernels": kern, "zamba2": zamba, "rwkv6": rwkv, "seamless": seamless,
+            "qwen2_vl": qwen_vl, "phase_s": secs, "card": card_name}
+    log("phase 21 numbers: " + json.dumps(nums))
+    return nums
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -4251,7 +4805,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/20] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/21] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -4260,10 +4814,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/20] flash_decode kernel vs its plain version on the card")
+    phase("[2/21] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/20] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/21] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -4280,26 +4834,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/20] full-width engine step: kernel vs plain attention")
+    phase("[4/21] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/20] times at the serving shapes")
+    phase("[5/21] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/20] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/21] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/20] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/21] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/20] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/21] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/20] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/21] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -4308,17 +4862,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/20] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/21] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/20] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/21] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/20] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/21] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/20] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/21] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -4329,7 +4883,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/20] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/21] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -4338,7 +4892,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/20] full-width speculative decoding and the prefix cache")
+    phase("[15/21] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -4350,7 +4904,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/20] the serving front end at full width: traces, the learned policy, "
+    phase("[16/21] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -4371,22 +4925,26 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
-    phase("[17/20] the LM training stack at full width")
+    phase("[17/21] the LM training stack at full width")
     lm = check_lm_training(paper, agent, card_name)
 
-    phase("[18/20] the paper's tables and figures")
+    phase("[18/21] the paper's tables and figures")
     tables = check_tables(paper, agent, card_name)
 
-    phase("[19/20] the invariant checker: the static pass, the runtime sanitizer at "
+    phase("[19/21] the invariant checker: the static pass, the runtime sanitizer at "
           "full width, its negative control, the serving run's sync sites")
     sanitizer_launches = check_invariants(cfg, params, card_name)
 
     del params
     free_memory()
-    phase("[20/20] the dense configs and the MoE family at full width: qwen2.5-14b and "
+    phase("[20/21] the dense configs and the MoE family at full width: qwen2.5-14b and "
           "granite served, internlm2, phi3, deepseek-coder cut in depth, DeepSeek-V3 "
           "with MLA and MTP")
     fam = check_families(card_name)
+
+    phase("[21/21] the remaining families at full width: zamba2-7b (Mamba2 and the shared "
+          "attention), rwkv6-1.6b, seamless-m4t-medium, qwen2-vl-7b (M-RoPE)")
+    rec = check_recurrent_families(card_name)
 
     phase("all phases passed")
     print(json.dumps({"kernels": [
@@ -4422,9 +4980,19 @@ def main() -> int:
          "families_launches": {"qwen2.5-14b": {k: v["launches"]
                                                for k, v in fam["qwen_forward"].items()},
                                "deepseek-v3": fam["deepseek"]["launches"]},
+         "recurrent_families_launches": {
+             "zamba2-7b": {"off": rec["zamba2"]["off"]["launches"],
+                           "adaptive_fidelity": rec["zamba2"]["adaptive"]["launches"],
+                           "prefill_and_decode": rec["zamba2"]["decode_launches"]},
+             "rwkv6-1.6b": rec["rwkv6"]["launches"],
+             "seamless-m4t-medium": rec["seamless"]["launches"],
+             "qwen2-vl-7b": {"forward": rec["qwen2_vl"]["launches"],
+                             "prefill_and_decode": rec["qwen2_vl"]["decode"]["launches"]}},
          "max_abs_err": flash_err, **t_flash, "r32": t_static,
          "families": fam["kernels"]["times"]["lowrank_flash"],
-         "families_max_abs_err": fam["kernels"]["max_abs_err"]["lowrank_flash"]}]}))
+         "families_max_abs_err": fam["kernels"]["max_abs_err"]["lowrank_flash"],
+         "recurrent_families": rec["kernels"]["times"],
+         "recurrent_families_max_abs_err": rec["kernels"]["max_abs_err"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

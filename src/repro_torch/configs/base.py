@@ -1,14 +1,12 @@
 """Config dataclasses of the port: its own copies of the fields of
 ``repro.configs.base.ModelConfig`` / ``RankConfig`` / ``MoEConfig`` /
-``MLAConfig`` that the port's model families read, and of
-``TrainConfig``, with the same names and defaults."""
+``MLAConfig`` / ``SSMConfig`` / ``RWKVConfig`` that the port's model
+families read, and of ``TrainConfig``, with the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
-
-from repro_torch import not_ported
 
 
 @dataclass(frozen=True)
@@ -30,6 +28,25 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) dims."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 128
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64           # rank of the data-dependent decay LoRA
+    token_shift: bool = True
+    chunk_size: int = 128
 
 
 @dataclass(frozen=True)
@@ -63,7 +80,7 @@ class RankConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # 'dense' or 'moe' (granite; DeepSeek-V3 with mla)
+    family: str                    # dense | moe | rwkv | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -78,13 +95,22 @@ class ModelConfig:
     max_seq_len: int = 32768
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     rank: RankConfig = field(default_factory=RankConfig)
+    # encoder-decoder
+    num_encoder_layers: int = 0
+    # hybrid (zamba2): how many ssm blocks between shared-attention calls
+    hybrid_period: int = 2
     # dense layers at the bottom of a MoE stack (deepseek-v3: 3)
     first_dense_layers: int = 0
     dense_d_ff: int = 0
     # multi-token prediction depth (deepseek-v3 MTP)
     mtp_depth: int = 0
-    mrope: bool = False
+    # vlm / audio frontend stub: number of modality-embedding positions
+    frontend_positions: int = 0
+    mrope: bool = False            # qwen2-vl M-RoPE (3 position streams)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     dtype: str = "float32"         # activation/compute dtype
     param_dtype: str = "float32"
     softmax_dtype: str = "float32"
@@ -96,14 +122,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def n_params(self) -> int:
-        """Analytic parameter count (embedding + blocks + head), the
-        reference's formula for the families the port runs."""
+        """Analytic parameter count (embedding + blocks + head): the
+        reference's formula, its crude splits included (the rwkv count is
+        the 'rwkv6-ish' time-mix + channel-mix estimate; the hybrid count
+        has the ssm blocks and one shared attention block, no LoRA)."""
         d, h = self.d_model, self.resolved_head_dim()
         nq, nkv = self.num_heads, self.num_kv_heads
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        if self.family == "dense":
+        per_layer = 0
+        if self.family in ("dense", "vlm", "hybrid", "encdec"):
             per_layer = d * h * (nq + 2 * nkv) + nq * h * d + 3 * d * self.d_ff + 2 * d
-        elif self.family == "moe":
+        if self.family == "moe":
             if self.mla is not None:
                 m = self.mla
                 attn = (d * m.q_lora_rank
@@ -118,9 +147,17 @@ class ModelConfig:
             shared = 3 * d * moe.d_shared * moe.num_shared_experts
             router = d * moe.num_experts
             per_layer = attn + moe.num_experts * expert + shared + router + 2 * d
-        else:
-            raise not_ported(f"family {self.family!r}", "item 18")
-        return emb + self.num_layers * per_layer
+        if self.family in ("ssm", "rwkv"):
+            per_layer = 5 * d * d + 2 * d * self.d_ff + self.d_ff * d + 2 * d
+        total = emb + self.num_layers * per_layer
+        if self.family == "hybrid":
+            d_in = self.ssm.expand * d
+            ssm_layer = (2 * d * d_in + d_in * d
+                         + 2 * self.ssm.n_groups * self.ssm.d_state * d)
+            n_ssm = self.num_layers - self.num_layers // (self.hybrid_period + 1)
+            shared = d * h * (nq + 2 * nkv) + nq * h * d + 3 * d * self.d_ff
+            total = emb + n_ssm * ssm_layer + shared
+        return total
 
     def n_active_params(self) -> int:
         """Active params per token (MoE: only routed top-k + shared)."""

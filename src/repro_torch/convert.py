@@ -11,6 +11,12 @@ DeepSeek-V3 (``repro.models.deepseek_v3.init_deepseek``) has
 ``dense_layers`` a list of unstacked blocks, ``moe_layers`` stacked on a
 leading axis (MLA ``attn/{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}``,
 ``moe``) and ``mtp`` (``proj``, one MoE ``block``, ``ln_h``, ``ln_e``).
+Zamba2 (``init_zamba``) has ``mamba`` (every block leaf stacked on
+n_mamba), ``shared`` (one ``attn``, ``ffn``, ``ln1``, ``ln2``) and
+``lora/{a,b}`` stacked on the invocations; RWKV6 ``layers`` stacked on
+L; the encoder-decoder ``enc`` and ``dec`` (with ``xattn``, ``ln_x``)
+stacked, and ``ln_enc``. Each leaf keeps its dtype: ``A_log``,
+``dt_bias``, ``D``, ``w0`` and ``u`` stay f32 under bf16 params.
 The port keeps exactly these trees and JAX's (in, out) matrix layout
 (``x @ w``), so conversion is a leaf-wise copy: no transpose. The DR-RL agent's tree
 (``repro.core.drrl.init_agent``) converts the same way: its policy

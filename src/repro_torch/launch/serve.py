@@ -9,9 +9,9 @@ Serves ``--batch`` random prompts of ``--prompt-len`` tokens, greedy, for
 per-slot ranks and each request's TTFT. As in the reference, ``--reduced``
 is always on (a store_true flag whose default is True), so the CLI serves
 the reduced config. ``--arch`` takes every id of the config registry:
-DeepSeek-V3 has no paged step, so the engine refuses it, as the
-reference's does, and the ids whose family is not ported yet raise
-``not_ported``. Every fused step runs ``flash_decode`` (the CUDA kernel on
+DeepSeek-V3, Zamba2, RWKV6, the encoder-decoder and Qwen2-VL (M-RoPE)
+have no paged step, so the engine refuses them, as the reference's does.
+Every fused step runs ``flash_decode`` (the CUDA kernel on
 the card, its plain version on the CPU).
 """
 from __future__ import annotations

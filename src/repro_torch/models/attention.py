@@ -18,14 +18,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import nn, not_ported
+from repro_torch import nn
 from repro_torch.configs.base import ModelConfig, RankConfig
 from repro_torch.core import baselines
 from repro_torch.core import lowrank as lr
 from repro_torch.core import perturbation as pert
 from repro_torch.core import prng
 from repro_torch.kernels import ops
-from repro_torch.models.common import (apply_rope, cache_update,
+from repro_torch.models.common import (apply_mrope, apply_rope, cache_update,
                                        kv_group_mean, repeat_kv)
 
 
@@ -165,11 +165,10 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     and 't' it reads, in 'performer' the feature matrices 'proj' (see
     :func:`repro_torch.models.transformer.make_rank_ctx`); the agent's
     outputs join ``aux``. ``cache`` is a
-    dense layer cache {'k', 'v', 'len'} (updated in place).
+    dense layer cache {'k', 'v', 'len'} (updated in place). With
+    ``cfg.mrope``, ``positions`` are the (b, 3, s) M-RoPE streams.
     Returns (output, new_cache, aux)."""
     rcfg = rank_ctx["cfg"] if rank_ctx else None
-    if cfg.mrope:
-        raise not_ported("M-RoPE", "item 18")
     b, s, d = x.shape
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim()
@@ -180,8 +179,12 @@ def mhsa(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         q = q + p["bq"].reshape(hq, dh).to(x.dtype)
         k = k + p["bk"].reshape(hkv, dh).to(x.dtype)
         v = v + p["bv"].reshape(hkv, dh).to(x.dtype)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     q_offset, kv_len, new_cache = 0, None, None
     if cache is not None:

@@ -1,6 +1,8 @@
-"""Shared model components of the port: RoPE, the GQA head maps and the
-dense KV-cache append."""
+"""Shared model components of the port: RoPE (M-RoPE too), the GQA head
+maps and the dense KV-cache append."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -16,6 +18,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
     angles = positions[..., None].float() * freqs           # (b, s, d/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Tuple[int, ...], theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE. x: (b, s, h, d); positions3: (b, 3, s) for the (t,
+    h, w) streams. ``sections`` counts *frequency pairs* per stream and sums
+    to d/2: the first sections[0] pairs rotate by t, the next sections[1] by
+    h, the last by w. Rotate-half in f32, as :func:`apply_rope`."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to d/2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
+    sel = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                     for i, n in enumerate(sections)])      # stream of each pair
+    pos = positions3.float().index_select(1, sel)           # (b, d/2, s)
+    angles = pos.transpose(1, 2) * freqs                    # (b, s, d/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -211,6 +211,13 @@ def _drrl_setup(cfg: ModelConfig, params, x, policy_params, power_v0):
     return h_t, power_v0
 
 
+def _default_positions(cfg: ModelConfig, start: int, b: int, s: int, device):
+    """start ... start+s-1 for every row: (b, s), or (b, 3, s) (the same on
+    the three streams) for M-RoPE."""
+    pos = (start + torch.arange(s, device=device))[None].expand(b, s)
+    return pos[:, None].expand(b, 3, s) if cfg.mrope else pos
+
+
 def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
                   policy_params=None, rl_t=0, greedy: bool = True,
                   rank_generator: Optional[torch.Generator] = None,
@@ -220,9 +227,13 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
                   compute_fidelity=False, collect_aux: str = "none",
                   chunked: bool = False, collect_qkv: bool = False,
                   collect_mass: bool = False, mass_q_len=None,
-                  return_hidden: bool = False
+                  return_hidden: bool = False,
+                  extra_embeddings: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens: (b, s) integer. Returns (logits (b, s, V), aux) with
+    """tokens: (b, s) integer, or (b, s_txt) with ``extra_embeddings`` (b,
+    n, d) prepended (the VLM stub's patch embeddings), s = n + s_txt.
+    Without ``positions``, 0 ... s-1, on all three streams for M-RoPE
+    (``positions`` (b, 3, s) there). Returns (logits (b, s, V), aux) with
     aux['layers'] the per-layer aux selected by ``collect_aux``, stacked on
     a leading L axis, and (``return_hidden``) aux['hidden'] the final
     hidden state (b, s, d) after ``ln_f``, before the LM head.
@@ -242,9 +253,11 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
     vectors of w_t's power iterations (default ``drrl.power_starts``)."""
     dtype = nn.dt(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
+    if extra_embeddings is not None:
+        x = torch.cat([extra_embeddings.to(dtype), x], dim=1)
     b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        positions = _default_positions(cfg, 0, b, s, x.device)
     h_t, power_v0 = _drrl_setup(cfg, params, x, policy_params, power_v0)
     rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t,
                              t=rl_t, greedy=greedy, generator=rank_generator,
@@ -275,7 +288,8 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
 
 def loss_dense(cfg: ModelConfig, params, batch, **kw):
     """Mean next-token cross-entropy of ``batch`` {'tokens', 'labels'[,
-    'mask']} over the last ``labels.shape[1]`` positions, plus the MoE
+    'mask']} over the last ``labels.shape[1]`` positions (the VLM passes
+    its patch embeddings as ``extra_embeddings``), plus the MoE
     layers' mean auxiliary loss where ``collect_aux`` keeps it (as in the
     reference); returns (loss, aux)."""
     logits, aux = forward_dense(cfg, params, batch["tokens"], **kw)
@@ -308,7 +322,8 @@ def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
                       proj: Optional[torch.Tensor] = None,
                       power_v0: Optional[Dict[str, torch.Tensor]] = None,
                       chunked: bool = False):
-    """One decode step: tokens (b, s_new) appended at cache['len'].
+    """One decode step: tokens (b, s_new) appended at cache['len'], at
+    ``positions`` (default cache['len'] on, on all three M-RoPE streams).
     Returns (logits (b, s_new, V), new_cache); the cache tensors are
     updated in place. Rank mode 'drrl' takes the agent's greedy actions,
     h_t from this step's embeddings (``power_v0`` as in forward_dense).
@@ -321,7 +336,7 @@ def decode_step_dense(cfg: ModelConfig, params, cache, tokens, *,
     b, s, _ = x.shape
     start = int(cache["len"])
     if positions is None:
-        positions = (start + torch.arange(s, device=x.device))[None].expand(b, s)
+        positions = _default_positions(cfg, start, b, s, x.device)
     h_t, power_v0 = _drrl_setup(cfg, params, x, policy_params, power_v0)
     rank_ctx = make_rank_ctx(cfg, policy_params=policy_params, h_t=h_t,
                              proj=proj, device=x.device)

@@ -11,7 +11,8 @@ against the JAX engine on the serving benchmark's staggered workload
 (chunked prefill, 3 slots recycled), greedy tokens and per-step ranks
 identical in 'off' and 'adaptive', granite also with capacity factor 0.5,
 where the fused step's idle rows and padding queries take capacity as in
-the reference; and the serving CLI's ``--arch`` over the registry.
+the reference; and the serving CLI's ``--arch`` over the registry (the
+families without a paged step refused).
 
 Tolerances: f32 logits 1e-4 absolute (as tests/test_torch_forward.py),
 losses 1e-5, ranks and tokens identical; bf16 logits four bf16 steps of the
@@ -202,20 +203,21 @@ def test_engine_matches_jax(case, jax_runs):
     eng.core.cache.check_refs()
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("deepseek-v3-671b", "zamba2-7b"))
+NO_PAGED_STEP = ("deepseek-v3-671b", "zamba2-7b", "rwkv6-1.6b", "seamless-m4t-medium",
+                 "qwen2-vl-7b")
+
+
+@pytest.mark.parametrize("arch", ARCHS + NO_PAGED_STEP)
 def test_serve_cli_takes_every_arch(arch, capsys):
     """``python -m repro_torch.launch.serve --arch <id>`` on the CPU: the
-    reduced dense configs and granite serve; DeepSeek-V3 has no paged step
-    (the engine refuses it, as the reference's); an id whose family is not
-    ported yet raises ``not_ported``."""
+    reduced dense configs and granite serve; DeepSeek-V3, Zamba2, RWKV6,
+    Seamless and Qwen2-VL (M-RoPE) have no paged step, so the engine
+    refuses them, as the reference's does."""
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "8",
             "--tokens", "3", "--chunk", "4"]
-    if arch == "deepseek-v3-671b":
+    if arch in NO_PAGED_STEP:
         with pytest.raises(ValueError, match="no paged decode step"):
-            serve.main(argv)
-    elif arch == "zamba2-7b":
-        with pytest.raises(NotImplementedError, match="item 18"):
             serve.main(argv)
     else:
         serve.main(argv)

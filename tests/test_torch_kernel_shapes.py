@@ -1,7 +1,11 @@
-"""Both kernels' plain versions at the shapes the dense configs, granite and
-DeepSeek-V3 give them, against the JAX package's Pallas kernels in
-interpret mode on the same numpy inputs: ``lowrank_flash`` at MLA's r =
-qk_nope + qk_rope = 192 with dv = 128 (MHA and GQA), and ``flash_decode``
+"""Both kernels' plain versions at the shapes the dense configs, granite,
+DeepSeek-V3, Zamba2, Seamless and Qwen2-VL give them, against the JAX
+package's Pallas kernels in interpret mode on the same numpy inputs:
+``lowrank_flash`` at MLA's r = qk_nope + qk_rope = 192 with dv = 128 (MHA
+and GQA), at zamba2's shared attention (32 heads of 112: r = dv = 112,
+between the kernel's padded widths), seamless's decoder self-attention
+(16 heads of 64) and qwen2-vl's (28/4 heads of 128), at reduced lengths
+(and at full width, 2 x 4096, on the card), and ``flash_decode``
 at r = dv = 128 with GQA groups of 3, 5 and 7 (the groups of 4-7 of the
 dense configs meet the CUDA kernel's row tile of 4 unevenly), a decode row
 and a query chunk with per-row starts; the same shapes on the card against
@@ -35,6 +39,15 @@ FLASH_CASES = [
     (2, 10, 2, 24, 24, 192, 128, False, 0),    # GQA 5, non-causal
     (1, 14, 2, 17, 17, 160, 128, True, 0),     # GQA 7, r between 128 and 192
 ]
+# the chunked forwards of zamba2-7b, seamless-m4t-medium and qwen2-vl-7b:
+# their heads and widths at reduced lengths
+FAMILY_CASES = [
+    (1, 32, 32, 40, 40, 112, 112, True, 0),    # zamba2's shared attention
+    (1, 16, 16, 40, 40, 64, 64, True, 0),      # seamless's decoder
+    (1, 28, 4, 40, 40, 128, 128, True, 0),     # qwen2-vl, GQA 7
+]
+# the same at full width: b = 2, 4096 tokens
+FAMILY_FULL = [(2,) + c[1:3] + (4096, 4096) + c[5:] for c in FAMILY_CASES]
 # b, hq, hkv, C, M, r, dv, kv_len, q_start
 DECODE_CASES = [
     (2, 6, 2, 1, 96, 128, 128, (96, 41), None),               # GQA 3
@@ -68,7 +81,8 @@ def _decode_shapes(case):
     return [(b, hq, C, r) if C > 1 else (b, hq, r), (b, hkv, M, r), (b, hkv, M, dv)]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=[str(c) for c in FLASH_CASES])
+@pytest.mark.parametrize("case", FLASH_CASES + FAMILY_CASES,
+                         ids=[str(c) for c in FLASH_CASES + FAMILY_CASES])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_flash_wide_rank_matches_jax_kernel(case, dtype):
     r, causal, off = case[5], case[7], case[8]
@@ -109,7 +123,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES, ids=[str(c) for c in FLASH_CASES])
+@pytest.mark.parametrize("case", FLASH_CASES + FAMILY_FULL,
+                         ids=[str(c) for c in FLASH_CASES + FAMILY_FULL])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_cuda_flash_wide_rank_matches_plain(case, dtype):
     if not torch.cuda.is_available():

@@ -18,9 +18,10 @@ figures (every ``benchmarks/torch_*.py``) and
 invariant checker (every ``repro_torch.analysis`` module) runs
 ``tools/check_invariants_torch.py --selftest`` and its static pass. The
 dense configs and the MoE family import (``models.moe``, ``mla``,
-``deepseek_v3`` and their configs), the arch ids not ported yet raise
-``not_ported`` for item 18, reduced granite serves and reduced
-DeepSeek-V3 computes its loss (with MTP) and decodes."""
+``deepseek_v3`` and their configs), every arch id gives its config,
+reduced granite serves and reduced DeepSeek-V3 computes its loss (with
+MTP) and decodes, and reduced zamba2, rwkv6, seamless and qwen2-vl each
+compute a loss and a cached decode step."""
 import os
 import subprocess
 import sys
@@ -156,11 +157,21 @@ eng.run()
 assert [len(x.result()) for x in hl] == [5, 5] and eng.stats["decides"] >= 2
 # the dense configs and the MoE family: granite served, DeepSeek-V3's loss and decode
 from repro_torch.configs import ARCH_IDS
-for arch in ARCH_IDS:
-    try:
-        get_config(arch, reduced=True)
-    except NotImplementedError as e:
-        assert "item 18" in str(e)
+assert all(get_config(arch, reduced=True).name == arch for arch in ARCH_IDS)
+# the remaining families: zamba2, rwkv6, seamless and qwen2-vl, one forward each
+ft = torch.arange(2 * 20).reshape(2, 20) % 256
+for arch, extra in (("zamba2-7b", {}), ("rwkv6-1.6b", {}),
+                    ("seamless-m4t-medium", {"frames": torch.randn(2, 16, 64)}),
+                    ("qwen2-vl-7b", {"patch_embeds": torch.randn(2, 8, 64)})):
+    fcfg = get_config(arch, reduced=True)
+    ffns = get_model(fcfg)
+    fp = ffns.init(torch.Generator().manual_seed(0), device="cpu")
+    n_lab = 28 if arch == "qwen2-vl-7b" else 20
+    fl, _ = ffns.loss(fp, {"tokens": ft, "labels": torch.zeros(2, n_lab, dtype=torch.long),
+                           **extra})
+    fc = ffns.init_cache(2, 24, device="cpu")
+    flg, fc = ffns.decode_step(fp, fc, ft[:, :4])
+    assert torch.isfinite(fl) and flg.shape == (2, 4, 256) and ffns.decode_step_paged is None
 gcfg = get_config("granite-moe-3b-a800m", reduced=True).with_(
     rank=RankConfig(mode="adaptive", rank_grid=(4, 8, 12, 16), segment_len=8))
 gp = get_model(gcfg).init(torch.Generator().manual_seed(0), device="cpu")

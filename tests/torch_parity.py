@@ -13,15 +13,18 @@ from repro_torch.configs.base import MLAConfig as TMLAConfig
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.configs.base import RankConfig as TRankConfig
+from repro_torch.configs.base import RWKVConfig as TRWKVConfig
+from repro_torch.configs.base import SSMConfig as TSSMConfig
 from repro_torch.convert import agent_from_jax, params_from_jax
 
 
 def torch_config(cfg):
     """The port's ModelConfig holding the same values as JAX ``cfg`` (its
-    MoE and MLA sub-configs too)."""
+    MoE, MLA, SSM and RWKV sub-configs too)."""
     rank = TRankConfig(**{f.name: getattr(cfg.rank, f.name)
                           for f in dataclasses.fields(TRankConfig)})
-    subs = {"moe": TMoEConfig, "mla": TMLAConfig}
+    subs = {"moe": TMoEConfig, "mla": TMLAConfig, "ssm": TSSMConfig,
+            "rwkv": TRWKVConfig}
     kw = {}
     for f in dataclasses.fields(TModelConfig):
         v = getattr(cfg, f.name)
