@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, forward and training paths, the
-paper's tables, the invariant checker and every model family on one
-NVIDIA GPU and check them.
+paper's tables, the invariant checker, every model family and the
+distribution layer on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -227,6 +227,19 @@ Phases (one line each, plus detail lines):
      two bf16 steps of the largest; a forward's greedy picks agree with the
      plain path's at 0.97 of the positions, and a decode's picks differ only
      at a top-two gap the logits bound allows.
+ 22. distribution on the card (``tools/dist_smoke.py`` runs it alone), on a
+     one-rank NCCL group and its (1, 1) ("data", "model") host mesh: (a)
+     drrl-paper at full width in rank mode 'drrl' (phase 17's 8 x 256 tokens
+     and agent), its params placed by ``param_pspecs`` (the config's 'dp',
+     then 'fsdp_tp', every matrix Shard-placed), 2 sharded training steps
+     against the plain step from the same seed (loss, grad norm, every
+     param), both steps' ms and the first sharded step's NCCL calls; (b)
+     the sharded (params, AdamWState) saved with their specs and loaded
+     with ``load(mesh=)``: bitwise, placed as stored; (c) ring attention and
+     the pipeline at ring size 1 at 2 x 4096 x 12 x 64 against
+     ``kernels/ref.py:flash_ref`` within 2e-5; (d) ``launch.train.main``, 2
+     steps, its checkpoint's specs equal to ``param_pspecs`` on the host
+     mesh. Neither kernel launches (training runs unchunked).
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -265,9 +278,14 @@ from repro_torch import nn  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.core import drrl, lowrank, ppo, prng  # noqa: E402
 from repro_torch.data.synthetic import SyntheticClassification, SyntheticLM  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
+from repro_torch.dist.pipeline import make_pipeline  # noqa: E402
+from repro_torch.dist.ring_attention import make_ring_attention  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
+from repro_torch.kernels.ref import flash_ref  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch.mesh import BACKENDS, make_host_mesh  # noqa: E402
 from repro_torch.models import encdec, lowrank_cache, rwkv6, rwkv_lm, zamba2  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.deepseek_v3 import forward_deepseek  # noqa: E402
@@ -4796,6 +4814,259 @@ def check_recurrent_families(card_name) -> dict:
     log("phase 21 numbers: " + json.dumps(nums))
     return nums
 
+# -- phase 22 ----------------------------------------------------------------
+
+# 22a: the sharded step on the one-rank mesh against the plain step, from the
+# same params, agent and batches: at ring size 1 the model code runs the same
+# ops on the same rows (dist.ctx's helpers reduce to the identity, one-rank
+# groups skip their collectives), so the loss and the grad norm are held to
+# 1e-7 relative and every element of every param to 1e-7 absolute (the
+# shards' grad norm may sum its squares in another order; nothing else may
+# differ)
+DIST_TOL = 1e-7
+# 22c: ring attention and the pipeline at ring size 1 against flash_ref, f32
+RING_SHAPE = (2, 4096, 12, 64)          # b, S, h, d: drrl-paper's heads
+DIST_STEPS = 2
+COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """A Counter of the process-group operations (``c10d`` and DTensor's
+    functional collectives) dispatched inside the block."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace in COLLECTIVE_NAMESPACES:
+                counts[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        yield counts
+
+
+def _timed_step(step, p, opt, batch, i, counts=None):
+    """One training step on the card: (params, state, metrics as floats, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with count_collectives() if counts is not None else contextlib.nullcontext() as c:
+        p, opt, m = step(p, opt, batch, prng.fold_in(prng.key(0), i))
+        m = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    if counts is not None:
+        counts.update(c)
+    return p, opt, m, (time.perf_counter() - t0) * 1e3
+
+
+def check_sharded_training(paper, agent, mesh, card_name) -> dict:
+    """22a: full-width drrl-paper in rank mode 'drrl' (phase 17's 8 x 256
+    tokens and agent), its params placed on the one-rank mesh by
+    ``param_pspecs`` (the config's own 'dp', then 'fsdp_tp': every matrix
+    ``Shard``-ed over both mesh axes), DIST_STEPS sharded training steps
+    against the plain step from the same seed: loss, grad norm and every
+    param. Returns the numbers and fsdp_tp's sharded state and specs."""
+    # a schedule longer than the run, so every step moves the params
+    tc = TrainConfig(global_batch=LM_BATCH, seq_len=LM_SEQ, warmup_steps=1,
+                     total_steps=10 * DIST_STEPS)
+    data = SyntheticLM(paper.vocab_size, LM_SEQ, LM_BATCH, seed=0)
+    batches = [data.batch_at(i, device=DEV) for i in range(DIST_STEPS)]
+    out, kept = {}, None
+    for sharding in ("dp", "fsdp_tp"):
+        cfg = paper.with_(sharding=sharding)
+        params = get_model(cfg).init(torch.Generator(DEV).manual_seed(0), device=DEV)
+        specs = shd.param_pspecs(params, cfg, mesh)
+        step = train_loop.make_train_step(cfg, tc, lm_loss_fn(cfg, agent))
+        runs = {}
+        for label, p in (("sharded", shd.distribute(params, specs, mesh)), ("plain", params)):
+            opt, hist, ms = adamw.init(p), [], []
+            counts = collections.Counter()
+            for i in range(DIST_STEPS):
+                # the first sharded step counts its collectives (the counter
+                # dispatches every op through Python); the later ones are timed
+                p, opt, m, t = _timed_step(step, p, opt, batches[i], i,
+                                           counts if label == "sharded" and i == 0 else None)
+                hist.append(m)
+                ms.append(t)
+            runs[label] = dict(hist=hist, ms=ms, collectives=dict(counts), p=p, opt=opt)
+        sh, pl = runs["sharded"], runs["plain"]
+        assert all(shd.is_dtensor(x) for x in tu.leaves(sh["p"]))
+        assert all(shd.is_dtensor(x) for x in tu.leaves(sh["opt"].m))
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for a, b in zip(sh["hist"], pl["hist"]):
+            for k in worst:
+                worst[k] = max(worst[k], abs(a[k] - b[k]) / abs(b[k]))
+        assert worst["loss"] <= DIST_TOL and worst["grad_norm"] <= DIST_TOL, (
+            sh["hist"], pl["hist"])
+        p_max, n_equal = 0.0, 0
+        for (path, g), c in zip(tu.leaves_with_path(sh["p"]), tu.leaves(pl["p"])):
+            d = (g.full_tensor() - c).abs().max().item()
+            assert d <= DIST_TOL, (path, d)
+            p_max, n_equal = max(p_max, d), n_equal + (d == 0.0)
+        n_shard = sum(any(pl_.is_shard() for pl_ in x.placements) for x in tu.leaves(sh["p"]))
+        log(f"  sharding '{sharding}', drrl-paper {cfg.num_layers} x {cfg.d_model} in rank "
+            f"mode '{cfg.rank.mode}', {LM_BATCH} x {LM_SEQ} tokens on a {shd.mesh_sizes(mesh)} "
+            f"mesh: {n_shard} of {len(tu.leaves(sh['p']))} leaves Shard-placed; losses "
+            f"{[round(h['loss'], 5) for h in sh['hist']]}; sharded vs plain: loss within "
+            f"{worst['loss']:.3g}, grad norm within {worst['grad_norm']:.3g}, params "
+            f"max|diff| {p_max:.3g} (tol {DIST_TOL:g}), {n_equal} of "
+            f"{len(tu.leaves(pl['p']))} leaves bitwise; "
+            f"ms per step sharded {[round(t, 1) for t in sh['ms']]} (the first under the "
+            f"collective counter), plain {[round(t, 1) for t in pl['ms']]} [{card_name}]")
+        log(f"  NCCL calls in the first sharded step: {sum(sh['collectives'].values())} "
+            f"{sh['collectives']} (every mesh axis has size 1: DTensor and the step skip "
+            f"one-rank groups)")
+        out[sharding] = {"ms_sharded": sh["ms"], "ms_plain": pl["ms"],
+                         "nccl_calls_step": sum(sh["collectives"].values()),
+                         "loss_rel": worst["loss"], "grad_norm_rel": worst["grad_norm"],
+                         "param_max_abs": p_max, "leaves_bitwise": n_equal,
+                         "shard_leaves": n_shard}
+        if sharding == "fsdp_tp":
+            kept = (sh["p"], sh["opt"], specs)
+        del runs, sh, pl, params
+        free_memory()
+    return out, kept
+
+
+def check_dist_checkpoint(kept, mesh, out_dir) -> dict:
+    """22b: the sharded (params, AdamWState) saved with their specs
+    (run_training's, the moments' too), then ``load(mesh=)`` into the
+    same DTensor template: every leaf bitwise, placed as its spec resolves
+    on the mesh."""
+    params, opt, specs = kept
+    save_specs = (specs, adamw.AdamWState(step=(), m=specs, v=specs))
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"), async_save=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with count_collectives() as calls:
+        mgr.save(DIST_STEPS, (params, opt), save_specs)
+        mgr.wait()
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (p2, o2), step, _ = mgr.load((params, opt), mesh=mesh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    assert step == DIST_STEPS
+    flat_spec = [s for _, s in tu.flatten_with_keys(save_specs, is_leaf=shd.is_spec)]
+    n_bytes = 0
+    for (path, a), (_, b), spec in zip(tu.flatten_with_keys((params, opt)),
+                                       tu.flatten_with_keys((p2, o2)), flat_spec):
+        fa, fb = shd.full_tensor(a), shd.full_tensor(b)
+        assert fa.dtype == fb.dtype and torch.equal(fa, fb), path
+        if spec:
+            assert tuple(b.placements) == shd.to_placements(shd.resolve_spec(spec, mesh),
+                                                            mesh), path
+        n_bytes += fa.numel() * fa.element_size()
+    log(f"  checkpoint of the sharded (params, AdamWState): {n_bytes / 2 ** 30:.2f} GiB "
+        f"saved in {t_save:.2f} s (rank 0 writes; {sum(calls.values())} NCCL calls "
+        f"{dict(calls)}), loaded onto the mesh in {t_load:.2f} s: every leaf bitwise, "
+        f"placements as stored")
+    return {"save_s": t_save, "load_s": t_load, "gib": n_bytes / 2 ** 30,
+            "nccl_calls": sum(calls.values())}
+
+
+def check_ring_and_pipeline(mesh, card_name) -> dict:
+    """22c: ring attention and the pipeline over the mesh's one-rank data
+    axis at 2 x 4096 x 12 x 64, f32, against ``kernels/ref.py:flash_ref``
+    (the pipeline's one stage: attention with a projected q)."""
+    gen = torch.Generator(DEV).manual_seed(0)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=DEV) for _ in range(3))
+    scale = RING_SHAPE[-1] ** -0.5
+
+    def ref(q_, k_, v_, causal):
+        return flash_ref(q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                         scale=scale, causal=causal).transpose(1, 2)
+    res = {}
+    for causal in (True, False):
+        ring = make_ring_attention(mesh, scale=scale, causal=causal, axis_name="data")
+        with count_collectives() as calls:
+            got = ring(q, k, v)
+        want = ref(q, k, v, causal)
+        err = (got - want).abs().max().item()
+        assert err <= TOL, (causal, err)
+        ms = {"ring": time_ms(lambda: ring(q, k, v), n=5),
+              "flash_ref": time_ms(lambda: ref(q, k, v, causal), n=5)}
+        res[f"ring_causal={causal}"] = {"max_abs_err": err, **ms,
+                                        "nccl_calls": sum(calls.values())}
+    w = {"wq": torch.randn((1, RING_SHAPE[-1], RING_SHAPE[-1]), generator=gen,
+                           device=DEV) * scale}
+
+    def stage(p, x):                             # x: (1, S, h, d), one microbatch
+        return ref(x @ p["wq"], x, x, True)
+    pipe = make_pipeline(mesh, stage, axis_name="data")
+    x = q[:, None]                               # 2 microbatches of one row
+    with count_collectives() as calls:
+        got = pipe(w, x)
+    want = torch.stack([stage({"wq": w["wq"][0]}, x[i]) for i in range(x.shape[0])])
+    err = (got - want).abs().max().item()
+    assert err <= TOL, err
+    res["pipeline"] = {"max_abs_err": err, "nccl_calls": sum(calls.values())}
+    log(f"  ring attention at ring size 1, {RING_SHAPE} f32, against flash_ref: "
+        + ", ".join(f"{k} max|err| {v['max_abs_err']:.3g}, {v['ring']:.2f} ms against "
+                    f"{v['flash_ref']:.2f} ms" for k, v in res.items() if k != "pipeline")
+        + f"; the pipeline (one stage, 2 microbatches) max|err| {err:.3g}, "
+        f"{res['pipeline']['nccl_calls']} NCCL call (the all-reduce) [{card_name}]")
+    return res
+
+
+def check_dist_cli(paper, out_dir, card_name) -> dict:
+    """22d: ``launch.train.main`` for DIST_STEPS steps on the card: the host
+    mesh and ``param_pspecs`` built, the specs stored in the checkpoint."""
+    ckpt = os.path.join(out_dir, "cli")
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        res = train_launch.main(["--steps", str(DIST_STEPS), "--batch", str(LM_BATCH),
+                                 "--seq", str(LM_SEQ), "--ckpt-dir", ckpt, "--device", DEV])
+    wall = time.perf_counter() - t0
+    hist = res["history"]
+    assert [h["step"] for h in hist] == list(range(DIST_STEPS)), hist
+    assert all(np.isfinite(h["loss"]) for h in hist), hist
+    manifest = json.loads(open(os.path.join(ckpt, f"step_{DIST_STEPS}",
+                                            "manifest.json")).read())
+    mesh = make_host_mesh(DEV)
+    meta = get_model(paper).init(torch.Generator().manual_seed(0), device="meta")
+    want = {shd.path_str(p): [list(a) if isinstance(a, tuple) else a for a in s]
+            for p, s in tu.flatten_with_keys(shd.param_pspecs(meta, paper, mesh),
+                                             is_leaf=shd.is_spec)}
+    got = {k[2:]: v["spec"] for k, v in manifest["leaves"].items() if k.startswith("0/")}
+    assert got == want, (got, want)
+    log(f"  launch.train.main on the card, {DIST_STEPS} steps of {LM_BATCH} x {LM_SEQ}: "
+        f"losses {[round(h['loss'], 4) for h in hist]}, {wall:.1f} s with init and "
+        f"checkpoints; the manifest's specs are param_pspecs on the host mesh "
+        f"{shd.mesh_sizes(mesh)} ('{paper.sharding}') [{card_name}]")
+    return {"wall_s": wall, "losses": [h["loss"] for h in hist]}
+
+
+def check_distribution(paper, agent, card_name) -> dict:
+    """Phase 22 on a one-rank NCCL group started here (phase 17's training
+    CLI ends the group it started) and its (1, 1) host mesh: 22a-d."""
+    import torch.distributed as dist
+    mesh = make_host_mesh(DEV)
+    assert dist.get_backend() == BACKENDS[torch.device(DEV).type], dist.get_backend()
+    assert tuple(mesh.shape) == (1, 1), mesh
+    out_dir = os.path.join(ROOT, ".scratch", "phase22")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    reset_launches()
+    steps, kept = check_sharded_training(paper, agent, mesh, card_name)
+    phase("  the sharded checkpoint saved and loaded onto the mesh")
+    ckpt = check_dist_checkpoint(kept, mesh, out_dir)
+    del kept
+    free_memory()
+    phase("  ring attention and the pipeline at ring size 1; the training CLI")
+    ring = check_ring_and_pipeline(mesh, card_name)
+    cli = check_dist_cli(paper, out_dir, card_name)
+    launches = {"flash_decode": decode_attn.LAUNCHES["flash_decode"],
+                "lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"]}
+    assert launches == {"flash_decode": 0, "lowrank_flash": 0}, launches
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log("phase 22 numbers: " + json.dumps({
+        "sharded_step": steps, "checkpoint": ckpt, "ring_pipeline": ring, "cli": cli,
+        "launches": launches, "card": card_name}))
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -4805,7 +5076,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/21] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/22] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -4814,10 +5085,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/21] flash_decode kernel vs its plain version on the card")
+    phase("[2/22] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/21] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/22] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -4834,26 +5105,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/21] full-width engine step: kernel vs plain attention")
+    phase("[4/22] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/21] times at the serving shapes")
+    phase("[5/22] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/21] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/22] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/21] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/22] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/21] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/22] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/21] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/22] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -4862,17 +5133,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/21] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/22] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/21] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/22] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/21] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/22] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/21] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/22] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -4883,7 +5154,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/21] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/22] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -4892,7 +5163,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/21] full-width speculative decoding and the prefix cache")
+    phase("[15/22] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -4904,7 +5175,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/21] the serving front end at full width: traces, the learned policy, "
+    phase("[16/22] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -4925,26 +5196,33 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
-    phase("[17/21] the LM training stack at full width")
+    phase("[17/22] the LM training stack at full width")
     lm = check_lm_training(paper, agent, card_name)
 
-    phase("[18/21] the paper's tables and figures")
+    phase("[18/22] the paper's tables and figures")
     tables = check_tables(paper, agent, card_name)
 
-    phase("[19/21] the invariant checker: the static pass, the runtime sanitizer at "
+    phase("[19/22] the invariant checker: the static pass, the runtime sanitizer at "
           "full width, its negative control, the serving run's sync sites")
     sanitizer_launches = check_invariants(cfg, params, card_name)
 
     del params
     free_memory()
-    phase("[20/21] the dense configs and the MoE family at full width: qwen2.5-14b and "
+    phase("[20/22] the dense configs and the MoE family at full width: qwen2.5-14b and "
           "granite served, internlm2, phi3, deepseek-coder cut in depth, DeepSeek-V3 "
           "with MLA and MTP")
     fam = check_families(card_name)
 
-    phase("[21/21] the remaining families at full width: zamba2-7b (Mamba2 and the shared "
+    phase("[21/22] the remaining families at full width: zamba2-7b (Mamba2 and the shared "
           "attention), rwkv6-1.6b, seamless-m4t-medium, qwen2-vl-7b (M-RoPE)")
     rec = check_recurrent_families(card_name)
+
+    free_memory()
+    phase("[22/22] distribution on the card, a one-rank NCCL group: the sharded training "
+          "step, the checkpoint round trip, ring attention and the pipeline, the CLI")
+    dist_out = check_distribution(paper, agent, card_name)
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
     phase("all phases passed")
     print(json.dumps({"kernels": [
@@ -4962,6 +5240,7 @@ def main() -> int:
          "verify": t_verify,
          "train_lm_launches": {"train_step": lm["step_launches"]["flash_decode"],
                                "serve_trained": lm["serve_launches"]},
+         "distribution_launches": dist_out["launches"]["flash_decode"],
          "tables_launches": tables["flash_decode"],
          "sanitizer_launches": sanitizer_launches,
          "families_launches": {
@@ -4976,6 +5255,7 @@ def main() -> int:
          "launches": flash_launches, "drrl_launches": drrl_flash,
          "train_launches": train_flash, "random_launches": comp["launches"],
          "train_lm_launches": {"train_step": lm["step_launches"]["lowrank_flash"]},
+         "distribution_launches": dist_out["launches"]["lowrank_flash"],
          "tables_launches": tables["lowrank_flash"],
          "families_launches": {"qwen2.5-14b": {k: v["launches"]
                                                for k, v in fam["qwen_forward"].items()},

@@ -1,17 +1,19 @@
 """Checkpoints of the port (``repro.checkpoint.manager``): atomic directory
-commits, an optional async save thread, ``keep`` newest steps and
-latest-step resume, in the reference's format, so a checkpoint written by
-either package loads in the other.
+commits, an optional async save thread, ``keep`` newest steps,
+latest-step resume and the elastic re-shard on load, in the reference's
+format, so a checkpoint written by either package loads in the other.
 
 Format: ``<dir>/step_<n>/`` holds one ``leaf_<i>.npy`` per leaf, numbered
 in JAX's leaf order (dict keys sorted, lists by index), and
 ``manifest.json`` {"step", "leaves": {path -> {"file", "spec", "dtype"}},
-"extra"}, each leaf keyed by the reference's ``path_str`` ("layers/0/wq";
+"extra"}, each leaf keyed by ``dist.sharding.path_str`` ("layers/0/wq";
 a NamedTuple's fields by name, as JAX keys them: the ``AdamWState`` of a
 ``(params, opt_state)`` tree gives "1/step", "1/m/embed", ...). ``save``
 stores the partition specs it is given as the reference does (``[]``
-for a leaf without one); ``load`` places nothing on a mesh, so a stored
-spec is ignored on load.
+for a leaf without one). A tree holding DTensors is gathered by every
+rank, written by rank 0 alone and followed by a barrier. ``load(...,
+mesh=)`` places each leaf by its stored spec resolved against the mesh
+(axes the mesh lacks dropped), so a run resumes on another mesh shape.
 """
 from __future__ import annotations
 
@@ -19,79 +21,15 @@ import json
 import pathlib
 import shutil
 import threading
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch import not_ported
-
-
-def path_str(path: Sequence[Any]) -> str:
-    """Stable string form of a tree path, ``repro.dist.sharding.path_str``:
-    dict keys, sequence indices, attribute names and flattened indices all
-    render as their bare token, joined by '/'. Entries are JAX key objects
-    (with ``key``, ``idx`` or ``name``) or the port's plain str / int."""
-    parts = []
-    for k in path:
-        if hasattr(k, "key"):
-            parts.append(str(k.key))
-        elif hasattr(k, "idx"):
-            parts.append(str(k.idx))
-        elif hasattr(k, "name"):
-            parts.append(str(k.name))
-        else:
-            parts.append(str(k))
-    return "/".join(parts)
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def _flatten(tree, prefix=(), is_leaf=None) -> List[Tuple[tuple, Any]]:
-    """[(path, leaf)] in JAX's leaf order: dict keys sorted, a NamedTuple's
-    fields in field order keyed by name, lists and tuples by index.
-    ``is_leaf(x)`` stops the walk at ``x``."""
-    if is_leaf is not None and is_leaf(tree):
-        return [(prefix, tree)]
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree)
-                for kv in _flatten(tree[k], prefix + (k,), is_leaf)]
-    if _is_namedtuple(tree):
-        return [kv for k in tree._fields
-                for kv in _flatten(getattr(tree, k), prefix + (k,), is_leaf)]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, v in enumerate(tree)
-                for kv in _flatten(v, prefix + (i,), is_leaf)]
-    return [(prefix, tree)]
-
-
-def _rebuild(tree, leaves):
-    """``tree``'s structure (its own key order kept) over ``leaves`` given
-    by path tuple."""
-    def build(t, prefix):
-        if isinstance(t, dict):
-            return {k: build(v, prefix + (k,)) for k, v in t.items()}
-        if _is_namedtuple(t):
-            return type(t)(*(build(getattr(t, k), prefix + (k,))
-                             for k in t._fields))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v, prefix + (i,)) for i, v in enumerate(t))
-        return leaves[prefix]
-    return build(tree, ())
-
-
-def _is_spec(x) -> bool:
-    """A partition spec: None, or a list / plain tuple of mesh axes (each
-    None, an axis name or a sequence of axis names)."""
-    if x is None:
-        return True
-    if not isinstance(x, (list, tuple)) or _is_namedtuple(x):
-        return False
-    return all(a is None or isinstance(a, str)
-               or (isinstance(a, (list, tuple)) and all(isinstance(n, str) for n in a))
-               for a in x)
+from repro_torch import tree as tu
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import path_str
 
 
 def _spec_to_json(spec) -> list:
@@ -119,16 +57,20 @@ class CheckpointManager:
         params of a ``(params, opt_state)`` tree), is stored per leaf in
         leaf order; the leaves past it store ``[]``."""
         self.wait()
-        flat = _flatten(tree)
-        spec_flat = ([s for _, s in _flatten(specs, is_leaf=_is_spec)]
+        flat = tu.flatten_with_keys(tree)
+        spec_flat = ([s for _, s in tu.flatten_with_keys(specs, is_leaf=shd.is_spec)]
                      if specs is not None else [])
         if len(spec_flat) > len(flat):
             raise ValueError(f"specs has {len(spec_flat)} leaves but tree has "
                              f"only {len(flat)}")
         spec_flat += [None] * (len(flat) - len(spec_flat))
-        host = [(path_str(p), x.detach().to("cpu", copy=True).numpy()
+        sharded = any(shd.is_dtensor(x) for _, x in flat)
+        host = [(path_str(p), shd.full_tensor(x).detach().to("cpu", copy=True).numpy()
                  if isinstance(x, torch.Tensor) else np.array(x))
                 for p, x in flat]
+        if sharded and dist.get_rank() != 0:
+            dist.barrier()              # rank 0 commits
+            return
 
         def _write():
             tmp = self.dir / f".tmp_step_{step}"
@@ -149,7 +91,10 @@ class CheckpointManager:
             tmp.rename(final)           # atomic commit
             self._gc()
 
-        if self.async_save:
+        if sharded:
+            _write()
+            dist.barrier()
+        elif self.async_save:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
         else:
@@ -181,11 +126,12 @@ class CheckpointManager:
              mesh=None) -> tuple:
         """Restore into the structure of ``template`` (a nested dict, list
         or NamedTuple tree of tensors): each leaf comes back as a tensor of
-        its stored dtype on the template leaf's device. Returns (tree,
-        step, extra).
-        The reference's re-shard onto a mesh is not ported."""
-        if mesh is not None:
-            raise not_ported("checkpoint load onto a device mesh", "item 19")
+        its stored dtype on the template leaf's device. With ``mesh`` (a
+        ``DeviceMesh``) each leaf is placed on it as a DTensor by its stored
+        spec, the axes the mesh lacks dropped (the elastic re-shard); a leaf
+        stored without a spec takes a DTensor template leaf's placements,
+        or comes back a plain tensor on the mesh's device. Returns (tree,
+        step, extra)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -193,9 +139,19 @@ class CheckpointManager:
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_bytes())
         leaves = {}
-        for path, tmpl in _flatten(template):
+        for path, tmpl in tu.flatten_with_keys(template):
             ent = manifest["leaves"][path_str(path)]
-            arr = np.load(d / ent["file"])
-            dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
-            leaves[path] = torch.from_numpy(arr).to(dev)
-        return _rebuild(template, leaves), manifest["step"], manifest.get("extra", {})
+            x = torch.from_numpy(np.load(d / ent["file"]))
+            if mesh is None:
+                dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
+                leaves[path] = x.to(dev)
+            elif ent["spec"]:
+                spec = shd.resolve_spec([tuple(a) if isinstance(a, list) else a
+                                         for a in ent["spec"]], mesh)
+                leaves[path] = shd.place(x, spec, mesh)
+            elif shd.is_dtensor(tmpl):
+                leaves[path] = shd.like(shd.local_shard(
+                    x.to(mesh.device_type), tmpl.placements, mesh).clone(), tmpl)
+            else:
+                leaves[path] = x.to(mesh.device_type)
+        return tu.rebuild(template, leaves), manifest["step"], manifest.get("extra", {})

@@ -1,7 +1,9 @@
 """Config dataclasses of the port: its own copies of the fields of
 ``repro.configs.base.ModelConfig`` / ``RankConfig`` / ``MoEConfig`` /
 ``MLAConfig`` / ``SSMConfig`` / ``RWKVConfig`` that the port's model
-families read, and of ``TrainConfig``, with the same names and defaults."""
+families and its sharding rules read, and of ``TrainConfig``, with the
+same names and defaults. ``remat``, ``scan_layers``, ``seq_shard`` and
+``seq_shard_attn`` are not ported (ROADMAP item 19)."""
 from __future__ import annotations
 
 import dataclasses
@@ -113,7 +115,13 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = (16, 24, 24)
     dtype: str = "float32"         # activation/compute dtype
     param_dtype: str = "float32"
+    # distribution (repro_torch.dist), in the reference's field order:
+    # sharding mode: 'dp' (replicated params), 'tp' (megatron), 'fsdp'
+    # (params sharded over data too), 'fsdp_tp'
+    sharding: str = "fsdp_tp"
     softmax_dtype: str = "float32"
+    mesh_axes: Tuple[str, ...] = ()  # ambient mesh axes that dist.ctx's specs name
+    cache_seq_shard: bool = False    # split-KV decode: cache M over 'model'
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

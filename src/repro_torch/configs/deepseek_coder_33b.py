@@ -1,7 +1,7 @@
 """deepseek-coder-33b [dense]: 62L d_model=7168 56H (GQA kv=8) d_ff=19200
 vocab=32256, llama-arch. Same values as
-``repro/configs/deepseek_coder_33b.py`` (whose ``remat`` and ``sharding``
-the port does not read)."""
+``repro/configs/deepseek_coder_33b.py`` (whose ``remat`` the
+port does not read)."""
 from repro_torch.configs.base import ModelConfig, RankConfig
 
 

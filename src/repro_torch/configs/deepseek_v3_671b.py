@@ -3,8 +3,8 @@ vocab=129280, MLA, 1 shared + 256 routed top-8, MTP.
 
 First 3 layers dense (d_ff 18432); MoE layers 1 shared + 256 routed experts
 (top-8); MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 / v 128. Same
-values as ``repro/configs/deepseek_v3_671b.py`` (whose ``remat`` and
-``sharding`` the port does not read)."""
+values as ``repro/configs/deepseek_v3_671b.py`` (whose ``remat`` the
+port does not read)."""
 from repro_torch.configs.base import MLAConfig, MoEConfig, ModelConfig, RankConfig
 
 

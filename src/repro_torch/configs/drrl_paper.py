@@ -9,6 +9,7 @@ def full_config() -> ModelConfig:
         num_layers=12, d_model=768, num_heads=12, num_kv_heads=12,
         d_ff=3072, vocab_size=50257, head_dim=64,
         rope_theta=1e4, dtype="float32", param_dtype="float32",
+        sharding="dp",
         rank=RankConfig(mode="drrl", rank_grid=(16, 24, 32, 40, 48, 56, 64),
                         fixed_rank=32, segment_len=512),
     )

@@ -1,7 +1,7 @@
 """granite-moe-3b-a800m [moe]: 32L d_model=1536 24H (GQA kv=8) d_ff=512
 vocab=49155, MoE 40 experts top-8: dense attention and the MoE FFN. Same
-values as ``repro/configs/granite_moe_3b_a800m.py`` (whose ``remat`` and
-``sharding`` the port does not read)."""
+values as ``repro/configs/granite_moe_3b_a800m.py`` (whose ``remat`` the
+port does not read)."""
 from repro_torch.configs.base import MoEConfig, ModelConfig, RankConfig
 
 

@@ -1,6 +1,6 @@
 """internlm2-20b [dense]: 48L d_model=6144 48H (GQA kv=8) d_ff=16384
 vocab=92544, GQA. Same values as ``repro/configs/internlm2_20b.py``
-(whose ``remat`` and ``sharding`` the port does not read)."""
+(whose ``remat`` the port does not read)."""
 from repro_torch.configs.base import ModelConfig, RankConfig
 
 

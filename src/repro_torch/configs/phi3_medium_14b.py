@@ -1,7 +1,7 @@
 """phi3-medium-14b [dense]: 40L d_model=5120 40H (GQA kv=10) d_ff=17920
 vocab=100352, RoPE SwiGLU GQA. Same values as
-``repro/configs/phi3_medium_14b.py`` (whose ``remat`` and ``sharding`` the
-port does not read)."""
+``repro/configs/phi3_medium_14b.py`` (whose ``remat`` the port does not
+read)."""
 from repro_torch.configs.base import ModelConfig, RankConfig
 
 

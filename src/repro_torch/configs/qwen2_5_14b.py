@@ -1,6 +1,6 @@
 """qwen2.5-14b [dense]: 48L d_model=5120 40H (GQA kv=8) d_ff=13824
 vocab=152064, GQA, QKV bias. Same values as ``repro/configs/qwen2_5_14b.py``
-(whose ``remat`` and ``sharding`` the port does not read)."""
+(whose ``remat`` the port does not read)."""
 from repro_torch.configs.base import ModelConfig, RankConfig
 
 

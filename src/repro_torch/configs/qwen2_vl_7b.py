@@ -1,6 +1,6 @@
 """qwen2-vl-7b [vlm]: 28L d_model=3584 28H (GQA kv=4) d_ff=18944
 vocab=152064 — M-RoPE, dynamic resolution. Same values as
-``repro/configs/qwen2_vl_7b.py`` (whose ``remat`` and ``sharding`` the port
+``repro/configs/qwen2_vl_7b.py`` (whose ``remat`` the port
 does not read).
 
 The vision frontend is a stub, as in the reference: the caller supplies

@@ -1,6 +1,6 @@
 """rwkv6-1.6b [rwkv]: 24L d_model=2048 (attn-free) d_ff=7168 vocab=65536 —
 Finch, data-dependent decay. Same values as ``repro/configs/rwkv6_1_6b.py``
-(whose ``remat`` and ``sharding`` the port does not read).
+(whose ``remat`` the port does not read).
 
 DR-RL is inapplicable here (no QK^T score matrix): the model runs without
 the technique, as in the reference."""

@@ -1,7 +1,7 @@
 """seamless-m4t-medium [encdec]: 12L d_model=1024 16H (kv=16) d_ff=4096
 vocab=256206 — enc-dec, multimodal. Same values as
-``repro/configs/seamless_m4t_medium.py`` (whose ``remat`` and ``sharding``
-the port does not read).
+``repro/configs/seamless_m4t_medium.py`` (whose ``remat`` the
+port does not read).
 
 The audio frontend is a stub, as in the reference: the caller supplies
 precomputed frame embeddings (b, src_len, d_model) to the 12L encoder; the

@@ -1,6 +1,6 @@
 """zamba2-7b [hybrid]: 81L d_model=3584 32H (kv=32) d_ff=14336 vocab=32000,
 ssm_state=64 — Mamba2 + shared attn blocks. Same values as
-``repro/configs/zamba2_7b.py`` (whose ``remat`` and ``sharding`` the port
+``repro/configs/zamba2_7b.py`` (whose ``remat`` the port
 does not read).
 
 Realised as 54 Mamba2 blocks + 27 shared-attention invocations (period 2),

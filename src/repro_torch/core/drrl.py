@@ -16,6 +16,7 @@ from repro_torch.configs.base import RankConfig
 from repro_torch.core import lowrank as lr
 from repro_torch.core import perturbation as pert
 from repro_torch.core.policy import init_policy, policy_apply
+from repro_torch.dist import ctx as dctx
 
 # weight_stats' power-iteration start vectors are drawn from a CPU generator
 # seeded with this (the reference draws them from jax.random.PRNGKey(2))
@@ -174,8 +175,9 @@ def make_action_fn(policy_params: dict, rank_cfg: RankConfig, *,
         if greedy:
             a_idx = torch.argmax(logits, dim=-1)
         else:
-            a_idx = torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                      generator=generator)[:, 0]
+            # this rank's rows of the draw over every data rank's rows
+            probs = dctx.gather_rows(torch.softmax(logits, dim=-1))
+            a_idx = dctx.my_rows(torch.multinomial(probs, 1, generator=generator)[:, 0])
         logp = torch.log_softmax(logits, dim=-1)
         logp_a = logp.gather(-1, a_idx[:, None])[:, 0]
         rank_k = grid[a_idx].reshape(b, h)

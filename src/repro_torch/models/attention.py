@@ -24,6 +24,7 @@ from repro_torch.core import baselines
 from repro_torch.core import lowrank as lr
 from repro_torch.core import perturbation as pert
 from repro_torch.core import prng
+from repro_torch.dist import ctx as dctx
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_mrope, apply_rope, cache_update,
                                        kv_group_mean, repeat_kv)
@@ -119,7 +120,9 @@ def heuristic_rank(rank_cfg: RankConfig, ctx: Dict[str, torch.Tensor],
     if rank_cfg.mode == "random":
         if rng is None:
             raise ValueError("rank mode 'random' needs a PRNG key (rank_rng)")
-        idx = prng.randint(rng, k_s2.shape[:2], 0, len(grid))
+        # this rank's rows of the global batch's draw
+        b, hkv = k_s2.shape[:2]
+        idx = dctx.my_rows(prng.randint(rng, (b * dctx.n_data(), hkv), 0, len(grid)))
         return grid_array(rank_cfg, rng.device)[idx.long()].to(k_s2.device)
     raise ValueError(rank_cfg.mode)
 

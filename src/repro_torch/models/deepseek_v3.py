@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.ctx import logits_spec
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.mla import init_mla, init_mla_cache, mla_decode, mla_train
 from repro_torch.models.transformer import _logits, _pick, ffn, init_ffn
@@ -121,10 +122,12 @@ def loss_deepseek(cfg: ModelConfig, params, batch, *, mtp_weight: float = 0.3,
     cross-entropy on the labels shifted once more, plus the auxiliary
     loss; returns (loss, aux)."""
     logits, aux = forward_deepseek(cfg, params, batch["tokens"], **kw)
-    loss = nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    spec = logits_spec(cfg)
+    loss = nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                    spec=spec)
     if "mtp_logits" in aux:
         loss = loss + mtp_weight * nn.softmax_cross_entropy(
-            aux["mtp_logits"], batch["labels"][:, 1:])
+            aux["mtp_logits"], batch["labels"][:, 1:], spec=spec)
     return loss + aux["aux_loss"], aux
 
 

@@ -19,6 +19,7 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import drrl
+from repro_torch.dist.ctx import logits_spec
 from repro_torch.models.attention import mhsa
 from repro_torch.models.common import apply_rope, repeat_kv
 from repro_torch.models.transformer import _pick, init_attn, init_ffn, make_rank_ctx
@@ -156,7 +157,8 @@ def loss_encdec(cfg: ModelConfig, params, batch, **kw):
     """Mean cross-entropy of batch {'frames', 'tokens', 'labels'[, 'mask']};
     returns (loss, aux)."""
     logits, aux = forward_encdec(cfg, params, batch["frames"], batch["tokens"], **kw)
-    return nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask")), aux
+    return nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                    spec=logits_spec(cfg)), aux
 
 
 def init_cache_encdec(cfg: ModelConfig, batch: int, max_len: int, src_len: int, *,

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import ctx as dctx
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype, *, device,
@@ -83,20 +84,26 @@ def _expert_counts(idx: torch.Tensor, n: int) -> torch.Tensor:
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (b, s, d) -> (y, {'aux_loss'}); every one of the b s rows is
-    routed and takes capacity, as in the reference."""
+    routed and takes capacity, as in the reference. Under
+    ``dist.ctx.data_parallel`` the rows are this rank's of the global
+    batch: the capacity counts every data rank's rows, the pairs of lower
+    data ranks take their slots first, and ``aux_loss`` is this rank's
+    share of the global loss."""
     m = cfg.moe
     b, s, d = x.shape
     T = b * s
     E, K = m.num_experts, m.top_k
-    C = max(int(T * K / E * m.capacity_factor), 1)
+    C = max(int(T * dctx.n_data() * K / E * m.capacity_factor), 1)
     dev = x.device
 
     xf = x.reshape(T, d)
     probs, idx, gates = route(cfg, p, xf)
 
     # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(0)                                            # (E,)
-    ce = _expert_counts(idx, E).float().mean(0)                   # (E,)
+    # (every data rank holds T rows: the global means are the ranks' means
+    # over n; me is this rank's share, ce the global fraction)
+    me = probs.mean(0) / dctx.n_data()                            # (E,)
+    ce = dctx.global_sum(_expert_counts(idx, E).float().mean(0)) / dctx.n_data()
     aux_loss = m.router_aux_coef * E * (me * ce).sum()
 
     # sort-based dispatch
@@ -108,7 +115,8 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
         0, flat_e, torch.ones_like(flat_e))
     starts = counts.cumsum(0) - counts                            # exclusive
     pos = torch.arange(T * K, device=dev) - starts[se]            # slot in expert
-    keep = pos < C
+    # the pairs of lower data ranks come first in the global order
+    keep = pos + dctx.sum_before(counts)[se] < C
     slot = torch.where(keep, se * C + pos.clamp(0, C - 1),
                        torch.full_like(se, E * C))                # E C = trash
 

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.ctx import logits_spec
 from repro_torch.models.rwkv6 import init_rwkv_block, init_rwkv_state, rwkv_block
 from repro_torch.models.transformer import _pick
 
@@ -50,7 +51,8 @@ def loss_rwkv(cfg: ModelConfig, params, batch, **kw):
     """Mean next-token cross-entropy of batch {'tokens', 'labels'[, 'mask']};
     the rank arguments are ignored, as in the reference. Returns (loss, {})."""
     logits, _ = forward_rwkv(cfg, params, batch["tokens"])
-    return nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask")), {}
+    return nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                    spec=logits_spec(cfg)), {}
 
 
 def init_cache_rwkv(cfg: ModelConfig, batch: int, *, device="cuda") -> Any:

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import baselines, drrl, prng
+from repro_torch.dist.ctx import logits_spec
 from repro_torch.kernels.ops import decode_attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import attend, mhsa
@@ -295,7 +296,7 @@ def loss_dense(cfg: ModelConfig, params, batch, **kw):
     logits, aux = forward_dense(cfg, params, batch["tokens"], **kw)
     n_txt = batch["labels"].shape[1]
     loss = nn.softmax_cross_entropy(logits[:, -n_txt:], batch["labels"],
-                                    batch.get("mask"))
+                                    batch.get("mask"), spec=logits_spec(cfg))
     if "aux_loss" in aux["layers"]:
         loss = loss + aux["layers"]["aux_loss"].mean()
     return loss, aux

@@ -16,6 +16,7 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import drrl
+from repro_torch.dist.ctx import logits_spec
 from repro_torch.models.attention import mhsa
 from repro_torch.models.mamba2 import init_mamba_block, init_mamba_state, mamba_block
 from repro_torch.models.transformer import _pick, init_attn, init_ffn, make_rank_ctx
@@ -176,4 +177,5 @@ def loss_zamba(cfg: ModelConfig, params, batch, **kw):
     """Mean next-token cross-entropy of batch {'tokens', 'labels'[, 'mask']};
     returns (loss, {})."""
     logits, _ = forward_zamba(cfg, params, batch["tokens"], **kw)
-    return nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask")), {}
+    return nn.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                    spec=logits_spec(cfg)), {}

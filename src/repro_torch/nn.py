@@ -8,6 +8,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import ctx as dctx
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -56,14 +58,18 @@ def swiglu(x, w_gate, w_up, w_down):
     return linear(F.silu(linear(x, w_gate)) * linear(x, w_up), w_down)
 
 
-def softmax_cross_entropy(logits, labels, mask=None):
+def softmax_cross_entropy(logits, labels, mask=None, spec=None):
     """Mean token cross-entropy of (..., V) logits in f32 against integer
-    ``labels`` (...); with ``mask`` (...), the mask-weighted mean."""
-    logits = logits.float()
+    ``labels`` (...); with ``mask`` (...), the mask-weighted mean.
+    ``spec`` pins the placement of DTensor logits (``dist.ctx.pin``; a
+    plain tensor is left as it is). Under ``dist.ctx.data_parallel`` the
+    mean divides by the count over every data rank's rows, so each rank
+    returns its share of the global mean."""
+    logits = dctx.pin(logits, spec).float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - ll
     if mask is not None:
         mask = mask.to(nll.dtype)
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return nll.mean()
+        return (nll * mask).sum() / dctx.global_sum(mask.sum()).clamp_min(1.0)
+    return nll.mean() / dctx.n_data()

@@ -35,8 +35,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tu.leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    g = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, g=None):
+    """``grads`` scaled to global norm at most ``max_norm``, and the norm
+    (``g`` where the caller computed it, as the sharded step does over
+    every rank's shards)."""
+    if g is None:
+        g = global_norm(grads)
     factor = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
     return tu.tree_map(lambda x: x * factor, grads), g
 
@@ -51,11 +55,13 @@ def _decay_mask(path: str) -> bool:
     return not last.startswith(_WD_EXEMPT)
 
 
-def update(tc: TrainConfig, lr_fn: Callable, state: AdamWState, params, grads
-           ) -> Tuple[object, AdamWState, dict]:
+def update(tc: TrainConfig, lr_fn: Callable, state: AdamWState, params, grads,
+           grad_norm=None) -> Tuple[object, AdamWState, dict]:
     """One step: returns (params, state, {'grad_norm', 'lr'}). The bias
-    corrections are computed on the f32 step, as in the reference."""
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    corrections are computed on the f32 step, as in the reference.
+    ``grad_norm``, where given, is the global norm to clip by (the sharded
+    step passes the norm over every rank's shards)."""
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, grad_norm)
     step = state.step + 1
     lr = lr_fn(step)
     b1, b2, eps = tc.b1, tc.b2, tc.eps

@@ -21,7 +21,10 @@ dense configs and the MoE family import (``models.moe``, ``mla``,
 ``deepseek_v3`` and their configs), every arch id gives its config,
 reduced granite serves and reduced DeepSeek-V3 computes its loss (with
 MTP) and decodes, and reduced zamba2, rwkv6, seamless and qwen2-vl each
-compute a loss and a cached decode step."""
+compute a loss and a cached decode step. The distribution layer
+(``repro_torch.dist.*``, ``launch.mesh``) imports, and on a one-rank gloo
+``make_host_mesh`` reduced granite's params are placed by ``param_pspecs``
+(``distribute``) and take one sharded training step."""
 import os
 import subprocess
 import sys
@@ -44,6 +47,8 @@ assert {"repro_torch.train.loop", "repro_torch.data.text", "repro_torch.launch.t
         "repro_torch.checkpoint.manager"} <= set(names), names
 assert {"repro_torch.analysis." + m for m in ("callgraph", "fixtures", "pragmas", "registry",
         "report", "rules", "sanitizer")} <= set(names), names
+assert {"repro_torch.dist." + m for m in ("ctx", "pipeline", "ring_attention", "sharding")} | {
+    "repro_torch.launch.mesh"} <= set(names), names
 assert {"repro_torch.models." + m for m in ("moe", "mla", "deepseek_v3")} | {
     "repro_torch.configs." + m for m in ("qwen2_5_14b", "internlm2_20b", "phi3_medium_14b",
     "deepseek_coder_33b", "granite_moe_3b_a800m", "deepseek_v3_671b")} <= set(names), names
@@ -180,6 +185,18 @@ eng = Engine(gcfg, gp, device="cpu", config=EngineConfig(
 hg = [eng.submit(np.arange(n) % 256, SamplingParams(max_new=5)) for n in (9, 20)]
 eng.run()
 assert [len(h.result()) for h in hg] == [5, 5]
+from repro_torch.configs.base import TrainConfig   # the distribution layer, one gloo rank
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.optim import adamw
+from repro_torch.train.loop import make_train_step
+mesh = make_host_mesh("cpu")
+gd = shd.distribute(gp, shd.param_pspecs(gp, gcfg, mesh), mesh)
+gstep = make_train_step(gcfg, TrainConfig(global_batch=2, seq_len=16, warmup_steps=1,
+                                          total_steps=1), lambda p, b, r: get_model(gcfg).loss(p, b))
+gtok = torch.arange(2 * 16).reshape(2, 16) % 256
+gd, gopt, gm = gstep(gd, adamw.init(gd), {"tokens": gtok, "labels": gtok}, None)
+assert shd.is_dtensor(gd["embed"]) and torch.isfinite(gm["loss"]) and int(gopt.step) == 1
 dcfg = get_config("deepseek-v3-671b", reduced=True)
 dfns = get_model(dcfg)
 dp = dfns.init(torch.Generator().manual_seed(0), device="cpu")

@@ -170,8 +170,18 @@ def test_checkpoint_jax_to_torch(tmp_path):
             "step": torch.tensor(7, dtype=torch.int32),
             "mixed": [torch.arange(3)]}
     _tree_equal(got, want)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        port.load(template, mesh=object())
+    # onto a one-rank gloo host mesh: the same values (the leaves were saved
+    # without specs, so they come back plain tensors on the mesh's device)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    own_group = not dist.is_initialized()
+    try:
+        got_m, step_m, _ = port.load(template, mesh=make_host_mesh("cpu"))
+    finally:
+        if own_group:      # leave the worker without the group it started
+            dist.destroy_process_group()
+    assert step_m == 3
+    _tree_equal(got_m, want)
 
 
 def test_checkpoint_torch_to_jax(tmp_path):
