@@ -10,9 +10,10 @@ Usage:
     PYTHONPATH=src python -m benchmarks.torch_run [--quick] [--only table1]
     PYTHONPATH=src python -m benchmarks.torch_run --smoke --device cpu
 
-The reference's ``serve`` (the serving benchmark) and ``roofline`` (XLA
-dry-run artifacts) are not ported here: ``--only`` names their ROADMAP
-items.
+``roofline`` reads the dry run's artifacts (``python -m
+repro_torch.launch.dryrun``; ``no_dryrun_artifacts`` without them). The
+reference's ``serve`` (the serving benchmark) is not ported here:
+``--only serve`` names its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,6 +37,14 @@ def _table1(res):
             f"drrl_flops_frac={drrl['attn_flops_frac']}")
 
 
+def _roofline(rows):
+    if not rows:
+        return "no_dryrun_artifacts"
+    best = max(rows, key=lambda r: r["roofline_frac"])
+    return (f"cells={len(rows)};best={best['arch']}/{best['cell']}"
+            f"@{100 * best['roofline_frac']:.1f}%")
+
+
 def _fig5(res):
     tr_frac = float(np.mean(np.asarray(res["trust_region"], dtype=float)))
     return f"trust_region_frac={tr_frac:.3f}"
@@ -57,10 +66,10 @@ BENCHES = {
     "fig4": ("benchmarks.torch_fig4_flops_scaling",
              lambda res: f"reduction_at_L4096={res['claim_L4096_reduction_pct']}%"),
     "fig5": ("benchmarks.torch_fig5_perturbation", _fig5),
+    "roofline": ("benchmarks.torch_roofline", _roofline),
 }
 NOT_PORTED = {
     "serve": "the serving benchmark is the port's benchmark PR (ROADMAP item 15)",
-    "roofline": "it reads XLA dry-run artifacts (ROADMAP item 19, distribution)",
 }
 
 

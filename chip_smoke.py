@@ -240,6 +240,21 @@ Phases (one line each, plus detail lines):
      ``kernels/ref.py:flash_ref`` within 2e-5; (d) ``launch.train.main``, 2
      steps, its checkpoint's specs equal to ``param_pspecs`` on the host
      mesh. Neither kernel launches (training runs unchunked).
+ 23. the dry run (``repro_torch.launch.dryrun``; ``tools/dryrun_smoke.py``
+     runs it alone): (a) qwen2.5-14b's three cells (train_4k, prefill_32k,
+     decode_32k) at full depth and width on the single production mesh
+     (rank 0 of a fake 256-rank group), traced with fake 'cuda' tensors and
+     with fake 'cpu' ones, each in a subprocess of its own: FLOPs, bytes,
+     collectives and memory equal, the roofline rows and trace seconds
+     printed; (b) qwen2.5-14b cut to 2 layers at full widths, train_4k and
+     decode_32k, each at the largest power-of-two batch whose one-rank
+     prediction peaks at most 60 GB (else 1, if that fits 85 % of the
+     card), run for real on a one-rank NCCL host mesh: FlopCounterMode's
+     count equal to the prediction, the placed inputs' bytes equal to its
+     argument bytes, its peak beside ``max_memory_allocated``, the median
+     of 3 event-timed steps beside the roofline bound; prefill_32k's
+     prediction printed, not run (it fits no card unchunked). Neither kernel
+     launches (the cells run unchunked, as the reference's).
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 phase fails. The last line is
@@ -284,8 +299,11 @@ from repro_torch.dist.ring_attention import make_ring_attention  # noqa: E402
 from repro_torch.kernels import build, decode_attn, lowrank_flash, ops  # noqa: E402
 from repro_torch.kernels.ops import reset_launches  # noqa: E402
 from repro_torch.kernels.ref import flash_ref  # noqa: E402
+from repro_torch.configs import cells_for  # noqa: E402
+from repro_torch.configs.base import ShapeCell  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.launch.mesh import BACKENDS, make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import BACKENDS, make_fake_mesh, make_host_mesh  # noqa: E402
 from repro_torch.models import encdec, lowrank_cache, rwkv6, rwkv_lm, zamba2  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.deepseek_v3 import forward_deepseek  # noqa: E402
@@ -5067,6 +5085,203 @@ def check_distribution(paper, agent, card_name) -> dict:
     return {"launches": launches}
 
 
+# -- phase 23 ----------------------------------------------------------------
+
+DRYRUN_ARCH = "qwen2.5-14b"
+DRYRUN_REAL = {"num_layers": 2}        # 23b: full widths, cut in depth
+DRYRUN_BUDGET = 60e9                   # 23b: predicted peak bytes for a batch
+DRYRUN_CARD_SHARE = 0.85               # ... or, at batch 1, this share of the card
+DRYRUN_CELLS = {"train_4k": ShapeCell("train_4k", 4096, 1, "train"),
+                "decode_32k": ShapeCell("decode_32k", 32768, 1, "decode"),
+                "prefill_32k": ShapeCell("prefill_32k", 32768, 1, "prefill")}
+
+
+def start_dryrun_traces():
+    """23a's two subprocesses: ``launch.dryrun`` over DRYRUN_ARCH's cells on
+    the single production mesh, with fake tensors on the card's device type
+    and on the CPU; each writes its artifacts under its own tag."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    procs = {}
+    for tag, dev in (("__smoke_card", torch.device(DEV).type), ("__smoke_cpu", "cpu")):
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+             "--mesh", "single", "--force", "--device", dev, "--tag", tag],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def check_dryrun_traces(procs, card_name) -> dict:
+    """23a: both traces of every cell agree in every count; the roofline
+    rows (one H100's published peaks) and the trace seconds."""
+    from benchmarks import torch_roofline
+    recs = {}
+    for tag, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        for line in out.splitlines():
+            log(f"  [{tag}] {line}")
+        assert proc.returncode == 0, (tag, proc.returncode)
+        recs[tag] = {}
+        for c in cells_for(DRYRUN_ARCH):
+            path = dryrun.ART_DIR / f"{DRYRUN_ARCH}__{c.name}__single{tag}.json"
+            recs[tag][c.name] = json.loads(path.read_text())
+            path.unlink()
+    card_tag, cpu_tag = list(procs)
+    rows = {}
+    for cell, rec in recs[card_tag].items():
+        other = recs[cpu_tag][cell]
+        for key in ("flops", "bytes_accessed", "collectives", "memory"):
+            assert rec[key] == other[key], (cell, key, rec[key], other[key])
+        row = torch_roofline.analyse(rec)
+        rows[cell] = {k: row[k] for k in ("compute_s", "memory_s", "collective_s",
+                                          "dominant", "useful_ratio", "roofline_frac")}
+        rows[cell].update(trace_s={card_tag: rec["trace_s"], cpu_tag: other["trace_s"]},
+                          flops=rec["flops"], bytes=rec["bytes_accessed"],
+                          collective_bytes=rec["collectives"]["total"],
+                          argument_gib=rec["memory"]["argument_bytes"] / 2 ** 30,
+                          temp_gib=rec["memory"]["temp_bytes"] / 2 ** 30)
+        log(f"  {DRYRUN_ARCH} {cell} on (data 16, model 16), fake {rec['device']} = fake "
+            f"cpu in every count: FLOPs {rec['flops']:.4e}, bytes {rec['bytes_accessed']:.4e}, "
+            f"collectives {rec['collectives']['total']:.4e} B; arguments "
+            f"{rows[cell]['argument_gib']:.2f} GiB, temporaries {rows[cell]['temp_gib']:.2f} GiB "
+            f"per rank; roofline compute {row['compute_s']:.4g} s, memory "
+            f"{row['memory_s']:.4g} s, collective {row['collective_s']:.4g} s: "
+            f"{row['dominant']}; traced in {rec['trace_s']} / {other['trace_s']} s")
+    log(f"  roofline priced at {torch_roofline.header()}; the card here: {card_name}")
+    return rows
+
+
+def dryrun_predictions(device) -> dict:
+    """23b's one-rank predictions: each cell of DRYRUN_CELLS, DRYRUN_REAL
+    applied, traced on a fake (1, 1) mesh at batch 1, 2, 4, ... until the
+    predicted peak passes DRYRUN_BUDGET (prefill at batch 1 only)."""
+    import torch.distributed as dist
+    out = {}
+    for name, cell in DRYRUN_CELLS.items():
+        b = 1
+        while True:
+            mesh = make_fake_mesh((1, 1), ("data", "model"), device)
+            try:
+                rec = dryrun.trace_step(DRYRUN_ARCH, dataclasses.replace(cell, global_batch=b),
+                                        mesh, overrides=DRYRUN_REAL, device=device)
+            finally:
+                dist.destroy_process_group()
+            rec["peak_bytes"] = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+            out.setdefault(name, {})[b] = rec
+            if cell.kind == "prefill" or rec["peak_bytes"] > DRYRUN_BUDGET:
+                break
+            b *= 2
+    return out
+
+
+def pick_batch(preds: dict, card_bytes: int):
+    """The largest batch predicted at most DRYRUN_BUDGET, else batch 1 if it
+    fits DRYRUN_CARD_SHARE of the card, else None."""
+    fits = [b for b, r in preds.items() if r["peak_bytes"] <= DRYRUN_BUDGET]
+    if fits:
+        return max(fits)
+    return 1 if preds[1]["peak_bytes"] <= DRYRUN_CARD_SHARE * card_bytes else None
+
+
+def check_dryrun_real(preds, card_name) -> dict:
+    """23b: each cell run for real on a one-rank NCCL host mesh at the batch
+    its prediction picks, against that prediction."""
+    from benchmarks import torch_roofline
+    from torch.utils.flop_counter import FlopCounterMode
+    import torch.distributed as dist
+    mesh = make_host_mesh(DEV)
+    assert dist.get_backend() == BACKENDS[torch.device(DEV).type], dist.get_backend()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    peak_flops = torch_roofline.PEAKS[get_config(DRYRUN_ARCH).dtype]
+    out = {}
+    for name, cell in DRYRUN_CELLS.items():
+        b = pick_batch(preds[name], card_bytes)
+        for bb, r in preds[name].items():
+            log(f"  {name} batch {bb}: predicted peak {r['peak_bytes'] / 1e9:.2f} GB (arguments "
+                f"{r['memory']['argument_bytes'] / 1e9:.2f} GB), FLOPs {r['flops']:.4e}, "
+                f"bytes {r['bytes_accessed']:.4e}")
+        if b is None:
+            log(f"  {name}: not run; batch 1 is predicted at "
+                f"{preds[name][1]['peak_bytes'] / 1e9:.2f} GB, past "
+                f"{DRYRUN_CARD_SHARE:.0%} of the card's {card_bytes / 1e9:.2f} GB")
+            out[name] = {"run": False, "predicted_peak_gb": preds[name][1]["peak_bytes"] / 1e9}
+            continue
+        pred = preds[name][b]
+        free_memory()
+        reset_launches()
+        base = torch.cuda.memory_allocated()
+        fn, args = dryrun.build_cell(DRYRUN_ARCH, dataclasses.replace(cell, global_batch=b),
+                                     mesh, overrides=DRYRUN_REAL, device=DEV)
+        inputs = dryrun.local_tensors(args)
+        for x in inputs:
+            x.zero_()                            # valid tokens; values do not change the counts
+        arg_bytes = dryrun.storage_bytes(inputs)
+        assert arg_bytes == pred["memory"]["argument_bytes"], (name, arg_bytes, pred["memory"])
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            res = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert fc.get_total_flops() == pred["flops"], (name, fc.get_total_flops(), pred["flops"])
+        assert all(torch.isfinite(x).all() for x in dryrun.local_tensors(res)
+                   if x.is_floating_point())
+        del res
+        ms = []
+        for _ in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(*args)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            del res
+        launches = {"flash_decode": decode_attn.LAUNCHES["flash_decode"],
+                    "lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"]}
+        assert launches == {"flash_decode": 0, "lowrank_flash": 0}, launches
+        terms = {"compute_ms": pred["flops"] / peak_flops * 1e3,
+                 "memory_ms": pred["bytes_accessed"] / torch_roofline.HBM_BW * 1e3}
+        bound = max(terms.values())
+        med = statistics.median(ms)
+        out[name] = {"run": True, "batch": b, "flops": pred["flops"],
+                     "argument_bytes": arg_bytes, "allocated_bytes": allocated,
+                     "predicted_peak_bytes": pred["peak_bytes"], "max_memory_allocated": peak,
+                     "peak_ratio": peak / pred["peak_bytes"], "ms": ms, "median_ms": med,
+                     **terms, "bound_ms": bound, "share_of_bound": bound / med}
+        log(f"  {DRYRUN_ARCH} x {DRYRUN_REAL['num_layers']} layers {name} at batch {b}, one "
+            f"NCCL rank: FLOPs {fc.get_total_flops():.4e} = predicted; inputs {arg_bytes / 1e9:.3f}"
+            f" GB = predicted ({allocated / 1e9:.3f} GB allocated); peak "
+            f"{peak / 1e9:.2f} GB against {pred['peak_bytes'] / 1e9:.2f} GB predicted (ratio "
+            f"{peak / pred['peak_bytes']:.4f}); step {[round(t, 2) for t in ms]} ms, median "
+            f"{med:.2f} ms against the eager, unfused program's {max(terms, key=terms.get)[:-3]} "
+            f"bound of {bound:.2f} ms ({bound / med:.1%} of it) [{card_name}]")
+        del fn, args, inputs
+    return out
+
+
+def check_dryrun(card_name) -> dict:
+    """Phase 23: 23a's traces in two subprocesses while 23b's predictions
+    run here; then 23b's real steps, once the subprocesses are done."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    procs = start_dryrun_traces()
+    try:
+        preds = dryrun_predictions(torch.device(DEV).type)
+        traces = check_dryrun_traces(procs, card_name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_traces = time.perf_counter() - t0
+    phase("  the one-rank steps run for real")
+    real = check_dryrun_real(preds, card_name)
+    dist.destroy_process_group()
+    log("phase 23 numbers: " + json.dumps({
+        "production_mesh": traces, "real": real, "traces_s": t_traces, "card": card_name}))
+    return {"traces": traces, "real": real}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -5076,7 +5291,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     log(card_name)
-    phase(f"[1/22] card and build: {torch.cuda.get_device_name(0)}, torch "
+    phase(f"[1/23] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "lowrank_flash"]
     secs = build.build(sources)
@@ -5085,10 +5300,10 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
 
-    phase("[2/22] flash_decode kernel vs its plain version on the card")
+    phase("[2/23] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
 
-    phase("[3/22] full-width drrl-paper serving through Engine, kernel on")
+    phase("[3/23] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
         rank=RankConfig(mode="adaptive", rank_grid=GRID, segment_len=32))
     t0 = time.perf_counter()
@@ -5105,26 +5320,26 @@ def main() -> int:
     check_serving(fixed, params, "fixed rank 32", card_name)
     check_small_reference()
 
-    phase("[4/22] full-width engine step: kernel vs plain attention")
+    phase("[4/23] full-width engine step: kernel vs plain attention")
     check_engine_step(cfg, params)
 
-    phase("[5/22] times at the serving shapes")
+    phase("[5/23] times at the serving shapes")
     t_dec = time_kernel(MAIN_DECODE, card_name)
     t_chunk = time_kernel(MAIN_CHUNK, card_name)
     t_draft = time_kernel(MAIN_DRAFT, card_name)
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/22] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/23] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
 
-    phase("[7/22] full-width forward_dense(chunked=True), 2 x 4096 tokens")
+    phase("[7/23] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
 
-    phase("[8/22] one-shot serving (prefill_chunk=None) vs the chunked run")
+    phase("[8/23] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/22] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/23] lowrank_flash times at the forward shapes; the forwards by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
@@ -5133,17 +5348,17 @@ def main() -> int:
     paper = get_config("drrl-paper")
     agent = drrl.init_agent(torch.Generator(device=DEV).manual_seed(7), paper.rank,
                             paper.d_model, device=DEV)
-    phase("[10/22] full-width forward_dense(chunked=True) in rank mode 'drrl', "
+    phase("[10/23] full-width forward_dense(chunked=True) in rank mode 'drrl', "
           "2 x 4096 tokens")
     drrl_flash = check_drrl_forward(paper, params, agent, card_name)
 
-    phase("[11/22] full-width drrl-paper serving in rank mode 'drrl', kernel on")
+    phase("[11/23] full-width drrl-paper serving in rank mode 'drrl', kernel on")
     drrl_decode = check_drrl_serving(paper, params, agent, card_name)
 
-    phase("[12/22] the agent's training at full width: BC from the greedy oracle, then PPO")
+    phase("[12/23] the agent's training at full width: BC from the greedy oracle, then PPO")
     train_flash = check_training(paper, params, agent, card_name)
 
-    phase("[13/22] full-width sampled serving: adaptive (run A), random with the drift "
+    phase("[13/23] full-width sampled serving: adaptive (run A), random with the drift "
           "trigger and cancels (run B)")
     sampled_decode, tail_ms, run_a = check_sampled_serving(cfg, params, outs, st_adaptive,
                                                           card_name)
@@ -5154,7 +5369,7 @@ def main() -> int:
     phase("  reduced sampled run, card vs CPU")
     check_sampled_reference()
 
-    phase("[14/22] full-width forwards of the comparison set (2 x 4096) and the "
+    phase("[14/23] full-width forwards of the comparison set (2 x 4096) and the "
           "rank-r cache")
     comp = check_comparison_forwards(cfg, params, card_name)
     lr_ms = check_lowrank_cache(cfg, params, card_name)
@@ -5163,7 +5378,7 @@ def main() -> int:
         "comparison_forward_ms": comp["walls"], "lowrank_cache_decode_ms": lr_ms,
         "card": card_name}))
 
-    phase("[15/22] full-width speculative decoding and the prefix cache")
+    phase("[15/23] full-width speculative decoding and the prefix cache")
     spec = check_spec_serving(cfg, params, outs_f, st_f, card_name)
     phase("  speculative, sampled")
     spec_sampled = check_spec_sampled(cfg, params, run_a, card_name)
@@ -5175,7 +5390,7 @@ def main() -> int:
         "speculative": spec, "speculative_sampled": spec_sampled, "prefix": prefix,
         "card": card_name}))
 
-    phase("[16/22] the serving front end at full width: traces, the learned policy, "
+    phase("[16/23] the serving front end at full width: traces, the learned policy, "
           "FrontEnd, Router")
     out = os.path.join(ROOT, ".scratch", "phase16")
     shutil.rmtree(out, ignore_errors=True)
@@ -5196,33 +5411,39 @@ def main() -> int:
         "traced": traced, "trained": trained, "learned_frontend": learned,
         "router": routed, "cli": cli, "card": card_name}))
 
-    phase("[17/22] the LM training stack at full width")
+    phase("[17/23] the LM training stack at full width")
     lm = check_lm_training(paper, agent, card_name)
 
-    phase("[18/22] the paper's tables and figures")
+    phase("[18/23] the paper's tables and figures")
     tables = check_tables(paper, agent, card_name)
 
-    phase("[19/22] the invariant checker: the static pass, the runtime sanitizer at "
+    phase("[19/23] the invariant checker: the static pass, the runtime sanitizer at "
           "full width, its negative control, the serving run's sync sites")
     sanitizer_launches = check_invariants(cfg, params, card_name)
 
     del params
     free_memory()
-    phase("[20/22] the dense configs and the MoE family at full width: qwen2.5-14b and "
+    phase("[20/23] the dense configs and the MoE family at full width: qwen2.5-14b and "
           "granite served, internlm2, phi3, deepseek-coder cut in depth, DeepSeek-V3 "
           "with MLA and MTP")
     fam = check_families(card_name)
 
-    phase("[21/22] the remaining families at full width: zamba2-7b (Mamba2 and the shared "
+    phase("[21/23] the remaining families at full width: zamba2-7b (Mamba2 and the shared "
           "attention), rwkv6-1.6b, seamless-m4t-medium, qwen2-vl-7b (M-RoPE)")
     rec = check_recurrent_families(card_name)
 
     free_memory()
-    phase("[22/22] distribution on the card, a one-rank NCCL group: the sharded training "
+    phase("[22/23] distribution on the card, a one-rank NCCL group: the sharded training "
           "step, the checkpoint round trip, ring attention and the pipeline, the CLI")
     dist_out = check_distribution(paper, agent, card_name)
     import torch.distributed as dist
     dist.destroy_process_group()
+
+    free_memory()
+    phase("[23/23] the dry run: qwen2.5-14b's cells on the (16, 16) production mesh, fake "
+          "'cuda' against fake 'cpu'; 2-layer steps on one NCCL rank against their "
+          "predictions")
+    check_dryrun(card_name)
 
     phase("all phases passed")
     print(json.dumps({"kernels": [

@@ -3,8 +3,9 @@ architecture of the reference (``repro.configs._ARCH_MODULES``)."""
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import (MLAConfig, MoEConfig, ModelConfig, RankConfig,
-                                      RWKVConfig, SSMConfig, TrainConfig)
+from repro_torch.configs.base import (LONG_CONTEXT_ARCHS, SHAPE_CELLS, MLAConfig,
+                                      MoEConfig, ModelConfig, RankConfig, RWKVConfig,
+                                      ShapeCell, SSMConfig, TrainConfig)
 
 # arch id -> the port's config module
 _ARCH_MODULES: Dict[str, str] = {
@@ -29,5 +30,13 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return mod.reduced_config() if reduced else mod.full_config()
 
 
-__all__ = ["ARCH_IDS", "MLAConfig", "MoEConfig", "ModelConfig", "RankConfig",
-           "RWKVConfig", "SSMConfig", "TrainConfig", "get_config"]
+def cells_for(arch: str):
+    """The assigned shape cells this arch runs: ``long_500k`` only for the
+    sub-quadratic mixers (``LONG_CONTEXT_ARCHS``)."""
+    return [cell for cell in SHAPE_CELLS
+            if cell.name != "long_500k" or arch in LONG_CONTEXT_ARCHS]
+
+
+__all__ = ["ARCH_IDS", "LONG_CONTEXT_ARCHS", "MLAConfig", "MoEConfig", "ModelConfig",
+           "RankConfig", "RWKVConfig", "SHAPE_CELLS", "SSMConfig", "ShapeCell",
+           "TrainConfig", "cells_for", "get_config"]

@@ -203,3 +203,27 @@ class TrainConfig:
     checkpoint_dir: str = "/tmp/repro_ckpt"
     async_checkpoint: bool = True
     log_every: int = 10
+
+
+# ---------------------------------------------------------------------------
+# The assigned input-shape cells (seq_len, global_batch, kind) of the dry run
+# (``repro.configs.base``'s, value for value)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+# archs allowed to run the long_500k cell (sub-quadratic sequence mixing)
+LONG_CONTEXT_ARCHS = ("zamba2-7b", "rwkv6-1.6b")

@@ -272,9 +272,34 @@ def test_fig5_heatmap_matches_jax(ref):
 
 
 def test_runner_names_unported_benchmarks():
-    for name, item in (("serve", "item 15"), ("roofline", "item 19")):
-        with pytest.raises(SystemExit, match=item):
-            torch_run.main(["--only", name, "--device", "cpu"])
+    assert list(torch_run.NOT_PORTED) == ["serve"]
+    with pytest.raises(SystemExit, match="item 15"):
+        torch_run.main(["--only", "serve", "--device", "cpu"])
+
+
+def test_runner_roofline_reads_dry_run_artifacts(tmp_path, monkeypatch, capsys):
+    """``--only roofline`` on the artifacts of a reduced dry run (qwen2.5-14b's
+    decode cell on the single production mesh); without artifacts it says so."""
+    from benchmarks import torch_roofline
+    from repro_torch.configs import SHAPE_CELLS
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch_roofline, "ART", tmp_path)
+    torch_run.main(["--only", "roofline", "--device", "cpu"])
+    assert capsys.readouterr().out.splitlines()[-1].endswith(",no_dryrun_artifacts")
+    monkeypatch.setattr(dryrun, "ART_DIR", tmp_path)
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda arch, reduced=False: tget_config(arch, reduced=True))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert dryrun.run_cell("qwen2.5-14b", SHAPE_CELLS[2], "single", device="cpu")["ok"]
+    finally:
+        torch.set_num_threads(n)
+    torch_run.main(["--only", "roofline", "--device", "cpu"])
+    name, us, derived = capsys.readouterr().out.splitlines()[-1].split(",")
+    assert name == "roofline" and float(us) > 0
+    assert derived.startswith("cells=1;best=qwen2.5-14b/decode_32k@"), derived
 
 
 def test_runner_smoke_on_cpu():

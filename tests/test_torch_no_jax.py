@@ -24,7 +24,10 @@ MTP) and decodes, and reduced zamba2, rwkv6, seamless and qwen2-vl each
 compute a loss and a cached decode step. The distribution layer
 (``repro_torch.dist.*``, ``launch.mesh``) imports, and on a one-rank gloo
 ``make_host_mesh`` reduced granite's params are placed by ``param_pspecs``
-(``distribute``) and take one sharded training step."""
+(``distribute``) and take one sharded training step. The dry run
+(``launch.dryrun``) and its roofline, forensics and hillclimb
+(``benchmarks/torch_roofline.py``, ``torch_forensics.py``,
+``torch_hillclimb.py``) import."""
 import os
 import subprocess
 import sys
@@ -48,7 +51,7 @@ assert {"repro_torch.train.loop", "repro_torch.data.text", "repro_torch.launch.t
 assert {"repro_torch.analysis." + m for m in ("callgraph", "fixtures", "pragmas", "registry",
         "report", "rules", "sanitizer")} <= set(names), names
 assert {"repro_torch.dist." + m for m in ("ctx", "pipeline", "ring_attention", "sharding")} | {
-    "repro_torch.launch.mesh"} <= set(names), names
+    "repro_torch.launch.mesh", "repro_torch.launch.dryrun"} <= set(names), names
 assert {"repro_torch.models." + m for m in ("moe", "mla", "deepseek_v3")} | {
     "repro_torch.configs." + m for m in ("qwen2_5_14b", "internlm2_20b", "phi3_medium_14b",
     "deepseek_coder_33b", "granite_moe_3b_a800m", "deepseek_v3_671b")} <= set(names), names
@@ -59,7 +62,8 @@ import glob, os                     # the paper's tables and figures, the fine-t
 tables = sorted(os.path.basename(p)[:-3] for p in glob.glob("benchmarks/torch_*.py"))
 for name in tables:
     importlib.import_module("benchmarks." + name)
-assert len(tables) == 9 and "torch_run" in tables, tables
+assert len(tables) == 12 and {"torch_run", "torch_roofline", "torch_forensics",
+                              "torch_hillclimb"} <= set(tables), tables
 assert callable(runpy.run_path("examples/finetune_classification_torch.py")["main"])
 import numpy as np, torch
 from repro_torch.configs import get_config
