@@ -6,8 +6,9 @@ distribution layer on one NVIDIA GPU and check them.
 
 Phases (one line each, plus detail lines):
   1. card and build: the card's name and power limit (nvidia-smi), then
-     both CUDA kernels built from src/repro_torch/kernels/csrc, one nvcc
-     per source, started together;
+     the CUDA sources built from src/repro_torch/kernels/csrc (flash_decode,
+     lowrank_flash for f32 and for bf16), one nvcc per source, started
+     together;
   2. the flash-decode kernel against its plain PyTorch version on the card,
      f32 (2e-5, and the exact zero pattern of the probabilities) and bf16
      (two bf16 steps of each output element): the CPU tests' shapes, cases
@@ -34,7 +35,10 @@ Phases (one line each, plus detail lines):
      (b = 2, 12 heads, 4096 tokens, causal; r = dv = 64 masked, r = 32 /
      dv = 64 static); then one f32 case with q and k scaled by 4, which
      the kernel (split TF32) must meet and the plain version with TF32
-     matrix products must miss;
+     matrix products must miss; and that case's shape in bf16, which the
+     bf16 kernel (P.V with P as two bf16 terms) must meet and the plain
+     version with P rounded once to bf16 must miss (SDPA's error there
+     logged);
   7. the full-width cache-free forward ``forward_dense(chunked=True)`` at
      2 x 4096 tokens, adaptive/masked with fidelity and fixed/static:
      kernel launches (12 per attention call site), logits and ranks against
@@ -368,6 +372,15 @@ def ptxas_summary(log: str) -> list:
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
     return out
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of this opcode the built library of
+    csrc/<name>.cu holds (cuobjdump -sass of the toolkit that built it)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
+                         text=True, check=True).stdout
+    return sum(opcode in line for line in out.splitlines())
 
 
 def ints(x):
@@ -953,6 +966,51 @@ def check_tf32_case() -> float:
     return err
 
 
+def check_bf16_p_case() -> dict:
+    """TF32_CASE in bf16: the kernel within 2e-5 + 2^-6 |plain| of the
+    plain version, and the plain version with P rounded once to bf16 before
+    P.V outside it (else the case could not catch a kernel that kept P as
+    one bf16 term, as FlashAttention and cuDNN do). SDPA on the same inputs
+    is logged beside them, its worst error and its outputs past the
+    tolerance: it computes a less accurate function."""
+    import torch.nn.functional as F
+    (q, k, v), kw = flash_inputs(TF32_CASE, torch.bfloat16, seed=201)
+    o = lowrank_flash.lowrank_flash(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    ro = lowrank_flash.lowrank_flash_plain(q, k, v, **kw).float()
+    n_rep = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(n_rep, dim=1)) * kw["scale"]
+    sq, skv = s.shape[-2:]
+    s = s.masked_fill(torch.arange(skv, device=DEV) > torch.arange(sq, device=DEV)[:, None],
+                      float("-inf"))
+    p_one = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    one = torch.einsum("bhqk,bhkd->bhqd", p_one, v.float().repeat_interleave(n_rep, dim=1))
+    one = one.to(torch.bfloat16).float()
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=kw["scale"],
+                                         enable_gqa=True).float()
+    lim = TOL + BF16_REL * ro.abs()
+    res = {}
+    for name, x in (("kernel", o), ("plain_one_bf16_p", one), ("sdpa", lib)):
+        d = (x - ro).abs()
+        res[name] = {"max_abs_err": d.max().item(), "over_tol": int((d > lim).sum().item())}
+    res["outputs"] = ro.numel()
+    if res["kernel"]["over_tol"]:
+        raise AssertionError(f"lowrank_flash disagrees with its plain version at {TF32_CASE} "
+                             f"bf16: {res['kernel']} (tol {TOL:g} + {BF16_REL:.3g}*|plain|)")
+    if not res["plain_one_bf16_p"]["over_tol"]:
+        raise AssertionError(f"P rounded once to bf16 stays within the tolerance at {TF32_CASE} "
+                             f"({res['plain_one_bf16_p']}): the case cannot tell one bf16 "
+                             "term from two")
+    log(f"  bfloat16 b,hq,hkv,sq,skv,r,dv,causal,q_offset={TF32_CASE}: max|out-plain| "
+        f"{res['kernel']['max_abs_err']:.3g}, 0 of {ro.numel()} past the tolerance; the plain "
+        f"version with P rounded once to bf16 {res['plain_one_bf16_p']['max_abs_err']:.3g}, "
+        f"{res['plain_one_bf16_p']['over_tol']} past it; sdpa "
+        f"{res['sdpa']['max_abs_err']:.3g}, {res['sdpa']['over_tol']} past it (tol {TOL:g} + "
+        f"{BF16_REL:.3g}*|plain|: the kernel meets it, one bf16 term of P would not)")
+    return res
+
+
 # -- phase 7 ---------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1078,23 +1136,28 @@ def flash_bound_ms(case, dtype=torch.float32) -> tuple:
     bf16 inputs: the bf16 tensor-core peak. f32 inputs need f32-accurate
     products, which the kernel runs on the tensor cores as three TF32
     products each (split TF32): the TF32 peak over those passes. Returns
-    (the bound in ms, what binds it, {'bound_tf32_passes_ms': the byte time
-    or the kernel's own TF32 passes over the TF32 peak (bf16 inputs, exact
-    in TF32, take one for Q.K^T and two for P.V), 'bound_cuda_core_ms': the
-    bound on the f32 CUDA cores, which the CUDA-core design before it was
-    held to})."""
+    (the bound in ms, what binds it, extra), extra holding the byte time or
+    the kernel's own passes over their peak, whichever is larger: for f32
+    'bound_tf32_passes_ms' (the three TF32 passes at 495 TFLOP/s), for bf16
+    'bound_bf16_passes_ms' (one bf16 pass for Q.K^T and two for P.V, P kept
+    as two bf16 terms: 2 (r + 2 dv) per pair at 989 TFLOP/s); and
+    'bound_cuda_core_ms', the bound on the f32 CUDA cores, which the
+    CUDA-core design before them was held to."""
     b, hq, hkv, sq, skv, r, dv, causal, off = case
     elem = torch.finfo(dtype).bits // 8
     n_bytes = elem * (b * hq * sq * r + b * hkv * skv * (r + dv) + b * hq * sq * dv)
     i = np.arange(sq)
     pairs = np.minimum(skv, off + i + 1).sum() if causal else sq * skv
     flops = 2.0 * b * hq * pairs * (r + dv)
-    passes = (3 * r + 3 * dv) if dtype == torch.float32 else (r + 2 * dv)
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_tc = max(t_bytes, 1e3 * 2.0 * b * hq * pairs * passes / TF32_FLOPS)
     t_cc = max(t_bytes, 1e3 * flops / F32_FLOPS)
-    t_ops = 1e3 * flops / BF16_FLOPS if dtype == torch.bfloat16 else t_tc
-    extra = dict(bound_tf32_passes_ms=t_tc, bound_cuda_core_ms=t_cc)
+    if dtype == torch.bfloat16:
+        t_ops = 1e3 * flops / BF16_FLOPS
+        t_passes = max(t_bytes, 1e3 * 2.0 * b * hq * pairs * (r + 2 * dv) / BF16_FLOPS)
+        extra = dict(bound_bf16_passes_ms=t_passes, bound_cuda_core_ms=t_cc)
+    else:
+        t_ops = max(t_bytes, 1e3 * 2.0 * b * hq * pairs * (3 * r + 3 * dv) / TF32_FLOPS)
+        extra = dict(bound_tf32_passes_ms=t_ops, bound_cuda_core_ms=t_cc)
     return (t_bytes, "bytes", extra) if t_bytes >= t_ops else (t_ops, "operations", extra)
 
 
@@ -1121,22 +1184,26 @@ def time_flash(case, label, card_name, dtype=torch.float32, per_call=True) -> di
     backend = sdpa_backend(q, k, v, kw["scale"])
     bnd, by, extra = flash_bound_ms(case, dtype)
     prof_ms = lib_prof_ms = None
+    names = []
     if per_call:
         us = kernel_us(lambda: lowrank_flash.lowrank_flash(q, k, v, **kw))
-        prof_ms = sum(t for name, t in us.items() if "lowrank_flash_kernel" in name) / 1e3
+        names = sorted(name for name in us if "lowrank_flash_kernel" in name)
+        prof_ms = sum(us[name] for name in names) / 1e3
         lib_prof_ms = sum(kernel_us(lib).values()) / 1e3
     heads = f"hq=hkv={hq}" if hq == hkv else f"hq={hq}, hkv={hkv}"
+    passes = "bf16" if dtype == torch.bfloat16 else "TF32"
+    passes_key = f"bound_{passes.lower()}_passes_ms"
     log(f"  lowrank_flash {label} (b={b}, {heads}, sq=skv={sq}, causal, "
         f"{str(dtype)[6:]}): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {lib_ms:.4f} ms; bound "
-        f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of it; the kernel's TF32 passes "
-        f"{extra['bound_tf32_passes_ms']:.4f} ms, {extra['bound_tf32_passes_ms'] / ms:.1%} "
+        f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of it; the kernel's {passes} passes "
+        f"{extra[passes_key]:.4f} ms, {extra[passes_key] / ms:.1%} "
         f"of it; f32 CUDA-core bound {extra['bound_cuda_core_ms']:.4f} ms, "
         f"{extra['bound_cuda_core_ms'] / ms:.1%} of it"
-        + (f"; torch.profiler per call: kernel {prof_ms:.4f} ms, sdpa {lib_prof_ms:.4f} ms"
-           if per_call else "") + f" [{card_name}]")
+        + (f"; torch.profiler per call: kernel {prof_ms:.4f} ms ({', '.join(names)}), sdpa "
+           f"{lib_prof_ms:.4f} ms" if per_call else "") + f" [{card_name}]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
-                **extra, profiler_ms=prof_ms,
+                **extra, profiler_ms=prof_ms, profiler_kernels=names,
                 library_profiler_ms=lib_prof_ms, sdpa_backend=backend)
 
 
@@ -3725,8 +3792,9 @@ FAMILY_DECODE_TIMED = ("qwen2.5-14b decode", "qwen2.5-14b factor decode",
 # dv 128; masked r = 128, static r = 32) and MLA's (128 heads, r = qk_nope +
 # qk_rope = 192, dv 128; one sequence of 4096, the plain version's scores
 # 8.6 GB): b, hq, hkv, sq, skv, r, dv, causal, q_offset
+QWEN_FLASH = "qwen2.5-14b masked r=128"
 FAMILY_FLASH = {
-    "qwen2.5-14b masked r=128": (2, 40, 8, 4096, 4096, 128, 128, True, 0),
+    QWEN_FLASH: (2, 40, 8, 4096, 4096, 128, 128, True, 0),
     "qwen2.5-14b static r=32": (2, 40, 8, 4096, 4096, 32, 128, True, 0),
     "deepseek-v3 MLA r=192": (1, 128, 128, 4096, 4096, 192, 128, True, 0),
 }
@@ -3754,13 +3822,18 @@ REDUCED_LOGIT_TOL = 1e-5
 # and its MTP head)
 LOGIT_BF16_STEPS = 2
 GREEDY_FLOOR = 0.97
+# the bf16 lowrank_flash times the kernels line gathers from phases 20a and 21a
+BF16_TIME_KEYS = ("ms", "bound_ms", "bound_bf16_passes_ms", "plain_ms", "library_ms",
+                  "sdpa_backend")
 
 
 def family_ptxas() -> None:
     """The ptxas register and spill lines of the instantiations phase 20
-    runs: lowrank_flash at r = 128 / 192 and dv = 128 (KR 16 / 24, ND 16)
-    and r = 32 with dv = 128, flash_decode at r, dv up to 128."""
-    for name, keys in (("lowrank_flash", ("Li24E", "Li16E")),
+    runs: lowrank_flash in bf16 at r = 128 / 192 / 32 with dv = 128 (KR
+    128 / 192 / 32, DV 128) and in f32 at r = 128 / 192 (KR 16 / 24),
+    flash_decode at r, dv up to 128."""
+    for name, keys in (("lowrank_flash_bf16", ("Li192ELi128>", "Li128ELi128>", "Li32ELi128>")),
+                       ("lowrank_flash", ("Li24E", "Li16E")),
                        ("decode_attn", ("Li4E", "Li16E"))):
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             if any(k in line for k in keys):
@@ -3787,9 +3860,9 @@ def check_family_kernels(card_name) -> dict:
     for label in FAMILY_DECODE_TIMED:
         times["flash_decode"][label] = time_kernel(FAMILY_DECODE[label], card_name,
                                                    torch.bfloat16)
-    for label, case in FAMILY_FLASH.items():
+    for label, case in FAMILY_FLASH.items():     # the device kernel's name at qwen's shape
         times["lowrank_flash"][label] = time_flash(case, label, card_name, torch.bfloat16,
-                                                   per_call=False)
+                                                   per_call=label == QWEN_FLASH)
         torch.cuda.empty_cache()
     return {"max_abs_err": err, "times": times}
 
@@ -4350,10 +4423,13 @@ DRIFT_AGREE_SLACK = 0.02
 
 def recurrent_ptxas() -> None:
     """The ptxas lines of the lowrank_flash instantiations phase 21 runs:
-    KR 16 / ND 16 (r = dv = 112 and 128) and KR 8 / ND 8 (r = dv = 64)."""
-    for line in ptxas_summary(build.build_log.get("lowrank_flash", (0, ""))[1]):
-        if "Li16ELi16>" in line or "Li8ELi8>" in line:
-            log("  ptxas: " + line)
+    r = dv = 112 and 128 (bf16 KR 128 / DV 128, f32 KR 16 / ND 16) and r =
+    dv = 64 (bf16 KR 64 / DV 64, f32 KR 8 / ND 8)."""
+    for name, keys in (("lowrank_flash_bf16", ("Li128ELi128>", "Li64ELi64>")),
+                       ("lowrank_flash", ("Li16ELi16>", "Li8ELi8>"))):
+        for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
+            if any(k in line for k in keys):
+                log("  ptxas: " + line)
 
 
 def check_recurrent_kernels(card_name) -> dict:
@@ -5293,12 +5369,16 @@ def main() -> int:
     log(card_name)
     phase(f"[1/23] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    sources = ["decode_attn", "lowrank_flash"]
+    sources = ["decode_attn", "lowrank_flash", "lowrank_flash_bf16"]
     secs = build.build(sources)
     for name in sources:
         log(f"  built {name}.cu in {secs[name]:.1f} s")
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
+    n_wgmma = sass_count("lowrank_flash_bf16", "HGMMA")
+    if n_wgmma == 0:
+        raise AssertionError("lowrank_flash_bf16.cu's SASS holds no HGMMA (wgmma) instruction")
+    log(f"  sass: lowrank_flash_bf16.cu holds {n_wgmma} HGMMA (wgmma) instructions")
 
     phase("[2/23] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
@@ -5332,6 +5412,7 @@ def main() -> int:
 
     phase("[6/23] lowrank_flash kernel vs its plain version on the card")
     flash_err = check_flash()
+    bf16_p = check_bf16_p_case()
 
     phase("[7/23] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
@@ -5472,6 +5553,7 @@ def main() -> int:
          "families_max_abs_err": fam["kernels"]["max_abs_err"]["flash_decode"]},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
+         "bf16_source": "src/repro_torch/kernels/csrc/lowrank_flash_bf16.cu",
          "replaces": "src/repro/kernels/lowrank_flash.py:82",
          "launches": flash_launches, "drrl_launches": drrl_flash,
          "train_launches": train_flash, "random_launches": comp["launches"],
@@ -5490,6 +5572,10 @@ def main() -> int:
              "qwen2-vl-7b": {"forward": rec["qwen2_vl"]["launches"],
                              "prefill_and_decode": rec["qwen2_vl"]["decode"]["launches"]}},
          "max_abs_err": flash_err, **t_flash, "r32": t_static,
+         "bf16_times": {label: {key: t[key] for key in BF16_TIME_KEYS}
+                        for label, t in {**fam["kernels"]["times"]["lowrank_flash"],
+                                         **rec["kernels"]["times"]}.items()},
+         "bf16_p_case": bf16_p,
          "families": fam["kernels"]["times"]["lowrank_flash"],
          "families_max_abs_err": fam["kernels"]["max_abs_err"]["lowrank_flash"],
          "recurrent_families": rec["kernels"]["times"],

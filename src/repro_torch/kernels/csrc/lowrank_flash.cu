@@ -1,11 +1,12 @@
-// Low-rank flash attention for NVIDIA Hopper (sm_90a), hand-written CUDA C++,
-// on the tensor cores.
+// Low-rank flash attention for f32 inputs on NVIDIA Hopper (sm_90a),
+// hand-written CUDA C++, on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/lowrank_flash.py:lowrank_flash
-// (Pallas body _flash_kernel). Same function, same masks:
+// (Pallas body _flash_kernel) for f32 q, k, v; bf16 inputs go to
+// csrc/lowrank_flash_bf16.cu. Same function, same masks:
 //
 //   q (b, hq, sq, r), k (b, hkv, skv, r), v (b, hkv, skv, dv) -> out
-//   (b, hq, sq, dv) in v's type. The score contraction runs over r, which may
+//   (b, hq, sq, dv) in f32. The score contraction runs over r, which may
 //   be a truncated rank (the DR-RL factors) or the full head dim, up to 192
 //   (MLA's q.k: qk_nope 128 + qk_rope 64); dv is at most 128. Query i sits
 //   at position q_offset + i (q_offset >= 0) and sees key j iff j < skv and,
@@ -25,8 +26,7 @@
 // f32's rounding), the accuracy of f32 at three times the work. At 495
 // TFLOP/s of TF32 that bounds the call above at 0.31 ms (0.77 ms on the f32
 // CUDA cores); mma.sync reaches about 300 TFLOP/s of it on an H100
-// (tools/lowrank_flash_profile.py). bf16 inputs are exact in TF32, so for
-// them Q.K^T takes one pass and P.V two.
+// (tools/lowrank_flash_profile.py).
 //
 // Design. One block of four warps owns one (b * hq + h, tile of 64
 // queries) and loops over 64-key tiles itself, up to the tile's
@@ -39,7 +39,7 @@
 //   * Q, K and V tiles are copied to shared memory as they are (cp.async;
 //     K/V in a two-stage ring, the next tile landing while this one is
 //     computed on), r and dv padded with zeros to the kernel's width
-//     (exact), and turned into f32 as fragments are read;
+//     (exact);
 //   * S = Q K^T, a 16 x 64 warp tile (8 mma columns of 8 keys): k index t
 //     of step kk stands for dim 8 kk + 2t and t + 4 for 8 kk + 2t + 1, so
 //     each lane reads its two A and two B elements as neighbouring pairs
@@ -61,13 +61,10 @@
 // Warps whose rows all lie past sq, or whose causal edge ends before a
 // tile, skip that tile's work. Left for later: TMA, then wgmma.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -81,11 +78,6 @@ constexpr int kQRegCols = 8;                 // ... when dv <= 64
 constexpr int kPVCols = 8;                   // mma columns per pass over V's fragments
 constexpr int kMaxRank = 192;                // largest r this kernel takes (MLA: 128 + 64)
 constexpr int kMaxDim = 128;                 // largest dv this kernel takes
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // cp.async of N bytes (4, 8 or 16) from device to shared memory; src_bytes = 0
 // fills the N bytes with zeros and reads nothing
@@ -107,27 +99,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
 }
 
-// two neighbouring elements (8-byte aligned for f32, 4 for bf16)
+// two neighbouring elements (8-byte aligned)
 __device__ __forceinline__ void load2(const float* p, float& a, float& b) {
   const float2 x = *reinterpret_cast<const float2*>(p);
   a = x.x, b = x.y;
 }
 
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
-  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);   // bf16 -> f32 is a shift
-  a = __uint_as_float(u << 16), b = __uint_as_float(u & 0xffff0000u);
-}
-
-// four neighbouring elements (16-byte aligned for f32, 8 for bf16)
+// four neighbouring elements (16-byte aligned)
 __device__ __forceinline__ void load4(const float* p, float* x) {
   const float4 f = *reinterpret_cast<const float4*>(p);
   x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(u.x << 16), x[1] = __uint_as_float(u.x & 0xffff0000u);
-  x[2] = __uint_as_float(u.y << 16), x[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
 // Where element (row, col) of a V tile lives in shared memory. For ND >= 4
@@ -152,8 +133,8 @@ __device__ __forceinline__ int v_pos(int row, int col) {
 
 // N neighbouring elements of row `row` of a V tile from column col (N = 2,
 // or a multiple of 4 from a multiple of 4)
-template <int ND, int N, typename T>
-__device__ __forceinline__ void load_v(const T* v_t, int row, int col, float (&x)[N]) {
+template <int ND, int N>
+__device__ __forceinline__ void load_v(const float* v_t, int row, int col, float (&x)[N]) {
   if constexpr (N >= 4) {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) load4(v_t + v_pos<ND>(row, col + 4 * i), x + 4 * i);
@@ -176,16 +157,10 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 }
 
 // x = hi + lo: hi = tf32(x), lo = x - hi exactly (the tensor core reads its
-// top 19 bits); with kSplit false (bf16 data, exact in TF32) hi = x, lo = 0
-template <bool kSplit>
+// top 19 bits)
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kSplit) {
-    hi = tf32(x);
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // c += a b on the tensor cores: m16n8k8, TF32 inputs, f32 accumulators
@@ -199,13 +174,12 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const
 // The lane's A fragment of a 16 x 8 tile of a row-major array in shared
 // memory, k index t standing for column 2t and t + 4 for 2t + 1; p points
 // at (g, 2t) of the tile, ld is the row stride.
-template <bool kSplit, typename T>
-__device__ __forceinline__ void load_a(const T* p, int ld, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+__device__ __forceinline__ void load_a(const float* p, int ld, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   float x[4];
   load2(p, x[0], x[2]);
   load2(p + 8 * ld, x[1], x[3]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) split<kSplit>(x[i], hi[i], lo[i]);
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
 }
 
 // Queue the copy of rows [0, n_rows) of a row-major (rows x width) array
@@ -214,11 +188,11 @@ __device__ __forceinline__ void load_a(const T* p, int ld, uint32_t (&hi)[4], ui
 // (width % 4 == 0 and src aligned to 4 elements; pos keeps runs of 4
 // columns from a multiple of 4 together): cp.async of 4 elements at a time,
 // which the caller commits and waits for; else plain loads and stores.
-template <int W, typename T, typename Pos>
-__device__ __forceinline__ void stage(T* dst, Pos pos, const T* src, int width, int valid,
+template <int W, typename Pos>
+__device__ __forceinline__ void stage(float* dst, Pos pos, const float* src, int width, int valid,
                                       int n_rows, bool vec) {
   if (vec) {
-    constexpr int kV = W / 4, kBytes = 4 * sizeof(T);
+    constexpr int kV = W / 4, kBytes = 16;
     for (int i = threadIdx.x; i < n_rows * kV; i += kThreads) {
       const int row = i / kV, col = 4 * (i % kV);
       const bool in = row < valid && col < width;
@@ -228,27 +202,26 @@ __device__ __forceinline__ void stage(T* dst, Pos pos, const T* src, int width, 
   } else {
     for (int i = threadIdx.x; i < n_rows * W; i += kThreads) {
       const int row = i / W, col = i % W;
-      store(dst + pos(row, col),
-            row < valid && col < width ? to_f32(src[(size_t)row * width + col]) : 0.f);
+      dst[pos(row, col)] = row < valid && col < width ? src[(size_t)row * width + col] : 0.f;
     }
   }
 }
 
 // KR: mma steps of 8 over r (r <= 8 KR); ND: mma columns of 8 over dv (dv <= 8 ND)
-template <typename T, int KR, int ND>
+template <int KR, int ND>
 __global__ void __launch_bounds__(kThreads)
-lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, int hq, int hkv, int sq, int skv, int r, int dv,
-                     int q_offset, int causal, float scale, int vec_qk, int vec_v) {
-  constexpr bool kSplit = std::is_same<T, float>::value;
+lowrank_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out, int hq, int hkv, int sq,
+                     int skv, int r, int dv, int q_offset, int causal, float scale, int vec_qk,
+                     int vec_v) {
   constexpr bool kQRegs = KR <= kQRegSteps && ND <= kQRegCols;
   constexpr int kNC = ND < kPVCols ? ND : kPVCols;
   constexpr int kQS = 8 * KR + 8;    // Q and K row stride (8 mod 32 words in f32)
   constexpr int kVTile = kBK * (ND >= 4 ? 8 * ND : 8 * ND + 4);  // see v_pos
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);  // kBQ x kQS
-  T* k_s = q_s + kBQ * kQS;                 // two stages of kBK x kQS
-  T* v_s = k_s + 2 * kBK * kQS;             // two stages of kVTile
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // kBQ x kQS
+  float* k_s = q_s + kBQ * kQS;                     // two stages of kBK x kQS
+  float* v_s = k_s + 2 * kBK * kQS;                 // two stages of kVTile
 
   const int bh = blockIdx.x;                          // b * hq + h
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
@@ -264,8 +237,8 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int w_key_hi = w_rows <= 0 ? 0 : causal ? min(skv, q_offset + q0 + w0 + w_rows) : skv;
   const int n_tiles = (key_hi + kBK - 1) / kBK;
 
-  const T* k_bh = k + kv_row * skv * r;
-  const T* v_bh = v + kv_row * skv * dv;
+  const float* k_bh = k + kv_row * skv * r;
+  const float* v_bh = v + kv_row * skv * dv;
   const auto qk_pos = [](int row, int col) { return row * kQS + col; };
   const auto v_at = [](int row, int col) { return v_pos<ND>(row, col); };
   // the ring: tile i goes to stage i % 2 and lands while tile i - 1 is computed on
@@ -281,11 +254,11 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   cp_async_wait<1>();              // Q has landed
   __syncthreads();
 
-  const T* q_w = q_s + (w0 + g) * kQS + 2 * t;        // the lane's A fragment of Q
+  const float* q_w = q_s + (w0 + g) * kQS + 2 * t;        // the lane's A fragment of Q
   uint32_t qh[kQRegs ? KR : 1][4], ql[kQRegs ? KR : 1][4];
   if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < KR; ++kk) load_a<kSplit>(q_w + 8 * kk, kQS, qh[kk], ql[kk]);
+    for (int kk = 0; kk < KR; ++kk) load_a(q_w + 8 * kk, kQS, qh[kk], ql[kk]);
   }
 
   const float c = scale * 1.4426950408889634f;             // scale log2(e)
@@ -302,8 +275,8 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     cp_async_wait<1>();            // this tile has landed
     __syncthreads();
     if (k0 >= w_key_hi) continue;  // warp-uniform: no key of the tile is visible to the warp
-    const T* k_t = k_s + (tile & 1) * kBK * kQS;
-    const T* v_t = v_s + (tile & 1) * kVTile;
+    const float* k_t = k_s + (tile & 1) * kBK * kQS;
+    const float* v_t = v_s + (tile & 1) * kVTile;
 
     // S = Q K^T, 16 x 64 per warp
     float s[kNT][4];
@@ -316,22 +289,20 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
         for (int i = 0; i < 4; ++i) ah[i] = qh[kk][i], al[i] = ql[kk][i];
       } else {
-        load_a<kSplit>(q_w + 8 * kk, kQS, ah, al);
+        load_a(q_w + 8 * kk, kQS, ah, al);
       }
       uint32_t kh[kNT][2], kl[kNT][2];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         float b0, b1;
         load2(k_t + (8 * j + g) * kQS + 8 * kk + 2 * t, b0, b1);
-        split<kSplit>(b0, kh[j][0], kl[j][0]);
-        split<kSplit>(b1, kh[j][1], kl[j][1]);
+        split(b0, kh[j][0], kl[j][0]);
+        split(b1, kh[j][1], kl[j][1]);
       }
-      if constexpr (kSplit) {
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) mma(s[j], al, kh[j]);
+      for (int j = 0; j < kNT; ++j) mma(s[j], al, kh[j]);
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) mma(s[j], ah, kl[j]);
-      }
+      for (int j = 0; j < kNT; ++j) mma(s[j], ah, kl[j]);
 #pragma unroll
       for (int j = 0; j < kNT; ++j) mma(s[j], ah, kh[j]);
     }
@@ -382,10 +353,10 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int kk = 0; kk < kNT; ++kk) {
       uint32_t ah[4], al[4];
-      split<true>(s[kk][0], ah[0], al[0]);
-      split<true>(s[kk][2], ah[1], al[1]);
-      split<true>(s[kk][1], ah[2], al[2]);
-      split<true>(s[kk][3], ah[3], al[3]);
+      split(s[kk][0], ah[0], al[0]);
+      split(s[kk][2], ah[1], al[1]);
+      split(s[kk][1], ah[2], al[2]);
+      split(s[kk][3], ah[3], al[3]);
 #pragma unroll
       for (int n0 = 0; n0 < ND; n0 += kNC) {   // kNC mma columns at a time
         uint32_t vh[kNC][2], vl[kNC][2];
@@ -394,15 +365,13 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         load_v<ND>(v_t, 8 * kk + 2 * t + 1, g * ND + n0, v1);
 #pragma unroll
         for (int n = 0; n < kNC; ++n) {
-          split<kSplit>(v0[n], vh[n][0], vl[n][0]);
-          split<kSplit>(v1[n], vh[n][1], vl[n][1]);
+          split(v0[n], vh[n][0], vl[n][0]);
+          split(v1[n], vh[n][1], vl[n][1]);
         }
 #pragma unroll
         for (int n = 0; n < kNC; ++n) mma(pv[n0 + n], al, vh[n]);
-        if constexpr (kSplit) {
 #pragma unroll
-          for (int n = 0; n < kNC; ++n) mma(pv[n0 + n], ah, vl[n]);
-        }
+        for (int n = 0; n < kNC; ++n) mma(pv[n0 + n], ah, vl[n]);
 #pragma unroll
         for (int n = 0; n < kNC; ++n) mma(pv[n0 + n], ah, vh[n]);
       }
@@ -424,61 +393,59 @@ lowrank_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int row = w0 + g + 8 * h;
     if (row >= n_q) continue;
     const float den = fmaxf(l[h], 1e-30f);
-    T* o_row = out + ((size_t)bh * sq + q0 + row) * dv;
+    float* o_row = out + ((size_t)bh * sq + q0 + row) * dv;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {   // mma column n, n index i is column i ND + n
       const int col = 2 * t * ND + n;
-      if (col < dv) store(o_row + col, o[n][2 * h] / den);
-      if (col + ND < dv) store(o_row + col + ND, o[n][2 * h + 1] / den);
+      if (col < dv) o_row[col] = o[n][2 * h] / den;
+      if (col + ND < dv) o_row[col + ND] = o[n][2 * h + 1] / den;
     }
   }
 }
 
-template <typename T, int KR, int ND>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
-                   int sq, int skv, int r, int dv, int q_offset, int causal, float scale,
+template <int KR, int ND>
+cudaError_t launch(const float* q, const float* k, const float* v, float* out, int b, int hq,
+                   int hkv, int sq, int skv, int r, int dv, int q_offset, int causal, float scale,
                    int vec_qk, int vec_v, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)(kBQ + 2 * kBK) * (8 * KR + 8) +
-                                   (size_t)2 * kBK * (ND >= 4 ? 8 * ND : 8 * ND + 4));
-  cudaError_t err = cudaFuncSetAttribute(lowrank_flash_kernel<T, KR, ND>,
+  const size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (8 * KR + 8) +
+                                       (size_t)2 * kBK * (ND >= 4 ? 8 * ND : 8 * ND + 4));
+  cudaError_t err = cudaFuncSetAttribute(lowrank_flash_kernel<KR, ND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * hq, (sq + kBQ - 1) / kBQ);
-  lowrank_flash_kernel<T, KR, ND><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v);
+  lowrank_flash_kernel<KR, ND><<<grid, kThreads, smem, stream>>>(
+      q, k, v, out, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v);
   return cudaGetLastError();
 }
 
 // the kernel's padded widths: r 16, 32, 64, 128 or 192; dv 16, 32, 64 or 128
 #define LF_ARGS q, k, v, out, b, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v, s
 
-template <typename T, int KR>
-cudaError_t by_dv(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
-                  int sq, int skv, int r, int dv, int q_offset, int causal, float scale,
+template <int KR>
+cudaError_t by_dv(const float* q, const float* k, const float* v, float* out, int b, int hq,
+                  int hkv, int sq, int skv, int r, int dv, int q_offset, int causal, float scale,
                   int vec_qk, int vec_v, cudaStream_t s) {
-  if (dv <= 16) return launch<T, KR, 2>(LF_ARGS);
-  if (dv <= 32) return launch<T, KR, 4>(LF_ARGS);
-  if (dv <= 64) return launch<T, KR, 8>(LF_ARGS);
-  return launch<T, KR, 16>(LF_ARGS);
+  if (dv <= 16) return launch<KR, 2>(LF_ARGS);
+  if (dv <= 32) return launch<KR, 4>(LF_ARGS);
+  if (dv <= 64) return launch<KR, 8>(LF_ARGS);
+  return launch<KR, 16>(LF_ARGS);
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int b, int hq,
+cudaError_t dispatch(const float* q, const float* k, const float* v, float* out, int b, int hq,
                      int hkv, int sq, int skv, int r, int dv, int q_offset, int causal,
                      float scale, cudaStream_t s) {
   // 4-element loads need rows of a multiple of 4 and aligned base pointers
-  const uintptr_t align = 4 * sizeof(T);
+  const uintptr_t align = 4 * sizeof(float);
   const int vec_qk = r % 4 == 0 && (uintptr_t)q % align == 0 && (uintptr_t)k % align == 0;
   const int vec_v = dv % 4 == 0 && (uintptr_t)v % align == 0;
-  if (r <= 16) return by_dv<T, 2>(LF_ARGS);
-  if (r <= 32) return by_dv<T, 4>(LF_ARGS);
-  if (r <= 64) return by_dv<T, 8>(LF_ARGS);
-  if (r <= 128) return by_dv<T, 16>(LF_ARGS);
+  if (r <= 16) return by_dv<2>(LF_ARGS);
+  if (r <= 32) return by_dv<4>(LF_ARGS);
+  if (r <= 64) return by_dv<8>(LF_ARGS);
+  if (r <= 128) return by_dv<16>(LF_ARGS);
   // MLA's q.k (qk_nope 128 + qk_rope 64): f32 with dv = 128 takes 4 ((64 +
   // 128) 200 + 2 x 64 x 128) = 219,136 bytes of shared memory, under the
   // H100's 227 KB per block
-  return by_dv<T, 24>(LF_ARGS);
+  return by_dv<24>(LF_ARGS);
 }
 
 #undef LF_ARGS
@@ -486,23 +453,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). q, k, v and out are contiguous
-// and on the current device; dtype 0 = float32, 1 = bfloat16 for all four.
-// Returns a cudaError_t value (0 = launched).
+// f32 tensors on the current device. Returns a cudaError_t value (0 =
+// launched).
 extern "C" int lowrank_flash_launch(const void* q, const void* k, const void* v, void* out, int b,
                                     int hq, int hkv, int sq, int skv, int r, int dv, int q_offset,
-                                    int causal, float scale, int dtype, void* stream) {
+                                    int causal, float scale, void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || r < 1 ||
       r > kMaxRank || dv < 1 || dv > kMaxDim || q_offset < 0 || (long long)b * hq > 0x7fffffffLL ||
       (sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, out, b, hq, hkv, sq, skv, r, dv, q_offset, causal != 0, scale, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, r, dv, q_offset, causal != 0,
-                                  scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<float*>(out), b, hq, hkv, sq, skv,
+                       r, dv, q_offset, causal != 0, scale, static_cast<cudaStream_t>(stream));
 }

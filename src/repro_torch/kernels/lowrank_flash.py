@@ -4,9 +4,11 @@ lowrank_flash``.
 
 Two versions of one function live here:
 
-* :func:`lowrank_flash` launches the hand-written CUDA kernel
-  (``csrc/lowrank_flash.cu``, built for ``sm_90a`` at first use) on CUDA
-  tensors, and raises on anything the kernel does not take;
+* :func:`lowrank_flash` launches a hand-written CUDA kernel on CUDA
+  tensors (built for ``sm_90a`` at first use): ``csrc/lowrank_flash.cu``
+  (split TF32 on ``mma.sync``) for f32 inputs,
+  ``csrc/lowrank_flash_bf16.cu`` (``wgmma`` on the bf16 tensor cores, TMA)
+  for bf16 ones; it raises on anything the kernels do not take;
 * :func:`lowrank_flash_plain` is the same function in plain PyTorch (f32
   einsum scores, an exact masked softmax, P.V): the CPU path and the
   reference the kernel is held against on the card.
@@ -25,13 +27,15 @@ from typing import Dict
 
 import torch
 
-# launches of the CUDA kernel in this process; the wrapper adds one where it
-# launches the kernel and nowhere else
+# launches of the CUDA kernels (either type) in this process; the wrapper
+# adds one where it launches a kernel and nowhere else
 LAUNCHES: Dict[str, int] = {"lowrank_flash": 0}
 
-MAX_RANK = 192         # largest r the CUDA kernel takes (MLA: qk_nope 128 + qk_rope 64)
-MAX_DIM = 128          # largest dv the CUDA kernel takes
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_RANK = 192         # largest r the CUDA kernels take (MLA: qk_nope 128 + qk_rope 64)
+MAX_DIM = 128          # largest dv the CUDA kernels take
+# input type -> (csrc/<source>.cu, its C entry point)
+SOURCES = {torch.float32: ("lowrank_flash", "lowrank_flash_launch"),
+           torch.bfloat16: ("lowrank_flash_bf16", "lowrank_flash_bf16_launch")}
 
 
 def _check_offset(q_offset) -> int:
@@ -64,7 +68,7 @@ def _check(q, k, v):
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in SOURCES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("lowrank_flash takes q, k, v all float32 or all "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -87,31 +91,32 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _library():
+def _library(dtype):
     from repro_torch.kernels import build
-    lib = build.load("lowrank_flash")
-    fn = lib.lowrank_flash_launch
+    source, entry = SOURCES[dtype]
+    fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def lowrank_flash(q, k, v, *, scale: float, causal: bool = True,
                   q_offset: int = 0):
-    """Launch the CUDA kernel on the current stream (no fallback)."""
+    """Launch the CUDA kernel for q's type on the current stream (no
+    fallback)."""
     q_offset = _check_offset(q_offset)
     _check(q, k, v)
     b, hq, sq, r = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, hq, sq, dv), dtype=v.dtype, device=q.device)
-    launch = _library()
+    launch = _library(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, hq, hkv, sq, skv, r, dv, q_offset, int(causal),
-                     float(scale), _DTYPE_CODE[q.dtype], stream)
+                     float(scale), stream)
     if err != 0:
         raise RuntimeError(f"lowrank_flash kernel launch failed: CUDA error {err}")
     LAUNCHES["lowrank_flash"] += 1

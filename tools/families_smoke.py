@@ -4,8 +4,9 @@ at full width on an NVIDIA GPU.
     python3 tools/families_smoke.py              # 20a-g
     python3 tools/families_smoke.py --profile    # where serving's time goes
 
-Builds both kernels (one nvcc per source, started together; the ptxas lines
-of the instantiations phase 20 runs are printed) and runs
+Builds both kernels (lowrank_flash's f32 and bf16 sources; one nvcc per
+source, started together; the ptxas lines of the instantiations phase 20
+runs are printed) and runs
 ``chip_smoke.check_families``: (a) both kernels at the
 new shapes against their plain versions, timed; (b) qwen2.5-14b served at
 full width and depth; (e) its chunked forward; (c) granite served, with its
@@ -80,7 +81,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card()
     cs.log(card)
-    secs = cs.build.build(["decode_attn", "lowrank_flash"])
+    secs = cs.build.build(["decode_attn", "lowrank_flash", "lowrank_flash_bf16"])
     cs.log("built " + ", ".join(f"{k} in {v:.1f} s" for k, v in secs.items()))
     t0 = time.perf_counter()
     if args.profile:

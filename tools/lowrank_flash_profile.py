@@ -1,21 +1,27 @@
-"""Where the time of one ``lowrank_flash`` call goes on an NVIDIA GPU, and
-how close its split-TF32 products come to float64.
+"""Where the time of one ``lowrank_flash`` call goes on an NVIDIA GPU, how
+close its split-TF32 products come to float64, and the tensor cores' rate
+for the instructions its kernels issue.
 
     python3 tools/lowrank_flash_profile.py
 
 At ``chip_smoke.py``'s forward shapes (``PATH_MASKED``, r = 64, and
-``PATH_STATIC``, r = 32; b = 2, 12 heads, 4096 tokens, causal, f32): the
-device time per call (torch.profiler, mean of 10 calls, L2 flushed before
-each) of the kernel, of its plain version and of
-``scaled_dot_product_attention``, in turns (kernel, SDPA, SDPA, kernel).
+``PATH_STATIC``, r = 32; b = 2, 12 heads, 4096 tokens, causal, f32) and at
+qwen2.5-14b's in bf16 (2 x 4096, 40/8 heads, r = dv = 128): the device
+time per call (torch.profiler, mean of 10 calls, L2 flushed before each)
+of the kernel, of its plain version and of
+``scaled_dot_product_attention``, in turns (kernel, SDPA, SDPA, kernel),
+with the device kernels' names; the share is of the f32 kernel's three
+TF32 passes, or of the bf16 kernel's three bf16 passes.
 Then, on ``chip_smoke.TF32_CASE`` (q and k x 4) and at
 ``PATH_MASKED``, the largest error against the same attention in float64:
 of the kernel, of the plain version in f32 and of the plain version with
-TF32 products. Last, the tensor cores' rate for the one instruction the
-kernel issues there, ``mma.sync.m16n8k8`` with TF32 inputs
-(``tools/mma_tf32_peak.cu``: independent accumulators, no memory traffic),
-at 1 to 4 blocks of 128 to 512 threads per SM. Needs a CUDA device;
-builds the kernels on first use.
+TF32 products. Last, the tensor cores' rate for the instructions the
+kernels issue (``tools/mma_tf32_peak.cu``: no memory traffic):
+``mma.sync.m16n8k8`` with TF32 inputs (the f32 kernel),
+``mma.sync.m16n8k16`` with bf16 inputs and ``wgmma.m64n128k16`` with bf16
+inputs (the bf16 kernel's instruction), at 1 to 4 blocks of 128 to 512
+threads per SM, and the best of each. Needs a CUDA device; builds the
+kernels on first use.
 """
 from __future__ import annotations
 
@@ -61,40 +67,54 @@ def errors(case, label, card, q_k_scale=1.0):
     print(f"{label} {case}: max |out - float64|: {errs} [{card}]")
 
 
+# (C entry point, label, flops per warp per round): mma.sync runs 8
+# independent m16n8k8 (TF32) or m16n8k16 (bf16) products per round; wgmma a
+# warpgroup's 16 m64n128k16 products, a quarter of them per warp
+PEAKS = (("mma_peak_launch", "mma.sync m16n8k8 TF32", 8 * 2 * 16 * 8 * 8, 2048),
+         ("mma_bf16_peak_launch", "mma.sync m16n8k16 bf16", 8 * 2 * 16 * 8 * 16, 2048),
+         ("wgmma_bf16_peak_launch", "wgmma m64n128k16 bf16", 16 * 2 * 64 * 128 * 16 // 4, 512))
+
+
 def mma_peak(card):
-    """TFLOP/s of mma.sync.m16n8k8 TF32 (tools/mma_tf32_peak.cu), CUDA
-    events around one launch of blocks x threads threads."""
+    """TFLOP/s of each tensor-core instruction the kernels issue
+    (tools/mma_tf32_peak.cu), CUDA events around one launch of blocks x
+    threads threads."""
     src = os.path.join(ROOT, "tools", "mma_tf32_peak.cu")
     lib_path = build.BUILD_DIR / "libmma_tf32_peak.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), src], check=True,
                    capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).mma_peak_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    lib = ctypes.CDLL(str(lib_path))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    iters = 2048
+    best = {}
+    for entry, label, flops_per_warp, iters in PEAKS:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
 
-    def launch(blocks, threads, n, out):
-        err = fn(blocks, threads, n, out.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"mma_peak launch failed: CUDA error {err}")
+        def launch(blocks, threads, n, out):
+            err = fn(blocks, threads, n, out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"{entry} failed: CUDA error {err}")
 
-    for threads in (128, 256, 512):
-        for per_sm in (1, 2, 4):
-            blocks = sms * per_sm
-            out = torch.empty(blocks * threads, device="cuda")
-            launch(blocks, threads, 16, out)     # warm-up
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            launch(blocks, threads, iters, out)
-            e1.record()
-            e1.synchronize()
-            flops = blocks * (threads // 32) * iters * 8 * 2 * 16 * 8 * 8
-            print(f"mma.sync m16n8k8 TF32: {threads} threads x {per_sm} blocks per SM: "
-                  f"{flops / e0.elapsed_time(e1) / 1e9:.1f} TFLOP/s [{card}]")
+        for threads in (128, 256, 512):
+            for per_sm in (1, 2, 4):
+                blocks = sms * per_sm
+                out = torch.empty(blocks * threads, device="cuda")
+                launch(blocks, threads, 16, out)     # warm-up
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                launch(blocks, threads, iters, out)
+                e1.record()
+                e1.synchronize()
+                flops = blocks * (threads // 32) * iters * flops_per_warp
+                rate = flops / e0.elapsed_time(e1) / 1e9
+                best[label] = max(best.get(label, 0.0), rate)
+                print(f"{label}: {threads} threads x {per_sm} blocks per SM: "
+                      f"{rate:.1f} TFLOP/s [{card}]")
+    print("best: " + ", ".join(f"{k} {v:.1f} TFLOP/s" for k, v in best.items()) + f" [{card}]")
 
 
 def main() -> int:
@@ -104,15 +124,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card()
     print(card)
-    build.build(["lowrank_flash"])
-    for case, label in ((cs.PATH_MASKED, "r=64"), (cs.PATH_STATIC, "r=32")):
-        (q, k, v), kw = cs.flash_inputs(case, torch.float32, seed=9)
+    build.build(["lowrank_flash", "lowrank_flash_bf16"])
+    qwen = cs.FAMILY_FLASH[cs.QWEN_FLASH]
+    for case, label, dtype in ((cs.PATH_MASKED, "r=64", torch.float32),
+                               (cs.PATH_STATIC, "r=32", torch.float32),
+                               (qwen, "qwen2.5-14b bf16 r=dv=128", torch.bfloat16)):
+        (q, k, v), kw = cs.flash_inputs(case, dtype, seed=9)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=kw["scale"], enable_gqa=True)
 
-        bound_tc, _, _ = cs.flash_bound_ms(case)
+        bound_tc, _, extra = cs.flash_bound_ms(case, dtype)
+        if dtype == torch.bfloat16:       # the bf16 kernel's own passes
+            bound_tc = extra["bound_bf16_passes_ms"]
         def kernel():
             return lowrank_flash.lowrank_flash(q, k, v, **kw)
 

@@ -4,8 +4,9 @@ width on an NVIDIA GPU.
     python3 tools/recurrent_families_smoke.py              # 21a-f
     python3 tools/recurrent_families_smoke.py --profile    # where the time goes
 
-Builds the lowrank_flash kernel (the ptxas lines of the instantiations
-phase 21 runs are printed) and runs ``chip_smoke.check_recurrent_families``:
+Builds the lowrank_flash kernels, f32 and bf16 (the ptxas lines of the
+instantiations phase 21 runs are printed) and runs
+``chip_smoke.check_recurrent_families``:
 (a) lowrank_flash at zamba2's r = dv = 112 (32/32 heads), seamless's 16/16
 heads of 64 and qwen2-vl's 28/4 of 128 against its plain version, f32 and
 bf16, timed beside its bound and SDPA; (b) zamba2-7b at full width and
@@ -133,7 +134,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card()
     cs.log(card)
-    secs = cs.build.build(["lowrank_flash"])
+    secs = cs.build.build(["lowrank_flash", "lowrank_flash_bf16"])
     cs.log("built " + ", ".join(f"{k} in {v:.1f} s" for k, v in secs.items()))
     t0 = time.perf_counter()
     if args.profile:
