@@ -420,16 +420,17 @@ MAIN_VERIFY = (8, 12, 12, 128, 2048, 64, 64,
                (128, 5, 5, 5, 5, 70, 5, 5))
 
 
-def split_cases():
+def split_cases(dtype=torch.float32):
     """Cases at the key splits that ``decode_attn.split_plan`` picks on this
-    card: kv_len equal to a split's size, one less and one more, rows of
-    kv_len 1 and M, a GQA group of 4, and chunks in which some queries see
-    no key of a whole split, on the decode path (C = 8) and the chunk path
-    (C = 80, two query tiles)."""
+    card for the kernel of ``dtype``: kv_len equal to a split's size, one
+    less and one more, rows of kv_len 1 and M, a GQA group of 4, and chunks
+    in which some queries see no key of a whole split, on the decode path
+    (C = 8) and the chunk path (C = 80: two query tiles in f32, three 64-row
+    tiles of the kv head's (query, q head) rows in bf16)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def split(b, hq, hkv, C, M):
-        return decode_attn.split_plan(b, hq, hkv, C, M, sms)[1]
+        return decode_attn.split_plan(b, hq, hkv, C, M, sms, dtype)[1]
 
     L = split(6, 8, 8, 1, 2048)
     G = split(4, 16, 4, 1, 1024)
@@ -457,12 +458,24 @@ def make_inputs(case, dtype, seed, return_probs=True):
                                      q_start=ints(qs), q_lens=ints(ql))
 
 
+def visible_keys(q, k, kv_len, q_start, q_lens) -> torch.Tensor:
+    """(b, 1, C, M) bool: query j of row b sees key p."""
+    q4 = q if q.dim() == 4 else q[:, :, None]
+    lens, qs, ql = decode_attn._defaults(q4, kv_len, q_start, q_lens)
+    k_pos = torch.arange(k.shape[2], device=q.device)[None, None, None, :]
+    j = torch.arange(q4.shape[2], device=q.device)[None, None, :, None]
+    return ((k_pos < lens[:, None, None, None]) & (k_pos <= qs[:, None, None, None] + j)
+            & (j < ql[:, None, None, None]))
+
+
 def check_decode_case(case, dtype, seed, label="") -> float:
     """One case of flash_decode against its plain version: outputs f32
     within 2e-5 + 2e-5 |plain|, bf16 within 2e-5 + two bf16 steps of
     |plain|; probabilities (f32 on both sides, computed in f32 from the same
-    inputs) 2e-5 + 2e-5 |plain| in both types, and in f32 the plain
-    version's exact zero pattern. Returns the larger max error."""
+    inputs) 2e-5 + 2e-5 |plain| in both types. Exact zeros in both types:
+    every masked key's probability, and the output of a query with no
+    visible key; in f32 also the plain version's whole zero pattern.
+    Returns the larger max error."""
     args, kw = make_inputs(case, dtype, seed=seed)
     o, p = decode_attn.flash_decode(*args, **kw)
     torch.cuda.synchronize()
@@ -472,7 +485,13 @@ def check_decode_case(case, dtype, seed, label="") -> float:
     rel = TOL if dtype == torch.float32 else BF16_REL
     bad_o = ((o.float() - ro.float()).abs() > TOL + rel * ro.float().abs()).any().item()
     bad_p = ((p - rp).abs() > TOL + TOL * rp.abs()).any().item()
-    zeros = torch.equal(p == 0, rp == 0) if dtype == torch.float32 else True
+    ok = visible_keys(args[0], args[1], args[3], kw["q_start"], kw["q_lens"])
+    o4, p4 = (o, p) if o.dim() == 4 else (o[:, :, None], p[:, :, None])
+    blind = ~ok.any(dim=-1).expand(o4.shape[:3])          # queries with no visible key
+    zeros = bool((p4.masked_select(~ok.expand(p4.shape)) == 0).all()
+                 and (o4[blind] == 0).all())
+    if dtype == torch.float32:
+        zeros = zeros and torch.equal(p == 0, rp == 0)
     finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(p).all())
     if bad_o or bad_p or not zeros or not finite:
         raise AssertionError(f"flash_decode disagrees with its plain version at "
@@ -486,17 +505,55 @@ def check_decode_case(case, dtype, seed, label="") -> float:
 
 
 def check_kernel() -> float:
-    """Every case in f32 and bf16 (``check_decode_case``); returns the
-    largest f32 error."""
+    """Every case in f32 and bf16, and the bf16 kernel's own split
+    boundaries in bf16 (``check_decode_case``); returns the largest f32
+    error."""
     worst = 0.0
     cases = [(c, dt) for c in CHECK_CASES + split_cases()
              + [MAIN_DECODE, MAIN_CHUNK, MAIN_DRAFT, MAIN_VERIFY]
              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(c, torch.bfloat16) for c in split_cases(torch.bfloat16)]
     for i, (case, dtype) in enumerate(cases):
         err = check_decode_case(case, dtype, seed=i)
         if dtype == torch.float32:
             worst = max(worst, err)
     return worst
+
+
+def check_bf16_decode_p_case() -> dict:
+    """qwen2.5-14b's chunk shape in bf16 (40/8 heads, r = dv = 128, C =
+    128): the kernel within 2e-5 + 2^-6 |plain| of the plain version, and
+    the plain version with its probabilities rounded once to bf16 before P.V
+    outside it, else the case could not catch a kernel that kept P as one
+    bf16 term. Returns both counts."""
+    case = FAMILY_DECODE["qwen2.5-14b chunk"]
+    args, kw = make_inputs(case, torch.bfloat16, seed=202)
+    o = decode_attn.flash_decode(*args, **kw)[0].float()
+    torch.cuda.synchronize()
+    ro, rp = decode_attn.flash_decode_plain(*args, **kw)
+    ro = ro.float()
+    v = args[2]
+    one = torch.einsum("bhck,bhkd->bhcd", rp.to(torch.bfloat16).float(),
+                       v.float().repeat_interleave(case[1] // case[2], dim=1))
+    one = one.to(torch.bfloat16).float()
+    lim = TOL + BF16_REL * ro.abs()
+    res = {"outputs": ro.numel()}
+    for name, x in (("kernel", o), ("plain_one_bf16_p", one)):
+        d = (x - ro).abs()
+        res[name] = {"max_abs_err": d.max().item(), "over_tol": int((d > lim).sum().item())}
+    if res["kernel"]["over_tol"]:
+        raise AssertionError(f"flash_decode disagrees with its plain version at {case[:7]} "
+                             f"bf16: {res['kernel']} (tol {TOL:g} + {BF16_REL:.3g}*|plain|)")
+    if not res["plain_one_bf16_p"]["over_tol"]:
+        raise AssertionError(f"P rounded once to bf16 stays within the tolerance at {case[:7]} "
+                             f"({res['plain_one_bf16_p']}): the case cannot tell one bf16 "
+                             "term from two")
+    log(f"  bfloat16 b,hq,hkv,C,M,r,dv={case[:7]} (qwen2.5-14b chunk): max|out-plain| "
+        f"{res['kernel']['max_abs_err']:.3g}, 0 of {ro.numel()} past the tolerance; the plain "
+        f"version with P rounded once to bf16 {res['plain_one_bf16_p']['max_abs_err']:.3g}, "
+        f"{res['plain_one_bf16_p']['over_tol']} past it (tol {TOL:g} + {BF16_REL:.3g}*|plain|: "
+        "the kernel meets it, one bf16 term of P would not)")
+    return res
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -3788,6 +3845,15 @@ FAMILY_DECODE = {
 }
 FAMILY_DECODE_TIMED = ("qwen2.5-14b decode", "qwen2.5-14b factor decode",
                        "qwen2.5-14b chunk", "granite decode", "granite chunk")
+# the earlier bf16 path at those shapes (csrc/decode_attn.cu's f32 kernel on
+# bf16 loads, before csrc/decode_attn_bf16.cu), ms without / with
+# probabilities on an NVIDIA H100 80GB HBM3 at 700.00 W: logged beside each
+# new time
+FAMILY_DECODE_EARLIER_MS = {"qwen2.5-14b decode": (0.1706, 0.1628),
+                         "qwen2.5-14b factor decode": (0.1281, 0.1318),
+                         "qwen2.5-14b chunk": (0.9906, 1.1826),
+                         "granite decode": (0.0618, 0.0632),
+                         "granite chunk": (0.2979, 0.4050)}
 # lowrank_flash at the chunked forwards' shapes: qwen's 2 x 4096 (40/8 heads,
 # dv 128; masked r = 128, static r = 32) and MLA's (128 heads, r = qk_nope +
 # qk_rope = 192, dv 128; one sequence of 4096, the plain version's scores
@@ -3825,16 +3891,21 @@ GREEDY_FLOOR = 0.97
 # the bf16 lowrank_flash times the kernels line gathers from phases 20a and 21a
 BF16_TIME_KEYS = ("ms", "bound_ms", "bound_bf16_passes_ms", "plain_ms", "library_ms",
                   "sdpa_backend")
+# ... and the bf16 flash_decode times from phase 20a
+BF16_DECODE_TIME_KEYS = ("ms", "ms_probs", "bound_ms", "bound_ms_probs", "bound_by",
+                         "plain_ms", "plain_ms_probs", "library_ms")
 
 
 def family_ptxas() -> None:
     """The ptxas register and spill lines of the instantiations phase 20
     runs: lowrank_flash in bf16 at r = 128 / 192 / 32 with dv = 128 (KR
     128 / 192 / 32, DV 128) and in f32 at r = 128 / 192 (KR 16 / 24),
-    flash_decode at r, dv up to 128."""
+    flash_decode at r, dv up to 128 in f32 and in bf16 (MT 1 and 4 m-tiles
+    at r = 128 / 64 with dv = 128, and at r = dv = 64)."""
     for name, keys in (("lowrank_flash_bf16", ("Li192ELi128>", "Li128ELi128>", "Li32ELi128>")),
                        ("lowrank_flash", ("Li24E", "Li16E")),
-                       ("decode_attn", ("Li4E", "Li16E"))):
+                       ("decode_attn", ("Li4E", "Li16E")),
+                       ("decode_attn_bf16", ("ELi128ELi128>", "ELi64ELi128>", "ELi64ELi64>"))):
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             if any(k in line for k in keys):
                 log("  ptxas: " + line)
@@ -3858,8 +3929,13 @@ def check_family_kernels(card_name) -> dict:
         torch.cuda.empty_cache()
     times = {"flash_decode": {}, "lowrank_flash": {}}
     for label in FAMILY_DECODE_TIMED:
-        times["flash_decode"][label] = time_kernel(FAMILY_DECODE[label], card_name,
-                                                   torch.bfloat16)
+        t = time_kernel(FAMILY_DECODE[label], card_name, torch.bfloat16)
+        before, before_p = FAMILY_DECODE_EARLIER_MS[label]
+        log(f"  {label}: {t['ms']:.4f} / {t['ms_probs']:.4f} ms without / with probs, "
+            f"the earlier bf16 path {before:.4f} / {before_p:.4f} ({before / t['ms']:.2f}x / "
+            f"{before_p / t['ms_probs']:.2f}x faster); sdpa {t['library_ms']:.4f} ms "
+            f"[{card_name}]")
+        times["flash_decode"][label] = t
     for label, case in FAMILY_FLASH.items():     # the device kernel's name at qwen's shape
         times["lowrank_flash"][label] = time_flash(case, label, card_name, torch.bfloat16,
                                                    per_call=label == QWEN_FLASH)
@@ -5369,19 +5445,22 @@ def main() -> int:
     log(card_name)
     phase(f"[1/23] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    sources = ["decode_attn", "lowrank_flash", "lowrank_flash_bf16"]
+    sources = ["decode_attn", "decode_attn_bf16", "lowrank_flash", "lowrank_flash_bf16"]
     secs = build.build(sources)
     for name in sources:
         log(f"  built {name}.cu in {secs[name]:.1f} s")
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
-    n_wgmma = sass_count("lowrank_flash_bf16", "HGMMA")
-    if n_wgmma == 0:
-        raise AssertionError("lowrank_flash_bf16.cu's SASS holds no HGMMA (wgmma) instruction")
-    log(f"  sass: lowrank_flash_bf16.cu holds {n_wgmma} HGMMA (wgmma) instructions")
+    for name, opcode, what in (("lowrank_flash_bf16", "HGMMA", "wgmma"),
+                               ("decode_attn_bf16", "HMMA", "mma.sync")):
+        n = sass_count(name, opcode)
+        if n == 0:
+            raise AssertionError(f"{name}.cu's SASS holds no {opcode} ({what}) instruction")
+        log(f"  sass: {name}.cu holds {n} {opcode} ({what}) instructions")
 
     phase("[2/23] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
+    bf16_decode_p = check_bf16_decode_p_case()
 
     phase("[3/23] full-width drrl-paper serving through Engine, kernel on")
     cfg = get_config("drrl-paper").with_(
@@ -5530,6 +5609,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+         "bf16_source": "src/repro_torch/kernels/csrc/decode_attn_bf16.cu",
          "replaces": "src/repro/kernels/decode_attn.py:122",
          "launches": launches, "drrl_launches": drrl_decode,
          "sampled_launches": sampled_decode, "random_drift_launches": random_decode,
@@ -5549,6 +5629,9 @@ def main() -> int:
              "qwen2.5-14b": {m: fam["qwen_serving"][m]["launches"] for m in ("off", "adaptive")},
              "granite": fam["granite"]["launches"],
              "granite_guarded": fam["granite"]["sanitizer"]["launches"]},
+         "bf16_times": {label: {key: t[key] for key in BF16_DECODE_TIME_KEYS}
+                        for label, t in fam["kernels"]["times"]["flash_decode"].items()},
+         "bf16_p_case": bf16_decode_p,
          "families": fam["kernels"]["times"]["flash_decode"],
          "families_max_abs_err": fam["kernels"]["max_abs_err"]["flash_decode"]},
         {"name": "lowrank_flash", "route": "cuda",

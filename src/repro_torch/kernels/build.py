@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library for Hopper (``sm_90a``), loaded with
 ``ctypes``. Libraries land in ``src/repro_torch/_build/`` (git-ignored)
-under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. :func:`build` starts one
+under a name keyed by a hash of the source, every ``csrc/`` header it
+includes and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc's stderr: ptxas register / shared-memory report)
@@ -45,9 +48,23 @@ def nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header it includes with quotes, at any
+    depth (paths relative to ``csrc/``), in the order first reached."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

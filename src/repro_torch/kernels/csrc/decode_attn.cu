@@ -1,14 +1,16 @@
-// Flash decode for NVIDIA Hopper (sm_90a), hand-written CUDA C++.
+// Flash decode for f32 inputs on NVIDIA Hopper (sm_90a), hand-written CUDA
+// C++ on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attn.py:flash_decode
-// (Pallas body _decode_kernel). Same function, same masks:
+// (Pallas body _decode_kernel) for f32 q, k and v; bf16 inputs go to
+// csrc/decode_attn_bf16.cu. Same function, same masks:
 //
 //   q (b, hq, C, r), k (b, hkv, M, r), v (b, hkv, M, dv), per-row int32
 //   kv_len / q_start / q_lens. Query j of row b sees key position p iff
 //   p < kv_len[b], p <= q_start[b] + j and j < q_lens[b]; so its visible
 //   keys are exactly [0, key_end) with key_end = min(kv_len, q_start + j + 1,
 //   M), or none when j >= q_lens. GQA maps q head h to kv head
-//   h / (hq / hkv). out (b, hq, C, dv) in v's type; optional normalised
+//   h / (hq / hkv). out (b, hq, C, dv) in f32; optional normalised
 //   probability rows probs (b, hq, C, M) in f32. A masked score contributes
 //   exactly 0 (never exp(0)); a query with no visible key gives an all-zero
 //   output row and an all-zero probability row. r, dv in 1 .. 128.
@@ -42,8 +44,8 @@
 //     the (q head of the kv head's group, query) pairs, 1 per block when
 //     hq = hkv and C = 1, else 4, so a GQA group's q heads share one read
 //     of each K/V row. Eight lanes own one key: each loads its slice of
-//     the K row and of the V row with 16-byte (f32) or 8-byte (bf16)
-//     vector loads where width and pointer allow (scalar tail otherwise),
+//     the K row and of the V row with 16-byte vector loads where width and
+//     pointer allow (scalar tail otherwise),
 //     the next key's slices are loaded before the current key is used,
 //     a score is reduced with three xor shuffles, and each 8-lane group
 //     keeps its own online (m, l, acc); the 16 groups merge in a fixed
@@ -57,26 +59,26 @@
 //     a query's online softmax reduces its 8 lanes with three xor
 //     shuffles, and P.V takes each probability from its owner lane and
 //     four V columns per float4 load.
-//   * combine (flash_decode_kernel_combine): one warp per query row and
-//     512 probability columns.
-// Left for later: tensor cores for the chunk path (a bf16 or TF32
+//   * combine (flash_decode_kernel_combine, csrc/decode_combine.cuh, shared
+//     with the bf16 kernel): one warp per query row and 512 probability
+//     columns.
+// Left for later: tensor cores for the chunk path (a TF32
 // tolerance decision), TMA or cp.async rings, strided K/V reads that
 // would spare the caller its transposes, and a combine fused into the
 // last block of each query.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "decode_combine.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDim = 128;       // largest r and dv this kernel takes
-constexpr int kCombineRows = 4;      // combine: query rows per block, one warp each
-constexpr int kCombineKeys = 512;    // combine: probability columns per warp
 // decode path
 constexpr int kSlots = kThreads / 8;  // keys in flight per block: one per 8-lane group
 constexpr int kDecodeMaxC = 16;       // larger chunks take the chunk path
@@ -89,11 +91,6 @@ constexpr int kCols = 8;           // keys per thread and tile
 constexpr int kTS = kBQ + 4;       // row stride of the transposed Q and K tiles
 constexpr int kLoads = 4;          // tile loads in flight per thread
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // Elements e .. e + 3 of a row of `width` as f32, zero past the width. With
 // vec (width % 4 == 0 and the row aligned) a full group is one vector load.
 __device__ __forceinline__ float4 load4(const float* row, int e, int width, bool vec) {
@@ -102,31 +99,14 @@ __device__ __forceinline__ float4 load4(const float* row, int e, int width, bool
                      e + 2 < width ? row[e + 2] : 0.f, e + 3 < width ? row[e + 3] : 0.f);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int e, int width, bool vec) {
-  if (vec && e + 4 <= width) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + e));
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  return make_float4(e < width ? to_f32(row[e]) : 0.f, e + 1 < width ? to_f32(row[e + 1]) : 0.f,
-                     e + 2 < width ? to_f32(row[e + 2]) : 0.f,
-                     e + 3 < width ? to_f32(row[e + 3]) : 0.f);
-}
-
-// one past the last key query j of a row sees (0 when it sees none)
-__device__ __forceinline__ int key_end(int j, int len, int qs, int ql, int M) {
-  return j < ql ? max(0, min(min(len, qs + j + 1), M)) : 0;
-}
-
 // ---------------------------------------------------------------- decode path
 
 // NV: 4-element groups per lane (lane li of an 8-lane group owns elements
 // 4 (li + 8 c) .. + 3, c < NV), so r, dv <= 32 NV. QR: query rows per block.
-template <typename T, int NV, int QR>
+template <int NV, int QR>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel_split(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int* __restrict__ kv_len,
+flash_decode_kernel_split(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ kv_len,
                           const int* __restrict__ q_start, const int* __restrict__ q_lens,
                           float* __restrict__ probs, float* __restrict__ ws_m,
                           float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq, int hkv,
@@ -181,8 +161,8 @@ flash_decode_kernel_split(const T* __restrict__ q, const T* __restrict__ k,
       for (int t = 0; t < 4; ++t) acc[i][c][t] = 0.f;
   }
 
-  const T* k_bh = k + (size_t)bkv * M * r;
-  const T* v_bh = v + (size_t)bkv * M * dv;
+  const float* k_bh = k + (size_t)bkv * M * r;
+  const float* v_bh = v + (size_t)bkv * M * dv;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   // warp w takes keys base + grp, base = k0 + 4 w + 16 t: the trip count is
   // uniform across the warp, so full-warp shuffles are safe
@@ -294,10 +274,10 @@ flash_decode_kernel_split(const T* __restrict__ q, const T* __restrict__ k,
 
 // NC: output columns per thread, c4 * 32 + tx * 4 + t for c4 < NC / 4 and
 // t < 4, so 8 * NC >= dv (NC = 4, 8 or 16).
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel_chunk(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int* __restrict__ kv_len,
+flash_decode_kernel_chunk(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ kv_len,
                           const int* __restrict__ q_start, const int* __restrict__ q_lens,
                           float* __restrict__ probs, float* __restrict__ ws_m,
                           float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq, int hkv,
@@ -328,12 +308,12 @@ flash_decode_kernel_chunk(const T* __restrict__ q, const T* __restrict__ k,
   const int k1 = min(k0 + split_len, tile_hi);
   if (k0 >= k1) return;  // no query of the tile sees a key of this split
 
-  const T* q_bh = q + ((size_t)bh * C + q0) * r;
-  const T* k_bh = k + kv_row * M * r;
-  const T* v_bh = v + kv_row * M * dv;
+  const float* q_bh = q + ((size_t)bh * C + q0) * r;
+  const float* k_bh = k + kv_row * M * r;
+  const float* v_bh = v + kv_row * M * dv;
   for (int row = warp; row < kBQ; row += kWarps)
     for (int d = lane; d < r; d += 32)
-      q_t[d * kTS + row] = row < n_q ? to_f32(q_bh[(size_t)row * r + d]) : 0.f;
+      q_t[d * kTS + row] = row < n_q ? q_bh[(size_t)row * r + d] : 0.f;
 
   // thread (ty, tx) owns queries ty * 4 + i and, in each tile, keys
   // tx * 4 + c and 32 + tx * 4 + c (c < 4): all 128-bit shared loads
@@ -502,206 +482,98 @@ flash_decode_kernel_chunk(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- combine
-
-// One warp per query row (b * hq + h) * C + j, kCombineRows rows per block;
-// blockIdx.y picks the row's kCombineKeys probability columns. Each warp
-// merges the row's partials in split order (fixed-order reductions, so the
-// result repeats run to run); the first column block writes out, and every
-// block turns its columns' scores into probabilities.
-template <typename T>
-__global__ void __launch_bounds__(32 * kCombineRows)
-flash_decode_kernel_combine(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
-                            const float* __restrict__ ws_acc, const int* __restrict__ kv_len,
-                            const int* __restrict__ q_start, const int* __restrict__ q_lens,
-                            T* __restrict__ out, float* __restrict__ probs, int hq, int C, int M,
-                            int dv, int split_len, int n_split, size_t n_rows) {
-  const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * kCombineRows + (threadIdx.x >> 5);
-  if (row >= n_rows) return;    // the whole warp
-  const int b = (int)(row / ((size_t)hq * C));
-  const int j = (int)(row % C);
-  const int end = key_end(j, kv_len[b], q_start[b], q_lens[b], M);
-  const int n_used = (end + split_len - 1) / split_len;  // each holds a visible key
-  const float* pm = ws_m + row * n_split;
-  const float* pl = ws_l + row * n_split;
-
-  // lane t merges splits t, t + 32, ... online (the loads of m and l go out
-  // together), then the lanes merge in a fixed xor order; lane s keeps its
-  // first split's m for that split's weight
-  float m_first = -INFINITY, mf = -INFINITY, lf = 0.f;
-  for (int s = lane; s < n_used; s += 32) {
-    const float ms = pm[s], ls = pl[s];
-    if (s == lane) m_first = ms;
-    const float mn = fmaxf(mf, ms);
-    if (mn != -INFINITY)
-      lf = (mf == -INFINITY ? 0.f : lf * expf(mf - mn)) +
-           (ms == -INFINITY ? 0.f : ls * expf(ms - mn));
-    mf = mn;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, mf, off);
-    const float lx = __shfl_xor_sync(0xffffffffu, lf, off);
-    const float mn = fmaxf(mf, mo);
-    if (mn != -INFINITY)
-      lf = (mf == -INFINITY ? 0.f : lf * expf(mf - mn)) +
-           (mo == -INFINITY ? 0.f : lx * expf(mo - mn));
-    mf = mn;
-  }
-
-  if (blockIdx.y == 0) {
-    // lane s holds split s's weight exp(m_s - m), 0 for an empty split
-    const float w_lane = m_first != -INFINITY ? expf(m_first - mf) : 0.f;
-    const float* acc = ws_acc + row * n_split * dv;
-    for (int d0 = 0; d0 < dv; d0 += 32) {   // uniform trip count: shuffles below
-      const int d = d0 + lane;
-      float o = 0.f;
-      for (int s0 = 0; s0 < n_used; s0 += 8) {
-        float a[8];   // eight splits' loads in flight before any is used
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          a[u] = s0 + u < n_used && d < dv ? acc[(size_t)(s0 + u) * dv + d] : 0.f;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int s = s0 + u;
-          float w = __shfl_sync(0xffffffffu, w_lane, s & 31);
-          if (s >= 32) w = s < n_used && pm[s] != -INFINITY ? expf(pm[s] - mf) : 0.f;
-          o = fmaf(w, a[u], o);
-        }
-      }
-      if (d < dv) store(out + row * dv + d, lf > 0.f ? o / lf : 0.f);
-    }
-  }
-
-  if (probs == nullptr) return;
-  float* p_row = probs + row * M;
-  const int lo = blockIdx.y * kCombineKeys, hi = min(M, lo + kCombineKeys);
-  if ((M & 3) == 0) {   // rows start 16-byte aligned: float4 loads and stores
-    constexpr int kPer = kCombineKeys / 128;   // float4 groups per lane
-    float4 x[kPer];       // all of the lane's scores loaded before any is used
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = lo + 4 * lane + 128 * u;
-      x[u] = e < end ? *reinterpret_cast<const float4*>(p_row + e)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = lo + 4 * lane + 128 * u;
-      if (e >= hi) break;
-      if (e < end) {
-        x[u].x = expf(x[u].x - mf) / lf;
-        x[u].y = e + 1 < end ? expf(x[u].y - mf) / lf : 0.f;
-        x[u].z = e + 2 < end ? expf(x[u].z - mf) / lf : 0.f;
-        x[u].w = e + 3 < end ? expf(x[u].w - mf) / lf : 0.f;
-      }
-      *reinterpret_cast<float4*>(p_row + e) = x[u];
-    }
-  } else {
-    for (int e = lo + lane; e < hi; e += 32)
-      p_row[e] = e < end ? expf(p_row[e] - mf) / lf : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------- launch
 
-template <typename T, int NV, int QR>
-cudaError_t launch_split(const T* q, const T* k, const T* v, const int* kv_len,
+template <int NV, int QR>
+cudaError_t launch_split(const float* q, const float* k, const float* v, const int* kv_len,
                          const int* q_start, const int* q_lens, float* probs, float* ws_m,
                          float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
                          int dv, int split_len, int n_split, int vec_k, int vec_v, float scale,
                          cudaStream_t stream) {
   const int rows = hq / hkv * C;
   const dim3 grid(n_split, b * hkv, (rows + QR - 1) / QR);
-  flash_decode_kernel_split<T, NV, QR><<<grid, kThreads, 0, stream>>>(
+  flash_decode_kernel_split<NV, QR><<<grid, kThreads, 0, stream>>>(
       q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
       split_len, n_split, vec_k, vec_v, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int NV>
-cudaError_t dispatch_split(const T* q, const T* k, const T* v, const int* kv_len,
+template <int NV>
+cudaError_t dispatch_split(const float* q, const float* k, const float* v, const int* kv_len,
                            const int* q_start, const int* q_lens, float* probs, float* ws_m,
                            float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M,
                            int r, int dv, int split_len, int n_split, int vec_k, int vec_v,
                            float scale, cudaStream_t s) {
   if (hq / hkv * C == 1)
-    return launch_split<T, NV, 1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc,
-                                  b, hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v,
-                                  scale, s);
-  return launch_split<T, NV, kRowTile>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l,
-                                       ws_acc, b, hq, hkv, C, M, r, dv, split_len, n_split,
-                                       vec_k, vec_v, scale, s);
+    return launch_split<NV, 1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc,
+                               b, hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v,
+                               scale, s);
+  return launch_split<NV, kRowTile>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l,
+                                    ws_acc, b, hq, hkv, C, M, r, dv, split_len, n_split,
+                                    vec_k, vec_v, scale, s);
 }
 
-template <typename T, int NC>
-cudaError_t launch_chunk(const T* q, const T* k, const T* v, const int* kv_len,
+template <int NC>
+cudaError_t launch_chunk(const float* q, const float* k, const float* v, const int* kv_len,
                          const int* q_start, const int* q_lens, float* probs, float* ws_m,
                          float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
                          int dv, int split_len, int n_split, int vec_k, int vec_v, float scale,
                          cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)r * kTS + (size_t)kBK * 8 * NC);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel_chunk<T, NC>,
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel_chunk<NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_split, b * hq, (C + kBQ - 1) / kBQ);
-  flash_decode_kernel_chunk<T, NC><<<grid, kThreads, smem, stream>>>(
+  flash_decode_kernel_chunk<NC><<<grid, kThreads, smem, stream>>>(
       q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
       split_len, n_split, vec_k, vec_v, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t run(const void* q_, const void* k_, const void* v_, const int* kv_len,
                 const int* q_start, const int* q_lens, void* out_, float* probs, float* ws,
                 int b, int hq, int hkv, int C, int M, int r, int dv, int split_len, int n_split,
                 float scale, cudaStream_t s) {
-  const T* q = static_cast<const T*>(q_);
-  const T* k = static_cast<const T*>(k_);
-  const T* v = static_cast<const T*>(v_);
+  const float* q = static_cast<const float*>(q_);
+  const float* k = static_cast<const float*>(k_);
+  const float* v = static_cast<const float*>(v_);
   const size_t n_part = (size_t)b * hq * C * n_split;
   float* ws_m = ws;
   float* ws_l = ws + n_part;
   float* ws_acc = ws + 2 * n_part;
   // vector loads need rows of whole 4-element groups on a vector boundary
-  const uintptr_t align = 4 * sizeof(T);
+  const uintptr_t align = 4 * sizeof(float);
   const int vec_k = r % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0;
   const int vec_v = dv % 4 == 0 && reinterpret_cast<uintptr_t>(v) % align == 0;
   cudaError_t err;
   if (C <= kDecodeMaxC) {
     const int w = max(r, dv);
     if (w <= 32)
-      err = dispatch_split<T, 1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
-                                 hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+      err = dispatch_split<1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
+                              hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
     else if (w <= 64)
-      err = dispatch_split<T, 2>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
-                                 hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+      err = dispatch_split<2>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
+                              hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
     else
-      err = dispatch_split<T, 4>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
-                                 hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+      err = dispatch_split<4>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
+                              hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
   } else {
 #define CHUNK(NC)                                                                             \
-  launch_chunk<T, NC>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b, hq, hkv, \
-                      C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s)
+  launch_chunk<NC>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b, hq, hkv, \
+                   C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s)
     err = dv <= 32 ? CHUNK(4) : dv <= 64 ? CHUNK(8) : CHUNK(16);
 #undef CHUNK
   }
   if (err != cudaSuccess) return err;
-  const size_t n_rows = (size_t)b * hq * C;
-  const dim3 grid((unsigned)((n_rows + kCombineRows - 1) / kCombineRows),
-                  probs == nullptr ? 1 : (M + kCombineKeys - 1) / kCombineKeys);
-  flash_decode_kernel_combine<T><<<grid, 32 * kCombineRows, 0, s>>>(
-      ws_m, ws_l, ws_acc, kv_len, q_start, q_lens, static_cast<T*>(out_), probs, hq, C, M, dv,
-      split_len, n_split, n_rows);
-  return cudaGetLastError();
+  return launch_combine<float>(ws_m, ws_l, ws_acc, kv_len, q_start, q_lens,
+                               static_cast<float*>(out_), probs, b, hq, C, M, dv, split_len,
+                               n_split, s);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). All tensors are contiguous and
-// on the current device; dtype 0 = float32, 1 = bfloat16 for q, k, v and
-// out; probs may be null. The key axis is cut into n_split ranges of
+// on the current device; q, k, v and out are float32; probs may be null. The key axis is cut into n_split ranges of
 // split_len keys (a multiple of 16 when C <= 16, of 64 otherwise); the f32
 // workspace holds b * hq * C * n_split * (dv + 2) floats. Launches the path
 // kernel and the combine on `stream`. Returns a cudaError_t value (0 =
@@ -710,7 +582,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* kv_len, const void* q_start, const void* q_lens,
                                    void* out, void* probs, void* workspace, int b, int hq, int hkv,
                                    int C, int M, int r, int dv, int split_len, int n_split,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, void* stream) {
   const int unit = C <= kDecodeMaxC ? kSlots : kBK;
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || C < 1 || M < 1 || r < 1 ||
       r > kMaxDim || dv < 1 || dv > kMaxDim || split_len < unit || split_len % unit != 0 ||
@@ -723,15 +595,6 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   const int* qlens = static_cast<const int*>(q_lens);
   float* p = static_cast<float*>(probs);
   float* ws = static_cast<float*>(workspace);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = run<float>(q, k, v, lens, starts, qlens, out, p, ws, b, hq, hkv, C, M, r, dv,
-                     split_len, n_split, scale, s);
-  else if (dtype == 1)
-    err = run<__nv_bfloat16>(q, k, v, lens, starts, qlens, out, p, ws, b, hq, hkv, C, M, r, dv,
-                             split_len, n_split, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)run(q, k, v, lens, starts, qlens, out, p, ws, b, hq, hkv, C, M, r, dv,
+                         split_len, n_split, scale, static_cast<cudaStream_t>(stream));
 }

@@ -4,9 +4,11 @@ cache with per-row valid lengths. Port of the TPU kernel
 
 Two versions of one function live here:
 
-* :func:`flash_decode` launches the hand-written CUDA kernel
-  (``csrc/decode_attn.cu``, built for ``sm_90a`` at first use) on CUDA
-  tensors, and raises on anything the kernel does not take;
+* :func:`flash_decode` launches a hand-written CUDA kernel on CUDA
+  tensors (built for ``sm_90a`` at first use): ``csrc/decode_attn.cu`` (f32
+  on the CUDA cores) for f32 inputs, ``csrc/decode_attn_bf16.cu``
+  (``mma.sync`` on the bf16 tensor cores) for bf16 ones; it raises on
+  anything the kernels do not take;
 * :func:`flash_decode_plain` is the same function in plain PyTorch: the
   CPU path and the reference the kernel is held against on the card.
 
@@ -36,16 +38,24 @@ import torch
 # that the serving path went through the kernel)
 LAUNCHES: Dict[str, int] = {"flash_decode": 0}
 
-MAX_DIM = 128          # largest r and dv the CUDA kernel takes
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's two paths (csrc/decode_attn.cu): chunks of at most
-# DECODE_MAX_C queries take the decode path, larger ones the chunk path
+MAX_DIM = 128          # largest r and dv the CUDA kernels take
+# input type -> (csrc/<source>.cu, its C entry point)
+SOURCES = {torch.float32: ("decode_attn", "flash_decode_launch"),
+           torch.bfloat16: ("decode_attn_bf16", "flash_decode_bf16_launch")}
+# the kernels' two paths: chunks of at most DECODE_MAX_C queries take the
+# decode path, larger ones the chunk path
 DECODE_MAX_C = 16
+# f32 (csrc/decode_attn.cu)
 DECODE_ROW_TILE = 4    # query rows per decode block, unless there is 1 in all
 CHUNK_QUERIES = 64     # queries per chunk block
 # a key split is a whole number of these keys: 16 on the decode path (one
 # key per 8-lane group of a 128-thread block), one 64-key tile on the chunk
 SPLIT_UNIT = {"decode": 16, "chunk": 64}
+# bf16 (csrc/decode_attn_bf16.cu), both paths: one block per (key split,
+# b * hkv, tile of at most 64 (query, q head) rows of the kv head), and a key
+# split is a whole number of its 64-key tiles
+BF16_ROW_TILE = 64
+BF16_SPLIT_UNIT = 64
 BLOCKS_PER_SM = 8      # blocks the key split aims at, counted over the grid
 
 
@@ -99,22 +109,25 @@ def flash_decode_plain(q, k, v, kv_len, *, scale: float,
     return (o, p) if return_probs else o
 
 
-def split_plan(b: int, hq: int, hkv: int, C: int, M: int,
-               sm_count: int) -> Tuple[str, int, int]:
-    """The kernel's path and key split, from shapes alone: ``(path,
-    split_len, n_split)``. Split s covers keys [s * split_len,
+def split_plan(b: int, hq: int, hkv: int, C: int, M: int, sm_count: int,
+               dtype: torch.dtype = torch.float32) -> Tuple[str, int, int]:
+    """The path and key split of the kernel for ``dtype``, from shapes
+    alone: ``(path, split_len, n_split)``. Split s covers keys [s * split_len,
     min((s + 1) * split_len, M)), so the splits cover every key position
     once. The split aims at BLOCKS_PER_SM blocks per SM over the whole grid;
     blocks whose keys lie past their rows' ``kv_len`` exit at once, so the
     plan never needs to read the lengths (a device-to-host sync)."""
-    if C <= DECODE_MAX_C:
-        path = "decode"
-        rows = hq // hkv * C
+    path = "decode" if C <= DECODE_MAX_C else "chunk"
+    rows = hq // hkv * C
+    if dtype == torch.bfloat16:
+        blocks = b * hkv * math.ceil(rows / BF16_ROW_TILE)
+        unit = BF16_SPLIT_UNIT
+    elif path == "decode":
         blocks = b * hkv * (1 if rows == 1 else math.ceil(rows / DECODE_ROW_TILE))
+        unit = SPLIT_UNIT[path]
     else:
-        path = "chunk"
         blocks = b * hq * math.ceil(C / CHUNK_QUERIES)
-    unit = SPLIT_UNIT[path]
+        unit = SPLIT_UNIT[path]
     n_split = max(1, min(math.ceil(BLOCKS_PER_SM * sm_count / blocks),
                          math.ceil(M / unit)))
     split_len = unit * math.ceil(math.ceil(M / n_split) / unit)
@@ -134,7 +147,7 @@ def _prepare(q, k, v, kv_len, q_start, q_lens, return_probs: bool,
     b, hq, C, _ = q.shape
     hkv, M, dv = k.shape[1], k.shape[2], v.shape[3]
     lens, qs, ql = _defaults(q, kv_len, q_start, q_lens)
-    plan = split_plan(b, hq, hkv, C, M, sm_count)
+    plan = split_plan(b, hq, hkv, C, M, sm_count, q.dtype)
     out = torch.empty((b, hq, C, dv), dtype=v.dtype, device=q.device)
     probs = (torch.empty((b, hq, C, M), dtype=torch.float32, device=q.device)
              if return_probs else None)
@@ -150,7 +163,7 @@ def _check(q, k, v):
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in SOURCES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_decode takes q, k, v all float32 or all "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -171,22 +184,22 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _library():
+def _library(dtype):
     from repro_torch.kernels import build
-    lib = build.load("decode_attn")
-    fn = lib.flash_decode_launch
+    source, entry = SOURCES[dtype]
+    fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def flash_decode(q, k, v, kv_len, *, scale: float, return_probs: bool = False,
                  q_start=None, q_lens=None):
-    """Launch the CUDA kernels on the current stream (no fallback): the
-    path's split kernel, then the combine. One call is one launch in
-    ``LAUNCHES``."""
+    """Launch the CUDA kernels for q's type on the current stream (no
+    fallback): the path's split kernel, then the combine. One call is one
+    launch in ``LAUNCHES``."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, :, None, :]
@@ -195,14 +208,14 @@ def flash_decode(q, k, v, kv_len, *, scale: float, return_probs: bool = False,
     hkv, M, dv = k.shape[1], k.shape[2], v.shape[3]
     (lens, qs, ql), out, probs, work, (_, split_len, n_split) = _prepare(
         q, k, v, kv_len, q_start, q_lens, return_probs, _sm_count(q.device))
-    launch = _library()
+    launch = _library(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                      qs.data_ptr(), ql.data_ptr(), out.data_ptr(),
                      None if probs is None else probs.data_ptr(),
                      work.data_ptr(), b, hq, hkv, C, M, r, dv, split_len,
-                     n_split, float(scale), _DTYPE_CODE[q.dtype], stream)
+                     n_split, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1

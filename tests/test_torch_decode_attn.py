@@ -225,14 +225,19 @@ PLAN_SHAPES = [(b, hq, hkv, C, M)
 
 
 @pytest.mark.parametrize("sm_count", [1, 8, 132])
-def test_split_plan_covers_every_key_once(sm_count):
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_split_plan_covers_every_key_once(sm_count, dtype):
     """Split s covers [s * split_len, min((s + 1) * split_len, M)): across
     the sweep, every key position of a row lies in exactly one split, and
-    each split is a whole number of the path's units."""
+    each split is a whole number of the path's units (the bf16 kernel's
+    64-key tile on both of its paths)."""
     for b, hq, hkv, C, M in PLAN_SHAPES:
-        path, split_len, n_split = decode_attn.split_plan(b, hq, hkv, C, M, sm_count)
+        path, split_len, n_split = decode_attn.split_plan(b, hq, hkv, C, M, sm_count,
+                                                          _TORCH[dtype])
         assert path == ("decode" if C <= decode_attn.DECODE_MAX_C else "chunk")
-        assert split_len % decode_attn.SPLIT_UNIT[path] == 0 and n_split >= 1
+        unit = (decode_attn.BF16_SPLIT_UNIT if dtype == BF16
+                else decode_attn.SPLIT_UNIT[path])
+        assert split_len % unit == 0 and n_split >= 1
         hits = np.zeros(M, np.int64)
         for s in range(n_split):
             lo, hi = s * split_len, min((s + 1) * split_len, M)
@@ -243,43 +248,53 @@ def test_split_plan_covers_every_key_once(sm_count):
 
 def test_split_plan_aims_at_blocks_per_sm():
     """At the serving shapes the grid holds about BLOCKS_PER_SM = 8 blocks
-    per SM of a 132-SM card: 11 key splits at C = 1, 6 at C = 128."""
+    per SM of a 132-SM card: 11 key splits at C = 1, 6 at C = 128. In bf16
+    one block holds a kv head's rows (64 at most): qwen2.5-14b (40/8 heads)
+    takes 16 splits of two tiles at C = 1 and, at C = 128, ten row tiles of
+    64 (5 heads x 128 queries) and 2 splits."""
     assert decode_attn.BLOCKS_PER_SM == 8
     assert decode_attn.split_plan(8, 12, 12, 1, 2048, 132) == ("decode", 192, 11)
     assert decode_attn.split_plan(8, 12, 12, 128, 2048, 132) == ("chunk", 384, 6)
+    bf16 = torch.bfloat16
+    assert decode_attn.split_plan(8, 40, 8, 1, 2048, 132, bf16) == ("decode", 128, 16)
+    assert decode_attn.split_plan(8, 40, 8, 128, 2048, 132, bf16) == ("chunk", 1024, 2)
     # more rows than the card can hold at once: no split
     assert decode_attn.split_plan(64, 32, 8, 128, 512, 132)[2] == 1
+    assert decode_attn.split_plan(64, 32, 8, 128, 512, 132, bf16)[2] == 1
 
 
 @pytest.mark.parametrize("C", [1, 6, 40])
-def test_launch_plan_reads_nothing_on_the_host(C):
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_launch_plan_reads_nothing_on_the_host(C, dtype):
     """The wrapper's preparation works on tensors that cannot be read on the
     host (the meta device): it depends on shapes alone, so it never syncs
     with the device to read kv_len, q_start or q_lens."""
     b, hq, hkv, M, r, dv = 3, 8, 2, 300, 24, 40
     meta = torch.device("meta")
-    q = torch.empty((b, hq, C, r), device=meta)
-    k = torch.empty((b, hkv, M, r), device=meta)
-    v = torch.empty((b, hkv, M, dv), device=meta)
+    q = torch.empty((b, hq, C, r), device=meta, dtype=_TORCH[dtype])
+    k = torch.empty((b, hkv, M, r), device=meta, dtype=_TORCH[dtype])
+    v = torch.empty((b, hkv, M, dv), device=meta, dtype=_TORCH[dtype])
     lens = torch.empty((b,), dtype=torch.int32, device=meta)
     with pytest.raises(Exception):
         lens.tolist()                  # what a host read of kv_len would do
     (kl, qs, ql), out, probs, work, plan = decode_attn._prepare(
         q, k, v, lens, None, torch.empty((b,), dtype=torch.int64, device=meta),
         True, 132)
-    assert plan == decode_attn.split_plan(b, hq, hkv, C, M, 132)
+    assert plan == decode_attn.split_plan(b, hq, hkv, C, M, 132, _TORCH[dtype])
+    assert out.dtype == _TORCH[dtype]
     assert all(t.dtype == torch.int32 and t.shape == (b,) for t in (kl, qs, ql))
     assert out.shape == (b, hq, C, dv) and probs.shape == (b, hq, C, M)
     assert work.numel() == b * hq * C * plan[2] * (dv + 2)
 
 
-def split_boundary_cases(sm_count):
-    """Cases at the key splits of the card's plan: kv_len equal to a split's
-    size, one less and one more, rows of kv_len 1 and M, a GQA group of 4,
-    and chunks in which some queries see no key of a whole split (decode
-    and chunk paths). Rows: b, hq, hkv, C, M, r, dv, kv_len, q_start, q_lens."""
+def split_boundary_cases(sm_count, dtype=torch.float32):
+    """Cases at the key splits of the card's plan for the kernel of
+    ``dtype``: kv_len equal to a split's size, one less and one more, rows of
+    kv_len 1 and M, a GQA group of 4, and chunks in which some queries see no
+    key of a whole split (decode and chunk paths). Rows: b, hq, hkv, C, M, r,
+    dv, kv_len, q_start, q_lens."""
     def split(b, hq, hkv, C, M):
-        return decode_attn.split_plan(b, hq, hkv, C, M, sm_count)[1]
+        return decode_attn.split_plan(b, hq, hkv, C, M, sm_count, dtype)[1]
 
     L = split(6, 8, 8, 1, 2048)
     G = split(4, 16, 4, 1, 1024)
@@ -299,11 +314,12 @@ def split_boundary_cases(sm_count):
 @pytest.mark.parametrize("case_index", range(4))
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_cuda_kernel_at_split_boundaries(case_index, dtype):
-    """On the card: the split-boundary cases against the plain version."""
+    """On the card: the split-boundary cases of each kernel's plan against
+    the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    b, hq, hkv, C, M, r, dv, kl, qs, ql = split_boundary_cases(sms)[case_index]
+    b, hq, hkv, C, M, r, dv, kl, qs, ql = split_boundary_cases(sms, _TORCH[dtype])[case_index]
     _, (q, k, v) = _inputs([(b, hq, C, r), (b, hkv, M, r), (b, hkv, M, dv)],
                            dtype, seed=5)
     q, k, v = q.cuda(), k.cuda(), v.cuda()

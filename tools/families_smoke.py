@@ -81,7 +81,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card()
     cs.log(card)
-    secs = cs.build.build(["decode_attn", "lowrank_flash", "lowrank_flash_bf16"])
+    secs = cs.build.build(["decode_attn", "decode_attn_bf16", "lowrank_flash",
+                           "lowrank_flash_bf16"])
     cs.log("built " + ", ".join(f"{k} in {v:.1f} s" for k, v in secs.items()))
     t0 = time.perf_counter()
     if args.profile:
