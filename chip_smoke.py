@@ -14,7 +14,12 @@ Phases (one line each, plus detail lines):
      (two bf16 steps of each output element): the CPU tests' shapes, cases
      at the key splits the kernel's host plan picks on this card, and the
      serving path's shapes (decode, prefill chunk, and phase 15's draft read
-     at r = 16 and verify block with per-row q_lens);
+     at r = 16 and verify block with per-row q_lens); then K and V as
+     strided views of (b, rows, hkv, d) cache buffers (the few-query route
+     of ``ops.flash_attention``: zamba2's and qwen2-vl's one-query decodes,
+     a 16-query call, rows off 16 bytes), each also bitwise the kernel on
+     contiguous copies (``tools/few_query_smoke.py --other`` holds the
+     contiguous cases bitwise to another commit's build);
   3. full-width serving of the drrl-paper model (12 layers, d_model 768,
      seeded random weights) through ``repro_torch.serve.Engine`` with the
      kernel on: adaptive rank, again with the factor cache, again in fixed
@@ -210,12 +215,17 @@ Phases (one line each, plus detail lines):
      shared attention (2 x 4096, 32 heads of 112: r = dv = 112),
      seamless's decoder (2 x 2048, 16 of 64) and qwen2-vl's (2 x 4096,
      28/4 of 128), timed in bf16 beside its bound and SDPA, with the ptxas
-     lines of those instantiations; (b) zamba2-7b at full depth (54 Mamba2
-     blocks + 27 shared-attention invocations): forward_zamba(chunked=True)
-     over 2 x 4096 in 'off' (27 lowrank_flash launches) and 'adaptive'/
-     masked with fidelity (54) against the plain path, then 4064 tokens
-     prefilled into init_cache_zamba and 32 single-token decode steps (27
-     launches each) against the 'off' forward's logits; (c) rwkv6-1.6b at
+     lines of those instantiations; then the one-query calls of zamba2's
+     and qwen2-vl's dense-cache decodes through ``ops.flash_attention`` on
+     views of the cache (flash_decode, one launch each) against
+     lowrank_flash_plain, f32 and bf16, timed beside lowrank_flash on the
+     copies the call site made before, SDPA and the bound; (b) zamba2-7b
+     at full depth (54 Mamba2 blocks + 27 shared-attention invocations):
+     forward_zamba(chunked=True) over 2 x 4096 in 'off' (27 lowrank_flash
+     launches) and 'adaptive'/masked with fidelity (54) against the plain
+     path, then 4064 tokens prefilled into init_cache_zamba (27
+     lowrank_flash launches) and 32 single-token decode steps (27
+     flash_decode launches each) against the 'off' forward's logits; (c) rwkv6-1.6b at
      full depth: forward_rwkv over 1 x 4096 (no kernel), 4032 tokens as one
      decode step and 64 single-token steps against it (tokens/s), and layer
      0's wkv6_chunked against wkv6_naive in f32 on its own inputs; (d)
@@ -225,8 +235,8 @@ Phases (one line each, plus detail lines):
      the forward; (e) qwen2-vl-7b at full depth: forward_dense(chunked=True)
      on 2 x (256 patch embeddings + 3840 tokens) at a 16 x 16 patch grid's
      M-RoPE positions (28 launches) against the plain path, then a 2048-token
-     prompt and 16 decode_step_dense steps against the teacher-forced
-     forward; wall and peak memory of each; (f) the four reduced models'
+     prompt (28 lowrank_flash launches) and 16 decode_step_dense steps (28
+     flash_decode launches each) against the teacher-forced forward; wall and peak memory of each; (f) the four reduced models'
      chunked forwards over 1040 positions, card against CPU. Logits within
      two bf16 steps of the largest; a forward's greedy picks agree with the
      plain path's at 0.97 of the positions, and a decode's picks differ only
@@ -418,6 +428,20 @@ MAIN_VERIFY = (8, 12, 12, 128, 2048, 64, 64,
                (128, 1505, 305, 1005, 134, 642, 2045, 69),
                (0, 1500, 300, 1000, 129, 572, 2040, 64),
                (128, 5, 5, 5, 5, 70, 5, 5))
+# K and V as views of (b, rows, hkv, d + pad) cache buffers, as the
+# few-query route of ops.flash_attention passes them (kv_len = M; q_start =
+# q_offset, or M - 1 when not causal): zamba2's and qwen2-vl's one-query
+# decodes, a 16-query call with GQA 7, a non-causal call, and key rows
+# 27 elements apart (off 16 bytes: the kernels' plain-load staging):
+# (case, (rows, pad))
+STRIDED_CASES = [
+    ((2, 32, 32, 1, 4064, 112, 112, (4064, 4064), (4063, 4063), None), (4096, 0)),
+    ((2, 28, 4, 1, 2050, 128, 128, (2050, 2050), (2049, 2049), None), (2064, 0)),
+    ((2, 28, 4, 16, 1100, 128, 128, (1100, 1100), (1084, 1084), None), (1200, 0)),
+    ((2, 8, 2, 3, 1500, 64, 64, (1500, 1500), (1499, 1499), None), (1600, 0)),
+    ((3, 6, 3, 5, 70, 24, 16, (70, 70, 70), (30, 65, 0), None), (90, 0)),
+    ((2, 4, 1, 2, 300, 24, 24, (300, 151), (298, 149), None), (320, 3)),
+]
 
 
 def split_cases(dtype=torch.float32):
@@ -446,12 +470,19 @@ def split_cases(dtype=torch.float32):
     ]
 
 
-def make_inputs(case, dtype, seed, return_probs=True):
+def make_inputs(case, dtype, seed, return_probs=True, cache=None):
+    """The case's inputs; with ``cache`` = (rows, pad), K and V are
+    (b, hkv, M, d) views of (b, rows, hkv, d + pad) cache buffers."""
     b, hq, hkv, C, M, r, dv, kl, qs, ql = case
     g = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((b, hq, C, r), generator=g, device=DEV).to(dtype)
-    k = torch.randn((b, hkv, M, r), generator=g, device=DEV).to(dtype)
-    v = torch.randn((b, hkv, M, dv), generator=g, device=DEV).to(dtype)
+    if cache is None:
+        k = torch.randn((b, hkv, M, r), generator=g, device=DEV).to(dtype)
+        v = torch.randn((b, hkv, M, dv), generator=g, device=DEV).to(dtype)
+    else:
+        rows, pad = cache
+        k, v = (torch.randn((b, rows, hkv, d + pad), generator=g, device=DEV).to(dtype)
+                [:, :M, :, :d].transpose(1, 2) for d in (r, dv))
     if C == 1:
         q = q[:, :, 0]
     return (q, k, v, ints(kl)), dict(scale=r ** -0.5, return_probs=return_probs,
@@ -468,16 +499,24 @@ def visible_keys(q, k, kv_len, q_start, q_lens) -> torch.Tensor:
             & (j < ql[:, None, None, None]))
 
 
-def check_decode_case(case, dtype, seed, label="") -> float:
+def check_decode_case(case, dtype, seed, label="", cache=None) -> float:
     """One case of flash_decode against its plain version: outputs f32
     within 2e-5 + 2e-5 |plain|, bf16 within 2e-5 + two bf16 steps of
     |plain|; probabilities (f32 on both sides, computed in f32 from the same
     inputs) 2e-5 + 2e-5 |plain| in both types. Exact zeros in both types:
     every masked key's probability, and the output of a query with no
-    visible key; in f32 also the plain version's whole zero pattern.
+    visible key; in f32 also the plain version's whole zero pattern. With
+    ``cache`` (make_inputs), K and V are cache views and the outputs must
+    also equal, bitwise, the kernel's on contiguous copies of them.
     Returns the larger max error."""
-    args, kw = make_inputs(case, dtype, seed=seed)
+    args, kw = make_inputs(case, dtype, seed=seed, cache=cache)
     o, p = decode_attn.flash_decode(*args, **kw)
+    if cache is not None:
+        q, k, v, kl = args
+        oc, pc = decode_attn.flash_decode(q, k.contiguous(), v.contiguous(), kl, **kw)
+        if not (torch.equal(o, oc) and torch.equal(p, pc)):
+            raise AssertionError(f"flash_decode on cache views differs from the call on "
+                                 f"contiguous copies at {case} {dtype}, cache {cache}")
     torch.cuda.synchronize()
     ro, rp = decode_attn.flash_decode_plain(*args, **kw)
     err_o = (o.float() - ro.float()).abs().max().item()
@@ -498,23 +537,32 @@ def check_decode_case(case, dtype, seed, label="") -> float:
                              f"{case} {dtype}: out {err_o:.3g} (tol {TOL:g} + "
                              f"{rel:.3g}*|plain|), probs {err_p:.3g}, zero pattern "
                              f"{zeros}, finite {finite}")
-    log(f"  {label}{str(dtype)[6:]:8s} b,hq,hkv,C,M,r,dv={case[:7]} kv_len={case[7]}: "
+    view = "" if cache is None else f" (views of {cache[0]} cache rows, pad {cache[1]}; " \
+                                    "bitwise the contiguous call)"
+    log(f"  {label}{str(dtype)[6:]:8s} b,hq,hkv,C,M,r,dv={case[:7]} kv_len={case[7]}{view}: "
         f"max|out-plain| {err_o:.3g} (tol {TOL:g} + {rel:.3g}*|plain|), "
         f"max|probs-plain| {err_p:.3g}")
     return max(err_o, err_p)
 
 
-def check_kernel() -> float:
-    """Every case in f32 and bf16, and the bf16 kernel's own split
-    boundaries in bf16 (``check_decode_case``); returns the largest f32
-    error."""
-    worst = 0.0
+def decode_cases() -> list:
+    """Phase 2's contiguous (case, dtype) pairs, in order: every case in f32
+    and bf16, then the bf16 kernel's own split boundaries in bf16."""
     cases = [(c, dt) for c in CHECK_CASES + split_cases()
              + [MAIN_DECODE, MAIN_CHUNK, MAIN_DRAFT, MAIN_VERIFY]
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(c, torch.bfloat16) for c in split_cases(torch.bfloat16)]
-    for i, (case, dtype) in enumerate(cases):
-        err = check_decode_case(case, dtype, seed=i)
+    return cases + [(c, torch.bfloat16) for c in split_cases(torch.bfloat16)]
+
+
+def check_kernel() -> float:
+    """``decode_cases`` (seed = the index), then STRIDED_CASES in f32 and
+    bf16 (``check_decode_case``); returns the largest f32 error."""
+    worst = 0.0
+    cases = [(c, dt, i, None) for i, (c, dt) in enumerate(decode_cases())]
+    cases += [(c, dt, 1000 + i, cache) for i, (c, cache) in enumerate(STRIDED_CASES)
+              for dt in (torch.float32, torch.bfloat16)]
+    for case, dtype, seed, cache in cases:
+        err = check_decode_case(case, dtype, seed=seed, cache=cache)
         if dtype == torch.float32:
             worst = max(worst, err)
     return worst
@@ -1218,11 +1266,11 @@ def flash_bound_ms(case, dtype=torch.float32) -> tuple:
     return (t_bytes, "bytes", extra) if t_bytes >= t_ops else (t_ops, "operations", extra)
 
 
-def sdpa_backend(q, k, v, scale) -> str:
+def sdpa_backend(q, k, v, scale, causal=True) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these inputs
     (PyTorch's own dispatch decision, the one the call below takes)."""
     from torch.nn.attention import SDPBackend
-    choice = torch._fused_sdp_choice(q, k, v, is_causal=True, scale=scale,
+    choice = torch._fused_sdp_choice(q, k, v, is_causal=causal, scale=scale,
                                      enable_gqa=True)
     return SDPBackend(choice).name
 
@@ -4470,6 +4518,13 @@ RECURRENT_FLASH = {
     "seamless decoder r=dv=64": (2, 16, 16, 2048, 2048, 64, 64, True, 0),
     "qwen2-vl-7b r=dv=128": (2, 28, 4, 4096, 4096, 128, 128, True, 0),
 }
+# ... and the one-query calls of zamba2's and qwen2-vl's dense-cache
+# decodes at their last step (the cache buffer holds exactly skv rows),
+# which ops.flash_attention sends to flash_decode on views of the cache
+RECURRENT_DECODE = {
+    "zamba2-7b decode r=dv=112": (2, 32, 32, 1, 4096, 112, 112, True, 4095),
+    "qwen2-vl-7b decode r=dv=128": (2, 28, 4, 1, 2064, 128, 128, True, 2063),
+}
 ZAMBA_DECODE_STEPS = 32
 RWKV_DECODE_STEPS = 64
 SEAMLESS_DECODE_STEPS = 16
@@ -4508,9 +4563,77 @@ def recurrent_ptxas() -> None:
                 log("  ptxas: " + line)
 
 
+def check_one_query(label, case, seed, card_name) -> dict:
+    """One decode's one-query call (sq = 1 at q_offset = skv - 1: every key
+    visible), f32 and bf16: ``ops.flash_attention`` on views of (b, skv,
+    hkv, d) caches in attend's layout launches flash_decode once and no
+    lowrank_flash, within 2e-5 + 2e-5 |plain| (f32) or two bf16 steps (bf16)
+    of lowrank_flash_plain. Timed (CUDA events, L2 flushed): the routed call
+    ('ms'), lowrank_flash on the contiguous copies the call site made before
+    this route, copies included ('before_ms') and not ('before_kernel_ms'),
+    flash_decode alone on the views with its lengths made beforehand
+    ('decode_ms': the route's own fills left out), the plain version, SDPA
+    on the views, and the bound."""
+    import torch.nn.functional as F
+    b, hq, hkv, sq, skv, r, dv, causal, off = case
+    assert sq == 1 and off == skv - 1, case
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        q, kc, vc = (torch.randn(shape, generator=g, device=DEV).to(dtype)
+                     for shape in ((b, sq, hq, r), (b, skv, hkv, r), (b, skv, hkv, dv)))
+        views = tuple(t.transpose(1, 2) for t in (q, kc, vc))
+        kw = dict(scale=r ** -0.5, causal=causal, q_offset=off)
+        reset_launches()
+        o = ops.flash_attention(*views, **kw)
+        torch.cuda.synchronize()
+        launches = {"flash_decode": decode_attn.LAUNCHES["flash_decode"],
+                    "lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"]}
+        assert launches == {"flash_decode": 1, "lowrank_flash": 0}, (label, launches)
+        ro = lowrank_flash.lowrank_flash_plain(*views, **kw)
+        diff = (o.float() - ro.float()).abs()
+        rel = TOL if dtype == torch.float32 else BF16_REL
+        err = diff.max().item()
+        if (diff > TOL + rel * ro.float().abs()).any().item():
+            raise AssertionError(f"{label} {dtype}: the routed call differs from "
+                                 f"lowrank_flash_plain by {err:.3g}")
+        copies = tuple(t.contiguous() for t in views)
+        q4, lens = views[0].contiguous(), torch.full((b,), skv, dtype=torch.int32, device=DEV)
+        start = lens - 1
+
+        def lib():
+            return F.scaled_dot_product_attention(*views, scale=kw["scale"],
+                                                  enable_gqa=hq != hkv)
+        t = dict(
+            ms=time_ms(lambda: ops.flash_attention(*views, **kw), n=15),
+            before_ms=time_ms(lambda: lowrank_flash.lowrank_flash(
+                *(x.contiguous() for x in views), **kw), n=15),
+            before_kernel_ms=time_ms(lambda: lowrank_flash.lowrank_flash(*copies, **kw), n=15),
+            decode_ms=time_ms(lambda: decode_attn.flash_decode(
+                q4, views[1], views[2], lens, scale=kw["scale"], q_start=start), n=15),
+            plain_ms=time_ms(lambda: lowrank_flash.lowrank_flash_plain(*views, **kw), n=15),
+            library_ms=time_ms(lib, n=15),
+            sdpa_backend=sdpa_backend(*views, kw["scale"], causal=False))
+        bnd, by, _ = flash_bound_ms(case, dtype)
+        t.update(bound_ms=bnd, bound_by=by, max_abs_err=err, launches=launches)
+        log(f"  {label}, {str(dtype)[6:]}: ops.flash_attention on cache views -> "
+            f"flash_decode (1 launch), max|out - lowrank_flash_plain| {err:.3g} (tol "
+            f"{TOL:g} + {rel:.3g}*|plain|); routed {t['ms']:.4f} ms, before (lowrank_flash "
+            f"+ copies) {t['before_ms']:.4f} ms ({t['before_kernel_ms']:.4f} without the "
+            f"copies), flash_decode alone {t['decode_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, sdpa ({t['sdpa_backend']}) "
+            f"{t['library_ms']:.4f} ms; bound {bnd:.4f} ms ({by}), {bnd / t['ms']:.1%} of "
+            f"it; {t['before_ms'] / t['ms']:.2f}x faster than before [{card_name}]")
+        out[str(dtype)[6:]] = t
+        del q, kc, vc, views, copies, q4, lens, start, o, ro
+        free_memory()
+    return out
+
+
 def check_recurrent_kernels(card_name) -> dict:
     """21a: lowrank_flash against its plain version at this phase's shapes,
-    f32 and bf16, then timed in bf16 beside its bound and SDPA."""
+    f32 and bf16, then timed in bf16 beside its bound and SDPA; the decodes'
+    one-query calls through the route (``check_one_query``)."""
     recurrent_ptxas()
     err, times = 0.0, {}
     for i, (label, case) in enumerate(RECURRENT_FLASH.items()):
@@ -4521,7 +4644,9 @@ def check_recurrent_kernels(card_name) -> dict:
         free_memory()
         times[label] = time_flash(case, label, card_name, torch.bfloat16, per_call=False)
         free_memory()
-    return {"max_abs_err": err, "times": times}
+    one_query = {label: check_one_query(label, case, 520 + i, card_name)
+                 for i, (label, case) in enumerate(RECURRENT_DECODE.items())}
+    return {"max_abs_err": err, "times": times, "one_query": one_query}
 
 
 def timed(fn):
@@ -4634,8 +4759,9 @@ def check_zamba(card_name) -> dict:
     attention invocations): forward_zamba(chunked=True) over 2 x 4096 in
     'off' (27 lowrank_flash launches) and 'adaptive'/masked with fidelity
     (54), each against the plain path, in bf16 and in f32; then the first
-    4096 - 32 tokens prefilled into init_cache_zamba and 32 single-token
-    decode steps (27 launches each), against the 'off' forward's logits."""
+    4096 - 32 tokens prefilled into init_cache_zamba (27 lowrank_flash
+    launches) and 32 single-token decode steps (27 flash_decode launches
+    each: the few-query route), against the 'off' forward's logits."""
     full = get_config("zamba2-7b")
     n_mamba, n_inv = zamba2.n_blocks(full)
     torch.cuda.reset_peak_memory_stats()
@@ -4654,8 +4780,13 @@ def check_zamba(card_name) -> dict:
         reset_launches()
         res = decode_run(lambda c, t: fns.decode_step(p, c, t, chunked=True),
                          fns.init_cache(2, 4096, device=DEV), tokens[:, :P], tokens[:, P:])
-        launches = lowrank_flash.LAUNCHES["lowrank_flash"]
-        assert launches == n_inv * (1 + ZAMBA_DECODE_STEPS) and res[2]["len"] == 4096
+        # the prefill's calls take lowrank_flash, the decode steps' one-query
+        # calls flash_decode
+        launches = {"lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"],
+                    "flash_decode": decode_attn.LAUNCHES["flash_decode"]}
+        assert launches == {"lowrank_flash": n_inv,
+                            "flash_decode": n_inv * ZAMBA_DECODE_STEPS}, launches
+        assert res[2]["len"] == 4096
         return res, launches
 
     runs16 = {}
@@ -4704,7 +4835,8 @@ def check_zamba(card_name) -> dict:
                        ref32[:, :P], card_name)
     dec = compare_runs(f"zamba2-7b {ZAMBA_DECODE_STEPS} single-token decode steps "
                        f"({ms:.1f} ms/step bf16, {1e3 * dec32_s / ZAMBA_DECODE_STEPS:.1f} "
-                       f"f32; {launches_d} lowrank_flash launches in prefill and decode) vs "
+                       f"f32; {launches_d['lowrank_flash']} lowrank_flash launches in the "
+                       f"prefill, {launches_d['flash_decode']} flash_decode in the steps) vs "
                        f"the teacher-forced forward", dec16, ref16[:, P:], dec32,
                        ref32[:, P:], card_name, floor=None)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4861,10 +4993,11 @@ def check_qwen_vl(card_name) -> dict:
     """21e: qwen2-vl-7b at full width and depth: forward_dense(chunked=True)
     on 2 x (256 patch embeddings + 3840 tokens) at patch-grid M-RoPE
     positions (28 lowrank_flash launches) against the plain path; then a
-    2048-token text prompt and 16 single-token decode_step_dense steps (the
-    default 3-stream positions; 28 launches each, over more than 1024 keys)
-    against the teacher-forced forward over the same 2064 tokens; bf16, and
-    f32 on the same weights."""
+    2048-token text prompt (28 lowrank_flash launches) and 16 single-token
+    decode_step_dense steps (the default 3-stream positions; 28 flash_decode
+    launches each, the few-query route over more than 1024 keys) against the
+    teacher-forced forward over the same 2064 tokens; bf16, and f32 on the
+    same weights."""
     full = get_config("qwen2-vl-7b")
     torch.cuda.reset_peak_memory_stats()
     params = family_params(full)
@@ -4887,8 +5020,10 @@ def check_qwen_vl(card_name) -> dict:
         _, dec, _, pre_s, dec_s = decode_run(
             lambda c, t: fns.decode_step(p, c, t, chunked=True),
             fns.init_cache(2, n, device=DEV), text[:, :VLM_PROMPT], text[:, VLM_PROMPT:n])
-        launches_d = lowrank_flash.LAUNCHES["lowrank_flash"]
-        assert launches_d == cfg.num_layers * (1 + VLM_DECODE_STEPS), launches_d
+        launches_d = {"lowrank_flash": lowrank_flash.LAUNCHES["lowrank_flash"],
+                      "flash_decode": decode_attn.LAUNCHES["flash_decode"]}
+        assert launches_d == {"lowrank_flash": cfg.num_layers,
+                              "flash_decode": cfg.num_layers * VLM_DECODE_STEPS}, launches_d
         ref, _ = timed(lambda: forward_dense(cfg, p, text[:, :n], chunked=True)[0])
         return dict(lg=lg, lg_p=lg_p, dec=dec, ref=ref[:, VLM_PROMPT:].clone(), wall=wall,
                     wall_p=wall_p, pre_s=pre_s, dec_s=dec_s, launches_d=launches_d)
@@ -4908,8 +5043,9 @@ def check_qwen_vl(card_name) -> dict:
     ms = 1e3 * r16["dec_s"] / VLM_DECODE_STEPS
     dec = compare_runs(f"qwen2-vl-7b {VLM_DECODE_STEPS} decode_step_dense steps after a "
                        f"{VLM_PROMPT}-token prompt ({r16['pre_s']:.2f} s; {ms:.1f} ms/step "
-                       f"bf16, {r16['launches_d']} lowrank_flash launches) vs the "
-                       f"teacher-forced forward", r16["dec"], r16["ref"], r32["dec"],
+                       f"bf16; {r16['launches_d']['lowrank_flash']} lowrank_flash launches in "
+                       f"the prompt, {r16['launches_d']['flash_decode']} flash_decode in the "
+                       f"steps) vs the teacher-forced forward", r16["dec"], r16["ref"], r32["dec"],
                        r32["ref"], card_name, floor=None)
     out = dict(fwd, launches=full.num_layers, wall_ms=1e3 * r16["wall"],
                plain_wall_ms=1e3 * r16["wall_p"], f32_wall_ms=1e3 * r32["wall"],
@@ -5633,7 +5769,11 @@ def main() -> int:
                         for label, t in fam["kernels"]["times"]["flash_decode"].items()},
          "bf16_p_case": bf16_decode_p,
          "families": fam["kernels"]["times"]["flash_decode"],
-         "families_max_abs_err": fam["kernels"]["max_abs_err"]["flash_decode"]},
+         "families_max_abs_err": fam["kernels"]["max_abs_err"]["flash_decode"],
+         "recurrent_decode_launches": {
+             "zamba2-7b": rec["zamba2"]["decode_launches"]["flash_decode"],
+             "qwen2-vl-7b": rec["qwen2_vl"]["decode"]["launches"]["flash_decode"]},
+         "one_query": rec["kernels"]["one_query"]},
         {"name": "lowrank_flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_flash.cu",
          "bf16_source": "src/repro_torch/kernels/csrc/lowrank_flash_bf16.cu",
@@ -5649,11 +5789,11 @@ def main() -> int:
          "recurrent_families_launches": {
              "zamba2-7b": {"off": rec["zamba2"]["off"]["launches"],
                            "adaptive_fidelity": rec["zamba2"]["adaptive"]["launches"],
-                           "prefill_and_decode": rec["zamba2"]["decode_launches"]},
+                           "prefill": rec["zamba2"]["decode_launches"]["lowrank_flash"]},
              "rwkv6-1.6b": rec["rwkv6"]["launches"],
              "seamless-m4t-medium": rec["seamless"]["launches"],
              "qwen2-vl-7b": {"forward": rec["qwen2_vl"]["launches"],
-                             "prefill_and_decode": rec["qwen2_vl"]["decode"]["launches"]}},
+                             "prompt": rec["qwen2_vl"]["decode"]["launches"]["lowrank_flash"]}},
          "max_abs_err": flash_err, **t_flash, "r32": t_static,
          "bf16_times": {label: {key: t[key] for key in BF16_TIME_KEYS}
                         for label, t in {**fam["kernels"]["times"]["lowrank_flash"],

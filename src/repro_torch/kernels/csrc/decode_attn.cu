@@ -62,9 +62,11 @@
 //   * combine (flash_decode_kernel_combine, csrc/decode_combine.cuh, shared
 //     with the bf16 kernel): one warp per query row and 512 probability
 //     columns.
+//   * K and V are read through element strides (batch, head, key; the last
+//     dimension unit-stride), so a (b, hkv, kv_len, d) view of a
+//     (b, max_len, hkv, d) cache is read in place, uncopied.
 // Left for later: tensor cores for the chunk path (a TF32
-// tolerance decision), TMA or cp.async rings, strided K/V reads that
-// would spare the caller its transposes, and a combine fused into the
+// tolerance decision), TMA or cp.async rings, and a combine fused into the
 // last block of each query.
 
 #include <cuda_runtime.h>
@@ -91,6 +93,11 @@ constexpr int kCols = 8;           // keys per thread and tile
 constexpr int kTS = kBQ + 4;       // row stride of the transposed Q and K tiles
 constexpr int kLoads = 4;          // tile loads in flight per thread
 
+// K's and V's element strides: batch, head, key
+struct KVStrides {
+  long long kb, kh, kk, vb, vh, vk;
+};
+
 // Elements e .. e + 3 of a row of `width` as f32, zero past the width. With
 // vec (width % 4 == 0 and the row aligned) a full group is one vector load.
 __device__ __forceinline__ float4 load4(const float* row, int e, int width, bool vec) {
@@ -110,8 +117,8 @@ flash_decode_kernel_split(const float* __restrict__ q, const float* __restrict__
                           const int* __restrict__ q_start, const int* __restrict__ q_lens,
                           float* __restrict__ probs, float* __restrict__ ws_m,
                           float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq, int hkv,
-                          int C, int M, int r, int dv, int split_len, int n_split, int vec_k,
-                          int vec_v, float scale) {
+                          int C, int M, int r, int dv, int split_len, int n_split,
+                          KVStrides st, int vec_k, int vec_v, float scale) {
   __shared__ float red_m[kWarps][QR], red_l[kWarps][QR];
   __shared__ float red_acc[kWarps][QR][32 * NV];
 
@@ -161,8 +168,9 @@ flash_decode_kernel_split(const float* __restrict__ q, const float* __restrict__
       for (int t = 0; t < 4; ++t) acc[i][c][t] = 0.f;
   }
 
-  const float* k_bh = k + (size_t)bkv * M * r;
-  const float* v_bh = v + (size_t)bkv * M * dv;
+  const int kvh = bkv - b * hkv;
+  const float* k_bh = k + b * st.kb + kvh * st.kh;
+  const float* v_bh = v + b * st.vb + kvh * st.vh;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   // warp w takes keys base + grp, base = k0 + 4 w + 16 t: the trip count is
   // uniform across the warp, so full-warp shuffles are safe
@@ -171,8 +179,8 @@ flash_decode_kernel_split(const float* __restrict__ q, const float* __restrict__
     const int key = k0 + 4 * warp + grp;
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
-      kr[c] = key < k1 ? load4(k_bh + (size_t)key * r, 4 * (li + 8 * c), r, vec_k) : zero;
-      vr[c] = key < k1 ? load4(v_bh + (size_t)key * dv, 4 * (li + 8 * c), dv, vec_v) : zero;
+      kr[c] = key < k1 ? load4(k_bh + key * st.kk, 4 * (li + 8 * c), r, vec_k) : zero;
+      vr[c] = key < k1 ? load4(v_bh + key * st.vk, 4 * (li + 8 * c), dv, vec_v) : zero;
     }
   }
   for (int base = k0 + 4 * warp; base < k1; base += kSlots) {
@@ -181,8 +189,8 @@ flash_decode_kernel_split(const float* __restrict__ q, const float* __restrict__
     float4 kn[NV], vn[NV];   // the next key's slices, loaded before this key is used
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
-      kn[c] = nxt < k1 ? load4(k_bh + (size_t)nxt * r, 4 * (li + 8 * c), r, vec_k) : zero;
-      vn[c] = nxt < k1 ? load4(v_bh + (size_t)nxt * dv, 4 * (li + 8 * c), dv, vec_v) : zero;
+      kn[c] = nxt < k1 ? load4(k_bh + nxt * st.kk, 4 * (li + 8 * c), r, vec_k) : zero;
+      vn[c] = nxt < k1 ? load4(v_bh + nxt * st.vk, 4 * (li + 8 * c), dv, vec_v) : zero;
     }
 #pragma unroll
     for (int i = 0; i < QR; ++i) {
@@ -281,8 +289,8 @@ flash_decode_kernel_chunk(const float* __restrict__ q, const float* __restrict__
                           const int* __restrict__ q_start, const int* __restrict__ q_lens,
                           float* __restrict__ probs, float* __restrict__ ws_m,
                           float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq, int hkv,
-                          int C, int M, int r, int dv, int split_len, int n_split, int vec_k,
-                          int vec_v, float scale) {
+                          int C, int M, int r, int dv, int split_len, int n_split,
+                          KVStrides st, int vec_k, int vec_v, float scale) {
   constexpr int kVS = 8 * NC;      // V tile row stride (zero-padded columns)
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;               // r x kTS: Q tile, transposed (query-minor)
@@ -293,7 +301,7 @@ flash_decode_kernel_chunk(const float* __restrict__ q, const float* __restrict__
   const int bh = blockIdx.y;                         // b * hq + h
   const int b = bh / hq;
   const int q0 = blockIdx.z * kBQ;
-  const size_t kv_row = (size_t)b * hkv + (bh - b * hq) / (hq / hkv);
+  const int kvh = (bh - b * hq) / (hq / hkv);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int tx = tid & 7, ty = tid >> 3;
@@ -309,8 +317,8 @@ flash_decode_kernel_chunk(const float* __restrict__ q, const float* __restrict__
   if (k0 >= k1) return;  // no query of the tile sees a key of this split
 
   const float* q_bh = q + ((size_t)bh * C + q0) * r;
-  const float* k_bh = k + kv_row * M * r;
-  const float* v_bh = v + kv_row * M * dv;
+  const float* k_bh = k + b * st.kb + kvh * st.kh;
+  const float* v_bh = v + b * st.vb + kvh * st.vh;
   for (int row = warp; row < kBQ; row += kWarps)
     for (int d = lane; d < r; d += 32)
       q_t[d * kTS + row] = row < n_q ? q_bh[(size_t)row * r + d] : 0.f;
@@ -344,7 +352,7 @@ flash_decode_kernel_chunk(const float* __restrict__ q, const float* __restrict__
         const int idx = base + u * kThreads;
         const int key = idx & (kBK - 1), e = 4 * (idx / kBK);
         x[u] = idx < kBK * r4 && t0 + key < k1
-                   ? load4(k_bh + (size_t)(t0 + key) * r, e, r, vec_k)
+                   ? load4(k_bh + (t0 + key) * st.kk, e, r, vec_k)
                    : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -366,7 +374,7 @@ flash_decode_kernel_chunk(const float* __restrict__ q, const float* __restrict__
         const int idx = base + u * kThreads;
         const int row = idx / (kVS / 4), e = 4 * (idx - row * (kVS / 4));
         x[u] = idx < kBK * (kVS / 4) && t0 + row < k1
-                   ? load4(v_bh + (size_t)(t0 + row) * dv, e, dv, vec_v)
+                   ? load4(v_bh + (t0 + row) * st.vk, e, dv, vec_v)
                    : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -488,13 +496,13 @@ template <int NV, int QR>
 cudaError_t launch_split(const float* q, const float* k, const float* v, const int* kv_len,
                          const int* q_start, const int* q_lens, float* probs, float* ws_m,
                          float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
-                         int dv, int split_len, int n_split, int vec_k, int vec_v, float scale,
-                         cudaStream_t stream) {
+                         int dv, int split_len, int n_split, KVStrides st, int vec_k, int vec_v,
+                         float scale, cudaStream_t stream) {
   const int rows = hq / hkv * C;
   const dim3 grid(n_split, b * hkv, (rows + QR - 1) / QR);
   flash_decode_kernel_split<NV, QR><<<grid, kThreads, 0, stream>>>(
       q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
-      split_len, n_split, vec_k, vec_v, scale);
+      split_len, n_split, st, vec_k, vec_v, scale);
   return cudaGetLastError();
 }
 
@@ -502,23 +510,23 @@ template <int NV>
 cudaError_t dispatch_split(const float* q, const float* k, const float* v, const int* kv_len,
                            const int* q_start, const int* q_lens, float* probs, float* ws_m,
                            float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M,
-                           int r, int dv, int split_len, int n_split, int vec_k, int vec_v,
-                           float scale, cudaStream_t s) {
+                           int r, int dv, int split_len, int n_split, KVStrides st,
+                           int vec_k, int vec_v, float scale, cudaStream_t s) {
   if (hq / hkv * C == 1)
     return launch_split<NV, 1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc,
-                               b, hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v,
-                               scale, s);
+                               b, hq, hkv, C, M, r, dv, split_len, n_split, st, vec_k,
+                               vec_v, scale, s);
   return launch_split<NV, kRowTile>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l,
                                     ws_acc, b, hq, hkv, C, M, r, dv, split_len, n_split,
-                                    vec_k, vec_v, scale, s);
+                                    st, vec_k, vec_v, scale, s);
 }
 
 template <int NC>
 cudaError_t launch_chunk(const float* q, const float* k, const float* v, const int* kv_len,
                          const int* q_start, const int* q_lens, float* probs, float* ws_m,
                          float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
-                         int dv, int split_len, int n_split, int vec_k, int vec_v, float scale,
-                         cudaStream_t stream) {
+                         int dv, int split_len, int n_split, KVStrides st, int vec_k, int vec_v,
+                         float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)r * kTS + (size_t)kBK * 8 * NC);
   cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel_chunk<NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -526,14 +534,14 @@ cudaError_t launch_chunk(const float* q, const float* k, const float* v, const i
   const dim3 grid(n_split, b * hq, (C + kBQ - 1) / kBQ);
   flash_decode_kernel_chunk<NC><<<grid, kThreads, smem, stream>>>(
       q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
-      split_len, n_split, vec_k, vec_v, scale);
+      split_len, n_split, st, vec_k, vec_v, scale);
   return cudaGetLastError();
 }
 
 cudaError_t run(const void* q_, const void* k_, const void* v_, const int* kv_len,
                 const int* q_start, const int* q_lens, void* out_, float* probs, float* ws,
                 int b, int hq, int hkv, int C, int M, int r, int dv, int split_len, int n_split,
-                float scale, cudaStream_t s) {
+                KVStrides st, float scale, cudaStream_t s) {
   const float* q = static_cast<const float*>(q_);
   const float* k = static_cast<const float*>(k_);
   const float* v = static_cast<const float*>(v_);
@@ -541,26 +549,32 @@ cudaError_t run(const void* q_, const void* k_, const void* v_, const int* kv_le
   float* ws_m = ws;
   float* ws_l = ws + n_part;
   float* ws_acc = ws + 2 * n_part;
-  // vector loads need rows of whole 4-element groups on a vector boundary
+  // vector loads need rows of whole 4-element groups on a vector boundary:
+  // the width, the base and every stride a multiple of 4 elements
   const uintptr_t align = 4 * sizeof(float);
-  const int vec_k = r % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0;
-  const int vec_v = dv % 4 == 0 && reinterpret_cast<uintptr_t>(v) % align == 0;
+  const int vec_k = r % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0 &&
+                    (st.kb | st.kh | st.kk) % 4 == 0;
+  const int vec_v = dv % 4 == 0 && reinterpret_cast<uintptr_t>(v) % align == 0 &&
+                    (st.vb | st.vh | st.vk) % 4 == 0;
   cudaError_t err;
   if (C <= kDecodeMaxC) {
     const int w = max(r, dv);
     if (w <= 32)
       err = dispatch_split<1>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
-                              hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+                              hq, hkv, C, M, r, dv, split_len, n_split, st, vec_k, vec_v, scale,
+                              s);
     else if (w <= 64)
       err = dispatch_split<2>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
-                              hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+                              hq, hkv, C, M, r, dv, split_len, n_split, st, vec_k, vec_v, scale,
+                              s);
     else
       err = dispatch_split<4>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b,
-                              hq, hkv, C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s);
+                              hq, hkv, C, M, r, dv, split_len, n_split, st, vec_k, vec_v, scale,
+                              s);
   } else {
 #define CHUNK(NC)                                                                             \
   launch_chunk<NC>(q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b, hq, hkv, \
-                   C, M, r, dv, split_len, n_split, vec_k, vec_v, scale, s)
+                   C, M, r, dv, split_len, n_split, st, vec_k, vec_v, scale, s)
     err = dv <= 32 ? CHUNK(4) : dv <= 64 ? CHUNK(8) : CHUNK(16);
 #undef CHUNK
   }
@@ -572,8 +586,11 @@ cudaError_t run(const void* q_, const void* k_, const void* v_, const int* kv_le
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). All tensors are contiguous and
-// on the current device; q, k, v and out are float32; probs may be null. The key axis is cut into n_split ranges of
+// Plain C entry point (loaded with ctypes). All tensors are on the current
+// device; q, out, probs and the lengths are contiguous; k and v are read
+// through their element strides (k_sb, k_sh, k_sk: batch, head, key; the
+// last dimension unit-stride). q, k, v and out are float32; probs may be
+// null. The key axis is cut into n_split ranges of
 // split_len keys (a multiple of 16 when C <= 16, of 64 otherwise); the f32
 // workspace holds b * hq * C * n_split * (dv + 2) floats. Launches the path
 // kernel and the combine on `stream`. Returns a cudaError_t value (0 =
@@ -582,19 +599,22 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* kv_len, const void* q_start, const void* q_lens,
                                    void* out, void* probs, void* workspace, int b, int hq, int hkv,
                                    int C, int M, int r, int dv, int split_len, int n_split,
-                                   float scale, void* stream) {
+                                   long long k_sb, long long k_sh, long long k_sk, long long v_sb,
+                                   long long v_sh, long long v_sk, float scale, void* stream) {
   const int unit = C <= kDecodeMaxC ? kSlots : kBK;
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || C < 1 || M < 1 || r < 1 ||
       r > kMaxDim || dv < 1 || dv > kMaxDim || split_len < unit || split_len % unit != 0 ||
       n_split < 1 || n_split > 65535 || (long long)split_len * n_split < M ||
       (long long)split_len * (n_split - 1) >= M || (long long)b * hq > 65535 ||
-      (long long)b * hq * C > 0x7fffffffLL)
+      (long long)b * hq * C > 0x7fffffffLL || k_sb < 0 || k_sh < 0 || k_sk < 0 || v_sb < 0 ||
+      v_sh < 0 || v_sk < 0)
     return (int)cudaErrorInvalidValue;
+  const KVStrides st{k_sb, k_sh, k_sk, v_sb, v_sh, v_sk};
   const int* lens = static_cast<const int*>(kv_len);
   const int* starts = static_cast<const int*>(q_start);
   const int* qlens = static_cast<const int*>(q_lens);
   float* p = static_cast<float*>(probs);
   float* ws = static_cast<float*>(workspace);
   return (int)run(q, k, v, lens, starts, qlens, out, p, ws, b, hq, hkv, C, M, r, dv,
-                         split_len, n_split, scale, static_cast<cudaStream_t>(stream));
+                  split_len, n_split, st, scale, static_cast<cudaStream_t>(stream));
 }

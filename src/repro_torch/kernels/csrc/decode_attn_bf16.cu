@@ -55,10 +55,12 @@
 //   * K and V tiles stream through a three-stage cp.async ring (16-byte
 //     copies, zero-filled past the split's last needed key and past the
 //     width; rows padded by 16 bytes so ldmatrix is free of bank
-//     conflicts). Widths that are not a multiple of 8, or arrays off 16
-//     bytes, are staged by plain loads into the same layout. Q arrives the
-//     same way, once, through the last stage, and stays in registers as A
-//     fragments.
+//     conflicts). K and V are read through element strides (batch, head,
+//     key; the last dimension unit-stride), so a (b, hkv, kv_len, d) view
+//     of a (b, max_len, hkv, d) cache is read in place. Widths that are not
+//     a multiple of 8, or rows off 16 bytes (the base or a stride), are
+//     staged by plain loads into the same layout. Q arrives the same way,
+//     once, through the last stage, and stays in registers as A fragments.
 //   * S = Q K^T: K fragments by ldmatrix, mma.sync.m16n8k16 over r / 16
 //     steps. Masks from the per-row vectors; the online softmax runs on the
 //     accumulator registers (2^x of the SFU on (s - m) log2 e); masked
@@ -180,31 +182,37 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, int width, bool vec, co
   }
 }
 
-// Stage rows [0, valid) of a row-major (rows x width) array starting at src0
-// into an N-row tile of padded width W, as stage_rows does, with zeros past
-// them: with vec, one cp.async per chunk at an address the thread advances
-// by a constant, so a tile of the K/V ring costs a few instructions a chunk.
+// Stage rows [0, valid) of a (rows x width) array starting at src0, rows
+// `stride` elements apart (N * stride fits an int), into an N-row tile of
+// padded width W, as stage_rows does, with zeros past them: with vec, one
+// cp.async per chunk at an address the thread advances by a constant, so a
+// tile of the K/V ring costs a few instructions a chunk.
 template <int W, int N>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src0, int width, int valid,
-                                           bool vec, const bf16* any) {
+__device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src0, int stride, int width,
+                                           int valid, bool vec, const bf16* any) {
   if (!vec) {
     stage_rows<W, N>(dst, width, false, any, [&](int i) -> const bf16* {
-      return i < valid ? src0 + i * width : nullptr;
+      return i < valid ? src0 + i * stride : nullptr;
     });
     return;
   }
   constexpr int kChunks = W / 8, kRowStep = kThreads / kChunks;
   const int e = 8 * (threadIdx.x % kChunks), i0 = threadIdx.x / kChunks;
-  const bf16* src = src0 + i0 * width + e;
+  const bf16* src = src0 + i0 * stride + e;
   const uint32_t d = dst + (uint32_t)(i0 * (W + kPad) + e) * 2;
   const bool col = e < width;
 #pragma unroll
   for (int u = 0; u < (N + kRowStep - 1) / kRowStep; ++u) {
     if (N % kRowStep != 0 && i0 + u * kRowStep >= N) break;
-    cp_async16(d + u * kRowStep * (W + kPad) * 2, src + u * kRowStep * width,
+    cp_async16(d + u * kRowStep * (W + kPad) * 2, src + u * kRowStep * stride,
                col && i0 + u * kRowStep < valid ? 16 : 0);
   }
 }
+
+// K's and V's element strides: batch, head, key
+struct KVStrides {
+  long long kb, kh, kk, vb, vh, vk;
+};
 
 // Shared memory a launch of <KR, DV> asks for: the ring, or the key groups'
 // merge (which reuses it), whichever is larger
@@ -227,7 +235,7 @@ flash_decode_kernel_split_bf16(const bf16* __restrict__ q, const bf16* __restric
                                float* __restrict__ probs, float* __restrict__ ws_m,
                                float* __restrict__ ws_l, float* __restrict__ ws_acc, int hq,
                                int hkv, int C, int M, int r, int dv, int split_len, int n_split,
-                               int vec_q, int vec_k, int vec_v, float scale) {
+                               KVStrides st, int vec_q, int vec_k, int vec_v, float scale) {
   constexpr int RT = 16 * MT;          // rows per block
   constexpr int NK = 16 * MT;          // keys per warp and tile (4 / MT key groups)
   constexpr int NS = NK / 8;           // S n-tiles per warp
@@ -280,8 +288,8 @@ flash_decode_kernel_split_bf16(const bf16* __restrict__ q, const bf16* __restric
     warp_min = min(warp_min, __shfl_xor_sync(0xffffffffu, warp_min, off));
   }
 
-  const bf16* k_bh = k + (size_t)bkv * M * r;
-  const bf16* v_bh = v + (size_t)bkv * M * dv;
+  const bf16* k_bh = k + b * st.kb + kvh * st.kh;
+  const bf16* v_bh = v + b * st.vb + kvh * st.vh;
   // Q into the last stage: its first K/V tile is loaded after the loop's
   // first barrier, which every thread passes after reading Q
   stage_rows<KR, RT>(ring + (kStages - 1) * kStageBytes, r, vec_q, q,
@@ -289,10 +297,11 @@ flash_decode_kernel_split_bf16(const bf16* __restrict__ q, const bf16* __restric
   cp_async_commit();
   const auto load_tile = [&](int tile) {
     if (tile < n_tiles) {
-      const uint32_t st = ring + (tile % kStages) * kStageBytes;
+      const uint32_t dst = ring + (tile % kStages) * kStageBytes;
       const int t0 = k0 + tile * kBK;
-      stage_tile<KR, kBK>(st, k_bh + (size_t)t0 * r, r, k1 - t0, vec_k, k);
-      stage_tile<DV, kBK>(st + kBK * KS * 2, v_bh + (size_t)t0 * dv, dv, k1 - t0, vec_v, v);
+      stage_tile<KR, kBK>(dst, k_bh + t0 * st.kk, (int)st.kk, r, k1 - t0, vec_k, k);
+      stage_tile<DV, kBK>(dst + kBK * KS * 2, v_bh + t0 * st.vk, (int)st.vk, dv, k1 - t0, vec_v,
+                          v);
     }
     cp_async_commit();   // an empty group past the last tile keeps the count
   };
@@ -521,32 +530,35 @@ template <int MT, int KR, int DV>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
                    const int* q_start, const int* q_lens, float* probs, float* ws_m, float* ws_l,
                    float* ws_acc, int b, int hq, int hkv, int C, int M, int r, int dv,
-                   int split_len, int n_split, float scale, cudaStream_t stream) {
+                   int split_len, int n_split, KVStrides st, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<KR, DV>();
   cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel_split_bf16<MT, KR, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // 16-byte copies need rows of a multiple of 8 elements on a 16-byte boundary
-  const auto vec = [](const void* p, int width) {
-    return (int)(width % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0);
+  // 16-byte copies need rows of a multiple of 8 elements on a 16-byte
+  // boundary: the width, the base and every stride a multiple of 8 elements
+  const auto vec = [](const void* p, int width, long long strides) {
+    return (int)(width % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+                 strides % 8 == 0);
   };
   const int rows = hq / hkv * C;
   const dim3 grid((rows + 16 * MT - 1) / (16 * MT), n_split, b * hkv);
   flash_decode_kernel_split_bf16<MT, KR, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, hq, hkv, C, M, r, dv,
-      split_len, n_split, vec(q, r), vec(k, r), vec(v, dv), scale);
+      split_len, n_split, st, vec(q, r, 0), vec(k, r, st.kb | st.kh | st.kk),
+      vec(v, dv, st.vb | st.vh | st.vk), scale);
   return cudaGetLastError();
 }
 
 #define FD_ARGS \
   q, k, v, kv_len, q_start, q_lens, probs, ws_m, ws_l, ws_acc, b, hq, hkv, C, M, r, dv, split_len, \
-      n_split, scale, s
+      n_split, st, scale, s
 
 template <int MT, int KR>
 cudaError_t by_dv(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
                   const int* q_start, const int* q_lens, float* probs, float* ws_m, float* ws_l,
                   float* ws_acc, int b, int hq, int hkv, int C, int M, int r, int dv,
-                  int split_len, int n_split, float scale, cudaStream_t s) {
+                  int split_len, int n_split, KVStrides st, float scale, cudaStream_t s) {
   if (dv <= 64) return launch<MT, KR, 64>(FD_ARGS);
   return launch<MT, KR, 128>(FD_ARGS);
 }
@@ -555,7 +567,7 @@ template <int MT>
 cudaError_t by_r(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
                  const int* q_start, const int* q_lens, float* probs, float* ws_m, float* ws_l,
                  float* ws_acc, int b, int hq, int hkv, int C, int M, int r, int dv,
-                 int split_len, int n_split, float scale, cudaStream_t s) {
+                 int split_len, int n_split, KVStrides st, float scale, cudaStream_t s) {
   if (r <= 64) return by_dv<MT, 64>(FD_ARGS);
   return by_dv<MT, 128>(FD_ARGS);
 }
@@ -565,7 +577,8 @@ cudaError_t by_r(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
 cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
                      const int* q_start, const int* q_lens, float* probs, float* ws_m,
                      float* ws_l, float* ws_acc, int b, int hq, int hkv, int C, int M, int r,
-                     int dv, int split_len, int n_split, float scale, cudaStream_t s) {
+                     int dv, int split_len, int n_split, KVStrides st, float scale,
+                     cudaStream_t s) {
   const int rows = hq / hkv * C;
   if (rows <= 16) return by_r<1>(FD_ARGS);
   if (rows <= 32) return by_r<2>(FD_ARGS);
@@ -576,8 +589,12 @@ cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, const int* kv_
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). All tensors are contiguous and
-// on the current device; q, k, v and out are bfloat16; probs may be null.
+// Plain C entry point (loaded with ctypes). All tensors are on the current
+// device; q, out, probs and the lengths are contiguous; k and v are read
+// through their element strides (k_sb, k_sh, k_sk: batch, head, key; the
+// last dimension unit-stride; a tile's 64 key rows addressed in 32 bits, so
+// k_sk, v_sk <= INT_MAX / 64). q, k, v and out are bfloat16; probs may be
+// null.
 // The key axis is cut into n_split ranges of split_len keys (a multiple of
 // 64); the f32 workspace holds b * hq * C * n_split * (dv + 2) floats.
 // Launches the split kernel and the combine on `stream`. Returns a
@@ -586,14 +603,18 @@ extern "C" int flash_decode_bf16_launch(const void* q, const void* k, const void
                                         const void* kv_len, const void* q_start,
                                         const void* q_lens, void* out, void* probs,
                                         void* workspace, int b, int hq, int hkv, int C, int M,
-                                        int r, int dv, int split_len, int n_split, float scale,
+                                        int r, int dv, int split_len, int n_split,
+                                        long long k_sb, long long k_sh, long long k_sk,
+                                        long long v_sb, long long v_sh, long long v_sk, float scale,
                                         void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || C < 1 || M < 1 || r < 1 || r > kMaxDim ||
       dv < 1 || dv > kMaxDim || split_len < kBK || split_len % kBK != 0 || n_split < 1 ||
       (long long)split_len * n_split < M ||
       (long long)split_len * (n_split - 1) >= M || n_split > 65535 || (long long)b * hkv > 65535 ||
-      (long long)b * hq * C > 0x7fffffffLL)
+      (long long)b * hq * C > 0x7fffffffLL || k_sb < 0 || k_sh < 0 || k_sk < 0 || v_sb < 0 ||
+      v_sh < 0 || v_sk < 0 || k_sk > 0x7fffffffLL / kBK || v_sk > 0x7fffffffLL / kBK)
     return (int)cudaErrorInvalidValue;
+  const KVStrides st{k_sb, k_sh, k_sk, v_sb, v_sh, v_sk};
   const int* lens = static_cast<const int*>(kv_len);
   const int* starts = static_cast<const int*>(q_start);
   const int* qlens = static_cast<const int*>(q_lens);
@@ -603,8 +624,8 @@ extern "C" int flash_decode_bf16_launch(const void* q, const void* k, const void
   const size_t n_part = (size_t)b * hq * C * n_split;
   cudaError_t err = dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                              static_cast<const bf16*>(v), lens, starts, qlens, p, ws, ws + n_part,
-                             ws + 2 * n_part, b, hq, hkv, C, M, r, dv, split_len, n_split, scale,
-                             s);
+                             ws + 2 * n_part, b, hq, hkv, C, M, r, dv, split_len, n_split, st,
+                             scale, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_combine<bf16>(ws, ws + n_part, ws + 2 * n_part, lens, starts, qlens,
                                    static_cast<bf16*>(out), p, b, hq, C, M, dv, split_len,

@@ -23,6 +23,19 @@ visible key gives an all-zero output and probability row. Output is in
 v's dtype; ``return_probs`` appends the normalised f32 probability rows
 (b, hq, [C,] M) that feed the serving engine's attention-mass
 accumulator.
+
+Callers: the paged serving step (``models/transformer.py``, through
+``ops.decode_attention``) and every few-query call of the flash branch
+(``ops.flash_attention`` with sq <= DECODE_MAX_C and r, dv <= MAX_DIM: the
+dense-cache decodes over more than 1024 keys), which passes K and V as
+(b, hkv, kv_len, d) views of the (b, max_len, hkv, d) cache.
+
+Layout the kernels take: ``q`` contiguous; ``k`` and ``v`` with any
+batch, head and key strides (elements) and a unit-stride last dimension,
+so a cache is read in place. A row whose start is not 16-byte aligned
+(a stride or width off the 16-byte vector) is staged by plain loads, as
+an odd width is; the wrapper raises on a last dimension that is not
+unit-stride or a key stride over MAX_KEY_STRIDE, and the caller copies.
 """
 from __future__ import annotations
 
@@ -57,6 +70,9 @@ SPLIT_UNIT = {"decode": 16, "chunk": 64}
 BF16_ROW_TILE = 64
 BF16_SPLIT_UNIT = 64
 BLOCKS_PER_SM = 8      # blocks the key split aims at, counted over the grid
+# largest key stride (elements) of K and V: the bf16 kernel addresses a
+# 64-key tile's rows in 32 bits
+MAX_KEY_STRIDE = (2 ** 31 - 1) // 64
 
 
 def _row_vector(x, b: int, device, name: str) -> torch.Tensor:
@@ -179,9 +195,15 @@ def _check(q, k, v):
     if r > MAX_DIM or v.shape[3] > MAX_DIM:
         raise ValueError(f"the kernel takes r, dv <= {MAX_DIM}, got r={r}, "
                          f"dv={v.shape[3]}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, t in (("k", k), ("v", v)):
+        if t.stride(3) != 1 and t.shape[3] != 1:
+            raise ValueError(f"{name} must have a unit-stride last dimension, "
+                             f"got strides {t.stride()}")
+        if t.stride(2) > MAX_KEY_STRIDE:
+            raise ValueError(f"{name}'s key stride {t.stride(2)} is over "
+                             f"{MAX_KEY_STRIDE} elements")
 
 
 def _library(dtype):
@@ -190,7 +212,7 @@ def _library(dtype):
     fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -215,7 +237,8 @@ def flash_decode(q, k, v, kv_len, *, scale: float, return_probs: bool = False,
                      qs.data_ptr(), ql.data_ptr(), out.data_ptr(),
                      None if probs is None else probs.data_ptr(),
                      work.data_ptr(), b, hq, hkv, C, M, r, dv, split_len,
-                     n_split, float(scale), stream)
+                     n_split, *k.stride()[:3], *v.stride()[:3], float(scale),
+                     stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1

@@ -19,6 +19,14 @@ h // (hq // hkv)). Query i sits at position ``q_offset + i`` and, when
 ``causal``, sees keys j <= q_offset + i. ``q_offset`` must be >= 0, so
 every query sees key 0 (with a negative offset the Pallas kernel and its
 oracle disagree on empty rows). Output (b, hq, sq, dv) in v's dtype.
+
+Callers: ``ops.flash_attention`` sends this kernel the flash branch's
+calls of more than 16 queries (``ops.few_query``: prefills and cache-free
+forwards past 1024 keys, and any call whose r or dv exceeds 128, such as
+MLA's r = 192), as contiguous copies; calls of at most 16 queries (the
+dense-cache decodes) go to ``decode_attn.flash_decode``, which computes
+the same function with kv_len = skv and q_start = q_offset (or skv - 1
+when not causal).
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ SOURCES = {torch.float32: ("lowrank_flash", "lowrank_flash_launch"),
            torch.bfloat16: ("lowrank_flash_bf16", "lowrank_flash_bf16_launch")}
 
 
-def _check_offset(q_offset) -> int:
+def check_offset(q_offset) -> int:
     if int(q_offset) != q_offset or q_offset < 0:
         raise ValueError(f"q_offset must be an integer >= 0, got {q_offset}")
     return int(q_offset)
@@ -47,7 +55,7 @@ def _check_offset(q_offset) -> int:
 def lowrank_flash_plain(q, k, v, *, scale: float, causal: bool = True,
                         q_offset: int = 0):
     """The plain PyTorch version of the kernel (f32 arithmetic)."""
-    q_offset = _check_offset(q_offset)
+    q_offset = check_offset(q_offset)
     hq, sq = q.shape[1], q.shape[2]
     hkv, skv = k.shape[1], k.shape[2]
     kr = k.float().repeat_interleave(hq // hkv, dim=1)
@@ -106,7 +114,7 @@ def lowrank_flash(q, k, v, *, scale: float, causal: bool = True,
                   q_offset: int = 0):
     """Launch the CUDA kernel for q's type on the current stream (no
     fallback)."""
-    q_offset = _check_offset(q_offset)
+    q_offset = check_offset(q_offset)
     _check(q, k, v)
     b, hq, sq, r = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]

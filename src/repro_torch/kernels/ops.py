@@ -29,11 +29,35 @@ def _refuse_grad(name: str, *tensors) -> None:
                            "require grad")
 
 
+def few_query(sq: int, r: int, dv: int) -> bool:
+    """Whether a flash-attention call of ``sq`` queries at widths r, dv
+    goes to flash_decode's split-key kernels (its decode path: the keys
+    split across blocks, one K/V read per GQA group) instead of
+    lowrank_flash's query tiles, which a few queries leave nearly empty.
+    A rule of shapes alone, the same on every device."""
+    return (sq <= decode_attn.DECODE_MAX_C and r <= decode_attn.MAX_DIM
+            and dv <= decode_attn.MAX_DIM)
+
+
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     q_offset: int = 0):
     """Flash attention over (b, h, s, d) layouts, d possibly a truncated
     rank; see :mod:`repro_torch.kernels.lowrank_flash` for the semantics.
-    ``q`` (b, hq, sq, r), ``k`` (b, hkv, skv, r), ``v`` (b, hkv, skv, dv)."""
+    ``q`` (b, hq, sq, r), ``k`` (b, hkv, skv, r), ``v`` (b, hkv, skv, dv),
+    any strides. A call with few queries (:func:`few_query`) is
+    flash_decode's function with kv_len = skv and q_start = q_offset
+    (causal) or skv - 1 (every key visible): it goes there with K and V
+    read in place; every other call to lowrank_flash, on contiguous
+    copies."""
+    if few_query(q.shape[2], q.shape[3], v.shape[3]):
+        q_offset = lowrank_flash.check_offset(q_offset)
+        b, skv = q.shape[0], k.shape[2]
+        lens = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+        start = torch.full((b,), q_offset if causal else skv - 1,
+                           dtype=torch.int32, device=q.device)
+        return decode_attention(q.contiguous(), k, v, lens, scale=scale,
+                                q_start=start)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.device.type == "cpu":
         return lowrank_flash.lowrank_flash_plain(q, k, v, scale=scale,
                                                  causal=causal,

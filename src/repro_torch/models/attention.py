@@ -7,9 +7,11 @@ Three realisations of the paper's technique live here:
   * 'static' — rank-r factors q~, k~ (the serving bucket), whose score
     contraction runs over r
 
-Both reach the port's ``lowrank_flash`` kernel through ``attend`` wherever
-the JAX model takes its flash-semantics branch (``chunked`` and more than
-``chunk`` keys). Rank modes 'performer' and 'nystrom' replace the whole
+Both reach the port's attention kernels through ``attend`` wherever the
+JAX model takes its flash-semantics branch (``chunked`` and more than
+``chunk`` keys): ``flash_decode`` for a call of at most 16 queries (the
+dense cache's decodes, K/V read in place from the cache), ``lowrank_flash``
+for the rest. Rank modes 'performer' and 'nystrom' replace the whole
 score/softmax/value core by the static baselines of ``core/baselines.py``.
 """
 from __future__ import annotations
@@ -49,10 +51,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probabilities (b, hq, sq, skv).
 
     ``chunked`` with more than ``chunk`` keys takes flash semantics, as in
-    JAX, through :func:`repro_torch.kernels.ops.flash_attention` (the
-    ``lowrank_flash`` kernel on CUDA tensors; it reads K/V unrepeated).
-    With a cache, ``kv_len`` must be an int and the kernel reads the valid
-    prefix of K/V. That branch never materialises probabilities."""
+    JAX, through :func:`repro_torch.kernels.ops.flash_attention`, K/V
+    unrepeated: at most 16 queries (a dense-cache decode) go to the
+    ``flash_decode`` kernel on CUDA tensors, which reads K/V in place
+    through their strides; more go to ``lowrank_flash`` on contiguous
+    copies. With a cache, ``kv_len`` must be an int and the kernel reads
+    the valid prefix of K/V. That branch never materialises
+    probabilities."""
     if chunked and k.shape[1] > chunk:
         if return_probs:
             raise ValueError("return_probs is unsupported on the chunked "
@@ -60,10 +65,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_len is not None:
             # masking keys >= kv_len is reading only the first kv_len keys
             k, v = k[:, :int(kv_len)], v[:, :int(kv_len)]
-        o = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                                k.transpose(1, 2).contiguous(),
-                                v.transpose(1, 2).contiguous(),
-                                scale=scale, causal=causal, q_offset=q_offset)
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), scale=scale, causal=causal,
+                                q_offset=q_offset)
         return o.transpose(1, 2)
     n_rep = q.shape[2] // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)

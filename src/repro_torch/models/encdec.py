@@ -5,7 +5,7 @@ The audio frontend is a stub, as in the reference: the caller supplies
 precomputed frame embeddings (b, src_len, d_model) to the encoder. The text
 decoder has causal self-attention (``mhsa``: DR-RL applies, and
 ``chunked=True`` over more than 1024 keys runs the ``lowrank_flash``
-kernel) and cross-attention over the encoder memory. The encoder's
+kernel, or ``flash_decode`` for at most 16 queries) and cross-attention over the encoder memory. The encoder's
 bidirectional attention and the cross-attention are plain einsums, as in
 the reference: softmax in f32, cast to the activation dtype before the
 value product.

@@ -5,7 +5,9 @@ blocks, with per-invocation LoRA adapters on its q projection.
 DR-RL drives the rank of the shared attention block only (the mamba blocks
 are attention-free). The 81 'layers' of zamba2-7b are 54 mamba blocks and
 27 shared-attention invocations (period 2). The shared attention reaches
-the ``lowrank_flash`` kernel through ``mhsa(chunked=True)``.
+the ``lowrank_flash`` kernel through ``mhsa(chunked=True)``, and its
+dense-cache decode steps ``flash_decode`` (the few-query route of
+``ops.flash_attention``, K/V read in place from the cache).
 """
 from __future__ import annotations
 

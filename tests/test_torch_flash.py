@@ -15,8 +15,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ops import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.ref import flash_ref as jax_flash_ref  # noqa: E402
-from repro_torch.kernels import lowrank_flash, ref  # noqa: E402
-from repro_torch.kernels.ops import flash_attention, reset_launches  # noqa: E402
+from repro_torch.kernels import decode_attn, lowrank_flash, ref  # noqa: E402
+from repro_torch.kernels.ops import flash_attention, few_query, reset_launches  # noqa: E402
 
 F32, BF16 = "float32", "bfloat16"
 TOL = {F32: 2e-5, BF16: 2e-2}
@@ -149,7 +149,8 @@ def test_cpu_tensors_run_the_plain_version():
                          ids=[str(c) for c in FLASH_CASES] + ["path-1040", "decode-1100"])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_cuda_kernel_matches_plain(case, dtype):
-    """The CUDA kernel against its plain version on the card."""
+    """The CUDA kernel against its plain version on the card: the one the
+    wrapper routes the call to (flash_decode for at most 16 queries)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card: pytest -m cuda)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,10 +158,12 @@ def test_cuda_kernel_matches_plain(case, dtype):
     b, hq, hkv, sq, skv, _, dv = case[:7]
     _, (tq, tk, tv) = _inputs([(b, hq, sq, r), (b, hkv, skv, r), (b, hkv, skv, dv)], dtype)
     q, k, v = tq.cuda(), tk.cuda(), tv.cuda()
-    before = lowrank_flash.LAUNCHES["lowrank_flash"]
+    counts, kernel = ((decode_attn.LAUNCHES, "flash_decode") if few_query(sq, r, dv)
+                      else (lowrank_flash.LAUNCHES, "lowrank_flash"))
+    before = counts[kernel]
     out = flash_attention(q, k, v, scale=r ** -0.5, causal=causal, q_offset=off)
     torch.cuda.synchronize()
-    assert lowrank_flash.LAUNCHES["lowrank_flash"] == before + 1
+    assert counts[kernel] == before + 1
     want = lowrank_flash.lowrank_flash_plain(q, k, v, scale=r ** -0.5,
                                              causal=causal, q_offset=off)
     tol = TOL[dtype]
