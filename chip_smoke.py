@@ -7,8 +7,8 @@ distribution layer on one NVIDIA GPU and check them.
 Phases (one line each, plus detail lines):
   1. card and build: the card's name and power limit (nvidia-smi), then
      the CUDA sources built from src/repro_torch/kernels/csrc (flash_decode,
-     lowrank_flash for f32 and for bf16), one nvcc per source, started
-     together;
+     lowrank_flash for f32 and for bf16, lowrank_flash's f32 backward), one
+     nvcc per source, started together;
   2. the flash-decode kernel against its plain PyTorch version on the card,
      f32 (2e-5, and the exact zero pattern of the probabilities) and bf16
      (two bf16 steps of each output element): the CPU tests' shapes, cases
@@ -43,7 +43,14 @@ Phases (one line each, plus detail lines):
      matrix products must miss; and that case's shape in bf16, which the
      bf16 kernel (P.V with P as two bf16 terms) must meet and the plain
      version with P rounded once to bf16 must miss (SDPA's error there
-     logged);
+     logged); then the f32 backward kernel against its plain version on
+     the same (q, k, v, out, lse, dout), TF32 off (each gradient within
+     2e-5 of its largest magnitude): drrl-paper's masked and static shapes
+     at 2 x 12 x 4096, GQA 4 and 7, q_offset > 0, non-causal, r = 192 with
+     dv = 128, odd tails, and 1 and 16 queries with grad through
+     ``ops.flash_attention`` (one lowrank_flash and one lowrank_flash_bwd
+     launch, no flash_decode); the forward's out bitwise the same with and
+     without its log-sum-exp, and two backward runs bitwise equal;
   7. the full-width cache-free forward ``forward_dense(chunked=True)`` at
      2 x 4096 tokens, adaptive/masked with fidelity and fixed/static:
      kernel launches (12 per attention call site), logits and ranks against
@@ -55,7 +62,11 @@ Phases (one line each, plus detail lines):
      ``scaled_dot_product_attention`` and the backend it picked; CUDA
      events, and device time per call by torch.profiler), its bound on the
      tensor cores (three TF32 passes: ``bound_ms``) and on the f32 CUDA
-     cores, and each forward's wall time and device time by layer;
+     cores, and each forward's wall time and device time by layer; the
+     backward kernel at both shapes (CUDA events, L2 flushed) beside its
+     plain version, autograd through ``scaled_dot_product_attention``'s
+     backward (a yardstick the port never calls) and its bound (f32 CUDA
+     cores; three TF32 passes beside it);
  10. the full-width forward in drrl-paper's own rank mode 'drrl' (masked,
      with fidelity) at 2 x 4096 tokens, the agent from ``init_agent`` on a
      seeded generator: 24 lowrank_flash launches, logits, ranks, the
@@ -154,7 +165,13 @@ Phases (one line each, plus detail lines):
      checkpoint loaded into a fresh (params, AdamWState) template and phase
      3's workload served from it, tokens equal to serving the in-memory
      params, 12 flash_decode launches per fused step; (f) the reduced model
-     trained 3 steps on the card and on the CPU.
+     trained 3 steps on the card and on the CPU; (g) the reference's
+     long-sequence training path: 3 steps of ``make_train_step`` with
+     ``loss(chunked=True)`` at 2 x 4096 tokens, 12 lowrank_flash and 12
+     lowrank_flash_bwd launches per step, step 1 against the same step with
+     ``loss(chunked=False)`` (loss within 2e-5, grad norm within 1e-4
+     relative, ranks identical), s/step, peak memory of both, one step
+     profiled (busy, idle, the backward kernel's share).
  18. the paper's tables and figures (``benchmarks/torch_*.py``): (a) the
      runner's canary, ``python -m benchmarks.torch_run --smoke``, in its own
      process; (b) every table and figure in quick mode (``bench_cfg``, 8 x
@@ -193,13 +210,14 @@ Phases (one line each, plus detail lines):
      phi3 and deepseek-coder; lowrank_flash at qwen's 2 x 4096, masked r =
      128 and static r = 32 with dv = 128, and MLA's r = 192), timed in bf16
      beside their bounds and SDPA, with the ptxas lines of the
-     instantiations they run; (b) qwen2.5-14b served at full width and depth
-     (phase 3's settings and workload shape), 'off' then 'adaptive': 48
-     flash_decode launches per fused step, ms/step, tokens/s, peak memory,
-     one decision's eigh (384 Grams of 128 x 128), tokens against the plain
-     run's; (e) its first 8 layers in forward_dense(chunked=True) over 2 x
-     4096, adaptive/masked and fixed/static, against the plain path; (c)
-     granite-moe-3b-a800m served at full depth in 'adaptive' (32 launches
+     instantiations they run; (b) qwen2.5-14b served at full width, cut to
+     16 of its 48 layers (phase 3's settings and workload shape), 'off' then
+     'adaptive': 16 flash_decode launches per fused step, ms/step, tokens/s,
+     peak memory, one decision's eigh at full depth (384 Grams of 128 x
+     128), tokens against the plain run's; (e) its first 8 layers in
+     forward_dense(chunked=True) over 2 x 4096, adaptive/masked and
+     fixed/static, against the plain path; (c) granite-moe-3b-a800m served
+     at full width, cut to 16 of its 32 layers, in 'adaptive' (16 launches
      per step), the share of (token, expert) pairs capacity drops in mixed
      and decode steps, tokens against the plain run with the routing pinned,
      and a guarded steady run of its fused step (no sync, no build); (d)
@@ -375,8 +393,12 @@ def ptxas_summary(log: str) -> list:
     out, name, spill = [], "?", ""
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"((?:flash_decode|lowrank_flash)_kernel\w*?)I(\w*?)E+v", line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1][:60]
+            # the name after its mangled length, template arguments or none
+            m = re.search(r"(?<=\d)((?:flash_decode|lowrank_flash)\w*?_kernel\w*?)I(\w*?)E+v",
+                          line)
+            plain = re.search(r"(?<=\d)((?:flash_decode|lowrank_flash)\w*?_kernel)E", line)
+            name = (f"{m.group(1)}<{m.group(2)}>" if m else plain.group(1) if plain
+                    else line.split("'")[1][:60])
         elif "spill stores" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line:
@@ -860,6 +882,7 @@ PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 # device time by layer, first match wins (lower-case substrings of kernel names)
 LAYERS = (("flash_decode kernel", ("flash_decode_kernel",)),
           ("lowrank_flash kernel", ("lowrank_flash_kernel",)),
+          ("lowrank_flash backward kernel", ("lowrank_flash_bwd",)),
           ("eigh (cuSOLVER)", ("syev", "jacobi", "rotate_batch", "cusolver",
                                "sytrd", "ormtr")),
           ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "nvjet")),
@@ -1116,6 +1139,134 @@ def check_bf16_p_case() -> dict:
     return res
 
 
+# -- phase 6: the backward ----------------------------------------------------
+
+# lowrank_flash_bwd against lowrank_flash_bwd_plain on the same (q, k, v, out,
+# lse, dout), TF32 off: both are f32 sums over up to 4096 keys or queries,
+# taken in another order (each side's gradients lie within about 1.6e-6 of
+# the tensor's largest magnitude of a float64 backward at 1 x 2 x 4096,
+# causal, r = dv = 64: a CPU check), so each gradient is held elementwise to
+# BWD_TOL times its largest magnitude
+BWD_TOL = 2e-5
+# the kernel's log-sum-exp against torch.logsumexp of the plain scores: f32
+# sums of up to 4096 terms, absolute + relative
+LSE_TOL = 2e-5
+# b, hq, hkv, sq, skv, r, dv, causal, q_offset: drrl-paper's masked and static
+# training shapes, GQA 4 and 7, q_offset > 0 with sq < skv, non-causal, MLA's
+# r = 192 with dv = 128, odd tails (r, dv off a multiple of 4: the plain-load
+# staging), and one and 16 queries (which autograd sends here, not to
+# flash_decode)
+BWD_CASES = [
+    PATH_MASKED,
+    PATH_STATIC,
+    (1, 8, 2, 300, 300, 64, 64, True, 0),
+    (2, 14, 2, 200, 200, 64, 64, True, 0),
+    (1, 4, 2, 100, 357, 48, 40, True, 257),
+    (2, 4, 4, 130, 250, 64, 64, False, 0),
+    (1, 4, 4, 200, 200, 192, 128, True, 0),
+    (1, 3, 1, 77, 77, 20, 12, True, 0),
+    (2, 2, 2, 65, 129, 36, 72, True, 64),
+]
+BWD_ROUTE_CASES = [(2, 12, 12, 1, 1100, 64, 64, True, 1099),
+                   (1, 28, 4, 16, 1100, 128, 128, True, 1084)]
+
+
+def bwd_inputs(case, seed):
+    """flash_inputs in f32 and an output gradient from the same seed."""
+    (q, k, v), kw = flash_inputs(case, torch.float32, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=g, device=DEV)
+    return (q, k, v, do), kw
+
+
+def grads_close(got, want, label) -> dict:
+    """Each of (dq, dk, dv) within BWD_TOL x its largest |plain| element;
+    returns the largest absolute and scaled errors."""
+    worst = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        top = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        if not torch.isfinite(g).all().item() or err > BWD_TOL * top:
+            raise AssertionError(f"lowrank_flash_bwd disagrees with its plain version at "
+                                 f"{label}: {name} max|kernel-plain| {err:.3g}, tol "
+                                 f"{BWD_TOL:g} x {top:.3g}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_scaled_err"] = max(worst["max_scaled_err"], err / top)
+    return worst
+
+
+def check_flash_bwd_case(case, seed) -> dict:
+    """The kernel forward with its log-sum-exp (out bitwise the forward
+    without it; lse within LSE_TOL of the plain one), then the backward
+    kernel against lowrank_flash_bwd_plain on the same inputs."""
+    (q, k, v, do), kw = bwd_inputs(case, seed)
+    out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
+    out_only = lowrank_flash.lowrank_flash(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_only):
+        raise AssertionError(f"lowrank_flash's out differs with and without lse at {case}")
+    _, rlse = lowrank_flash.lowrank_flash_plain(q, k, v, return_lse=True, **kw)
+    lse_err = (lse - rlse).abs().max().item()
+    if ((lse - rlse).abs() > LSE_TOL + LSE_TOL * rlse.abs()).any().item():
+        raise AssertionError(f"lowrank_flash's lse disagrees with the plain one at {case}: "
+                             f"{lse_err:.3g} (tol {LSE_TOL:g} + {LSE_TOL:g}*|plain|)")
+    del rlse
+    got = lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = lowrank_flash.lowrank_flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    res = grads_close(got, want, case)
+    log(f"  backward b,hq,hkv,sq,skv,r,dv,causal,q_offset={case}: max|grad-plain| "
+        f"{res['max_abs_err']:.3g} ({res['max_scaled_err']:.3g} of the largest |grad|; tol "
+        f"{BWD_TOL:g}); lse {lse_err:.3g}; out bitwise with and without lse")
+    return res
+
+
+def check_flash_grad_route(case, seed) -> dict:
+    """A call of few queries that requires grad, through ops.flash_attention
+    and torch.autograd.grad: one lowrank_flash and one lowrank_flash_bwd
+    launch (no flash_decode), the gradients within BWD_TOL of the plain
+    backward of the plain forward."""
+    (q, k, v, do), kw = bwd_inputs(case, seed)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
+    if counts != {"flash_decode": 0, "lowrank_flash": 1, "lowrank_flash_bwd": 1}:
+        raise AssertionError(f"a {case[3]}-query call with grad launched {counts}")
+    ro, rlse = lowrank_flash.lowrank_flash_plain(q, k, v, return_lse=True, **kw)
+    if ((out.detach() - ro).abs() > TOL + TOL * ro.abs()).any().item():
+        raise AssertionError(f"ops.flash_attention with grad disagrees at {case}")
+    res = grads_close(got, lowrank_flash.lowrank_flash_bwd_plain(q, k, v, ro, rlse, do, **kw),
+                      case)
+    log(f"  ops.flash_attention with grad, {case[3]} queries, {case}: launches {counts}; "
+        f"max|grad-plain| {res['max_abs_err']:.3g} ({res['max_scaled_err']:.3g} of the "
+        f"largest |grad|)")
+    return res
+
+
+def check_flash_bwd() -> dict:
+    """Phase 6's backward checks: every BWD_CASES and BWD_ROUTE_CASES case,
+    and two backward runs at PATH_MASKED bitwise equal. Returns the largest
+    errors."""
+    worst = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
+    for i, case in enumerate(BWD_CASES):
+        res = check_flash_bwd_case(case, seed=300 + i)
+        worst = {key: max(worst[key], res[key]) for key in worst}
+    for i, case in enumerate(BWD_ROUTE_CASES):
+        res = check_flash_grad_route(case, seed=320 + i)
+        worst = {key: max(worst[key], res[key]) for key in worst}
+    (q, k, v, do), kw = bwd_inputs(PATH_MASKED, seed=330)
+    out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
+    runs = [lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("two backward runs at PATH_MASKED differ")
+    log(f"  two backward runs at {PATH_MASKED}: dq, dk, dv bitwise equal (no atomics)")
+    return worst
+
+
 # -- phase 7 ---------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1310,6 +1461,59 @@ def time_flash(case, label, card_name, dtype=torch.float32, per_call=True) -> di
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
                 **extra, profiler_ms=prof_ms, profiler_kernels=names,
                 library_profiler_ms=lib_prof_ms, sdpa_backend=backend)
+
+
+def flash_bwd_bound_ms(case) -> dict:
+    """Least time for the backward's work: q, k, v, out, dout and lse read
+    once and dq, dk, dv written once over HBM bandwidth, and the operations
+    the function needs, S, dP, dv, dk and dq once each, 2 (3 r + 2 dv) per
+    visible pair (the kernel's dq pass recomputes S and dP: its own choice,
+    not counted). f32 inputs need f32-accurate products, which the tensor
+    cores give as three TF32 products each (split TF32, as the forward's
+    kernel): ``bound_ms`` takes those three passes at the TF32 peak, the
+    larger of that and the byte time; ``bound_cuda_core_ms`` the same
+    flops on the f32 CUDA cores, which this kernel runs on."""
+    b, hq, hkv, sq, skv, r, dv, causal, off = case
+    i = np.arange(sq)
+    pairs = float(np.minimum(skv, off + i + 1).sum() if causal else sq * skv) * b * hq
+    flops = 2.0 * pairs * (3 * r + 2 * dv)
+    n_bytes = 4 * (2 * b * hq * sq * r + 2 * b * hkv * skv * (r + dv) + 2 * b * hq * sq * dv
+                   + b * hq * sq)
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_cc = max(t_bytes, 1e3 * flops / F32_FLOPS)
+    t_tf32 = 1e3 * 3 * flops / TF32_FLOPS
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
+    return dict(bound_ms=bnd, bound_by=by, bound_cuda_core_ms=t_cc, flops=flops,
+                pairs=pairs)
+
+
+def time_flash_bwd(case, label, card_name) -> dict:
+    """The backward kernel at ``case`` (CUDA events, median, L2 flushed),
+    its plain version, and autograd through scaled_dot_product_attention's
+    backward on the same inputs (a yardstick only: the port never calls it),
+    beside the bound."""
+    import torch.nn.functional as F
+    (q, k, v, do), kw = bwd_inputs(case, seed=9)
+    out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
+    ms = time_ms(lambda: lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw), n=15)
+    plain_ms = time_ms(lambda: lowrank_flash.lowrank_flash_bwd_plain(q, k, v, out, lse, do,
+                                                                    **kw), n=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=kw["scale"],
+                                                 enable_gqa=True)
+    backend = sdpa_backend(q, k, v, kw["scale"])
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), n=15)
+    del lib_out, leaves
+    bnd = flash_bwd_bound_ms(case)
+    b, hq, hkv, sq = case[:4]
+    log(f"  lowrank_flash backward {label} (b={b}, hq=hkv={hq}, sq=skv={sq}, causal, f32): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward ({backend}) "
+        f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three TF32 "
+        f"passes), {bnd['bound_ms'] / ms:.1%} of it; f32 CUDA-core bound "
+        f"{bnd['bound_cuda_core_ms']:.4f} ms, {bnd['bound_cuda_core_ms'] / ms:.1%} of it "
+        f"[{card_name}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_backend=backend, **bnd)
 
 
 def profile_forwards(cfg_base, params, card_name) -> None:
@@ -1581,25 +1785,39 @@ def _forbidden(ys, mask):
 
 
 def check_grad_guard():
-    """Both wrappers refuse CUDA inputs that require grad while grad is
-    enabled (neither kernel has a backward), and launch under no_grad."""
+    """Where autograd records a call: ops.flash_attention on f32 CUDA
+    inputs runs lowrank_flash forward and, under torch.autograd.grad, its
+    backward kernel (one launch each); on bf16 inputs it raises (the bf16
+    kernel has no backward); ops.decode_attention raises (flash_decode has
+    none). Both launch under no_grad."""
     g = torch.Generator(device=DEV).manual_seed(4)
     q, k, v = (torch.randn((1, 2, 20, 16), generator=g, device=DEV) for _ in range(3))
     kv_len = torch.tensor([12], dtype=torch.int32, device=DEV)
-    calls = {"flash_attention": lambda x: ops.flash_attention(x, k, v, scale=0.25),
-             "decode_attention": lambda x: ops.decode_attention(
-                 x[:, :, 0].contiguous(), k, v, kv_len, scale=0.25)}
-    for name, call in calls.items():
+    leaf = q.clone().requires_grad_(True)
+    reset_launches()
+    (dq,) = torch.autograd.grad(ops.flash_attention(leaf, k, v, scale=0.25).sum(), (leaf,))
+    torch.cuda.synchronize()
+    counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
+    assert counts == {"flash_decode": 0, "lowrank_flash": 1, "lowrank_flash_bwd": 1}, counts
+    assert torch.isfinite(dq).all()
+    kb, vb = k.bfloat16(), v.bfloat16()
+    calls = {"flash_attention (bf16)": (lambda x: ops.flash_attention(x, kb, vb, scale=0.25),
+                                        q.bfloat16()),
+             "decode_attention": (lambda x: ops.decode_attention(
+                 x[:, :, 0].contiguous(), k, v, kv_len, scale=0.25), q)}
+    for name, (call, x) in calls.items():
         try:
-            call(q.clone().requires_grad_(True))
+            call(x.clone().requires_grad_(True))
         except RuntimeError as e:
-            assert "no backward" in str(e), e
+            assert "backward" in str(e), e
         else:
             raise AssertionError(f"{name} took an input that requires grad")
         with torch.no_grad():
-            assert torch.isfinite(call(q.clone().requires_grad_(True))).all()
-    log("  ops.flash_attention and ops.decode_attention refuse CUDA inputs that require "
-        "grad with grad enabled, and launch under torch.no_grad()")
+            assert torch.isfinite(call(x.clone().requires_grad_(True)).float()).all()
+    log("  ops.flash_attention with grad on f32 CUDA inputs: one lowrank_flash and one "
+        "lowrank_flash_bwd launch; on bf16 ones it raises (no bf16 backward), as "
+        "ops.decode_attention does (flash_decode has none); both launch under "
+        "torch.no_grad()")
 
 
 def check_training(cfg, params, agent, card_name) -> int:
@@ -3368,10 +3586,162 @@ def check_train_reference(card_name) -> None:
         f"{LM_P99_TOL}) [{card_name}]")
 
 
+# 17g: drrl-paper's LM step with loss(chunked=True), the reference's
+# long-sequence training path: lowrank_flash and its backward kernel in every
+# layer, at the paper's own length
+CHUNKED_BATCH, CHUNKED_SEQ, CHUNKED_STEPS = 2, 4096, 3
+# step 1 chunked against the same step unchunked, same weights, batch and rank
+# key, TF32 off: the two attention paths differ only in f32 summation order.
+# Loss and grad norm relative, the updated parameters leaf by leaf: every
+# element within 2 lr (AdamW's first step moves each by about lr times the
+# sign of its gradient, so a gradient near zero may flip it), 99 % of each
+# leaf's elements within CHUNKED_P99_TOL; the ranks identical. Each limit is
+# about 10x the gap measured on an H100 (loss 8.4e-8, grad norm 9.5e-8,
+# largest leaf 99th percentile 8.9e-8), far inside tests/test_torch_train_
+# loop.py's 2e-5 / 1e-4 / 5e-5 for rank mode 'drrl'. A dK or dV misplaced in
+# one layer flips many updates by 2 lr, past the 99th percentile; one scaled
+# by 1.01 leaves AdamW's first update as it was and moves the grad norm
+# (2.3e-5 relative in a 2-layer CPU rehearsal)
+CHUNKED_LOSS_TOL, CHUNKED_GNORM_TOL, CHUNKED_P99_TOL = 1e-6, 1e-6, 1e-6
+
+
+def param_gaps(a, b) -> dict:
+    """|a - b| leaf by leaf over two parameter trees: the largest element
+    and the largest leaf 99th percentile (numpy's, on the host: leaves past
+    torch.quantile's 16M elements), each with its leaf, and the count of
+    elements that differ."""
+    res = {"max": 0.0, "max_leaf": None, "p99": 0.0, "p99_leaf": None, "differ": 0, "n": 0}
+    for (path, x), y in zip(tu.leaves_with_path(a), tu.leaves(b)):
+        d = (x - y).abs().flatten()
+        top, q = d.max().item(), float(np.quantile(d.cpu().numpy(), 0.99))
+        if top >= res["max"]:
+            res["max"], res["max_leaf"] = top, path
+        if q >= res["p99"]:
+            res["p99"], res["p99_leaf"] = q, path
+        res["differ"] += int((d > 0).sum())
+        res["n"] += d.numel()
+    return res
+
+
+def chunked_loss_fn(cfg, agent, chunked, ranks):
+    """lm_loss_fn with ``chunked``; each call's per-layer ranks (L, b, hkv)
+    appended to ``ranks`` (on the device: no sync inside the step)."""
+    fns = get_model(cfg)
+
+    def lf(p, b, rng):
+        loss, aux = fns.loss(p, b, policy_params=agent, rank_rng=rng, chunked=chunked,
+                             collect_aux="ranks")
+        ranks.append(aux["layers"]["rank"].detach().clone())
+        return loss, aux
+    return lf
+
+
+def check_chunked_training(cfg, agent, card_name) -> dict:
+    """17g: CHUNKED_STEPS steps of ``make_train_step`` with
+    ``loss(chunked=True)`` at CHUNKED_BATCH x CHUNKED_SEQ tokens: per step
+    one lowrank_flash and one lowrank_flash_bwd launch per layer, no
+    flash_decode; step 1 against the same step with ``loss(chunked=False)``
+    (loss, grad norm, ranks, the updated parameters leaf by leaf); s/step,
+    peak memory of both steps, one step profiled (device busy and idle, the
+    backward kernel's share)."""
+    from torch.profiler import ProfilerActivity, profile
+    params = get_model(cfg).init(torch.Generator(DEV).manual_seed(0), device=DEV)
+    data = SyntheticLM(cfg.vocab_size, CHUNKED_SEQ, CHUNKED_BATCH, seed=0)
+    tc = TrainConfig(global_batch=CHUNKED_BATCH, seq_len=CHUNKED_SEQ, lr=3e-4,
+                     warmup_steps=1, total_steps=CHUNKED_STEPS)
+    ranks = {True: [], False: []}
+    steps = {c: train_loop.make_train_step(cfg, tc, chunked_loss_fn(cfg, agent, c, ranks[c]))
+             for c in (True, False)}
+    L = cfg.num_layers
+
+    def run(chunked, p, opt, i):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        p, opt, m = steps[chunked](p, opt, data.batch_at(i, device=DEV),
+                                   prng.fold_in(prng.key(0), i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
+        return p, opt, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                        "lr": float(m["lr"]), "wall_s": wall, "launches": counts,
+                        "peak_above_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+    free_memory()
+    p_plain, _, plain = run(False, params, adamw.init(params), 0)
+    free_memory()
+    assert plain["launches"] == {"flash_decode": 0, "lowrank_flash": 0,
+                                 "lowrank_flash_bwd": 0}, plain["launches"]
+    p, opt, hist = params, adamw.init(params), []
+    for i in range(CHUNKED_STEPS):
+        p, opt, m = run(True, p, opt, i)
+        want = {"flash_decode": 0, "lowrank_flash": L, "lowrank_flash_bwd": L}
+        if m["launches"] != want:
+            raise AssertionError(f"chunked step {i + 1} launched {m['launches']}, not {want}")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"chunked step {i + 1}: {m}")
+        hist.append(m)
+        if i == 0:
+            gaps = param_gaps(p, p_plain)
+            del p_plain
+    first = hist[0]
+    loss_err = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
+    gn_err = abs(first["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+    same_ranks = torch.equal(ranks[True][0], ranks[False][0])
+    if (not same_ranks or loss_err > CHUNKED_LOSS_TOL or gn_err > CHUNKED_GNORM_TOL
+            or gaps["max"] > 2 * first["lr"] or gaps["p99"] > CHUNKED_P99_TOL):
+        raise AssertionError(f"chunked step 1 against unchunked: ranks equal {same_ranks}, "
+                             f"loss {first['loss']} vs {plain['loss']} ({loss_err:.3g}), grad "
+                             f"norm {first['grad_norm']} vs {plain['grad_norm']} ({gn_err:.3g}), "
+                             f"parameters {gaps} (lr {first['lr']})")
+    batch = data.batch_at(0, device=DEV)
+    rng = prng.fold_in(prng.key(0), 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps[True](p, opt, batch, rng)
+        torch.cuda.synchronize()
+    kern = raw_device_kernels(prof)
+    busy = sum(dev_us(e) for e in kern)
+    layers = by_layer(kern)
+    steady = statistics.mean(h["wall_s"] for h in hist[1:])
+    bwd_ms = layers["lowrank_flash backward kernel"] / 1e3
+    fwd_ms = layers["lowrank_flash kernel"] / 1e3
+    n_ranks = int(ranks[True][0].numel())
+    log(f"  {CHUNKED_STEPS} steps of make_train_step with loss(chunked=True), drrl-paper "
+        f"{L} x {cfg.d_model} in rank mode '{cfg.rank.mode}', {CHUNKED_BATCH} x "
+        f"{CHUNKED_SEQ} tokens: losses {[round(h['loss'], 5) for h in hist]}, s/step "
+        f"{[round(h['wall_s'], 3) for h in hist]}; {L} lowrank_flash and {L} "
+        f"lowrank_flash_bwd launches per step, no flash_decode; peak "
+        f"{max(h['peak_above_gib'] for h in hist):.2f} GiB above the start [{card_name}]")
+    log(f"  step 1 against loss(chunked=False) on the same weights, batch and rank key: loss "
+        f"{first['loss']:.7f} vs {plain['loss']:.7f} (relative {loss_err:.3g}, tol "
+        f"{CHUNKED_LOSS_TOL}), grad norm {first['grad_norm']:.7f} vs {plain['grad_norm']:.7f} "
+        f"(relative {gn_err:.3g}, tol {CHUNKED_GNORM_TOL}), the {n_ranks} ranks identical; "
+        f"updated parameters: largest |diff| {gaps['max']:.3g} in {gaps['max_leaf']} (tol "
+        f"2 lr = {2 * first['lr']:.3g}), largest leaf 99th percentile {gaps['p99']:.3g} in "
+        f"{gaps['p99_leaf']} (tol {CHUNKED_P99_TOL}), {gaps['differ']} of {gaps['n']} "
+        f"elements not equal; "
+        f"unchunked step {plain['wall_s']:.3f} s, peak {plain['peak_above_gib']:.2f} GiB "
+        f"above the start (chunked {first['peak_above_gib']:.2f}) [{card_name}]")
+    log(f"  one chunked step profiled: device busy {busy / 1e3:.2f} ms of {steady * 1e3:.1f} ms "
+        f"(steps 2-{CHUNKED_STEPS}' mean wall; idle {1 - busy / (steady * 1e6):.1%}); "
+        f"lowrank_flash_bwd {bwd_ms:.2f} ms ({bwd_ms * 1e3 / busy:.1%} of busy), "
+        f"lowrank_flash {fwd_ms:.2f} ms ({fwd_ms * 1e3 / busy:.1%}) [{card_name}]")
+    log_layers(layers, busy)
+    return {"steps": hist, "unchunked": plain, "loss_rel_err": loss_err,
+            "grad_norm_rel_err": gn_err, "ranks_equal": same_ranks, "param_gaps": gaps,
+            "s_per_step": steady,
+            "busy_ms": busy / 1e3, "idle": 1 - busy / (steady * 1e6), "bwd_ms": bwd_ms,
+            "bwd_share": bwd_ms * 1e3 / busy, "fwd_ms": fwd_ms,
+            "launches_per_step": hist[0]["launches"]}
+
+
 def check_lm_training(paper, agent, card_name) -> dict:
     """Phase 17 on drrl-paper's own config (rank mode 'drrl') with phase
-    10's seeded agent: 17a-f. Returns the launches of both kernels in 17a's
-    training steps and of flash_decode in 17e's serving."""
+    10's seeded agent: 17a-g. Returns the launches of both kernels in 17a's
+    training steps and of flash_decode in 17e's serving, and 17g's numbers."""
     out = os.path.join(ROOT, ".scratch", "phase17")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -3391,11 +3761,16 @@ def check_lm_training(paper, agent, card_name) -> dict:
     cli = {k: run[k] for k in ("s_per_step", "s_first_step", "losses", "wall_s")}
     del run
     shutil.rmtree(out, ignore_errors=True)
+    free_memory()
+    phase(f"  17g: loss(chunked=True) at {CHUNKED_BATCH} x {CHUNKED_SEQ}, through "
+          "lowrank_flash and its backward kernel")
+    chunked = check_chunked_training(paper, agent, card_name)
     log("phase 17 numbers: " + json.dumps({
         "cli": cli, "resume_max_dparam": resume_diff, "accumulation": accum,
         "step_profile": prof, "step_launches": step_launches,
-        "serve_launches": serve_launches, "card": card_name}))
-    return {"step_launches": step_launches, "serve_launches": serve_launches}
+        "serve_launches": serve_launches, "chunked_training": chunked, "card": card_name}))
+    return {"step_launches": step_launches, "serve_launches": serve_launches,
+            "chunked": chunked}
 
 
 # -- phase 18 ----------------------------------------------------------------
@@ -3919,6 +4294,9 @@ FAMILY_FLASH = {
 BF16_GAP_TOL = 0.125
 # qwen's forward (20e): its first layers, 2 x 4096 tokens
 FAMILY_FWD_LAYERS = 8
+# 20b, 20c: qwen2.5-14b and granite served cut in depth (widths unchanged),
+# for the smoke's 1200 s limit (their full depths: 48 and 32 layers)
+FAMILY_SERVE_LAYERS = 16
 # 20d: the other dense configs, cut in depth for time
 DENSE_CUT_LAYERS = 4
 # DeepSeek-V3 (20f): 1 dense + 1 MoE layer + the MTP block
@@ -4092,9 +4470,13 @@ def eigh_ms_per_decision(cfg, card_name) -> float:
 
 
 def check_qwen_serving(card_name):
-    """20b: qwen2.5-14b at full width and depth, 'off' then 'adaptive'
-    (segment 32, grid 16..64), kernel tokens against the plain run's."""
-    base = get_config("qwen2.5-14b")
+    """20b: qwen2.5-14b at full width, cut to FAMILY_SERVE_LAYERS layers,
+    'off' then 'adaptive' (segment 32, grid 16..64), kernel tokens against
+    the plain run's; one decision's eigh at full depth."""
+    full = get_config("qwen2.5-14b")
+    base = full.with_(num_layers=FAMILY_SERVE_LAYERS)
+    log(f"  qwen2.5-14b cut from {full.num_layers} to {base.num_layers} layers for "
+        f"serving, width unchanged")
     params = family_params(base)
     out = {}
     for mode in ("off", "adaptive"):
@@ -4111,7 +4493,7 @@ def check_qwen_serving(card_name):
             plain = plain_family_run(cfg, params, f"qwen2.5-14b {mode}", card_name)
             out[mode]["streams_differ"] = compare_family_streams(
                 cfg, toks, plain, f"qwen2.5-14b {mode} vs plain")
-    out["adaptive"]["eigh_ms_per_decision"] = eigh_ms_per_decision(base, card_name)
+    out["adaptive"]["eigh_ms_per_decision"] = eigh_ms_per_decision(full, card_name)
     return params, out
 
 
@@ -4182,11 +4564,15 @@ class RouteReplay:
 
 
 def check_granite_serving(card_name):
-    """20c: granite-moe-3b-a800m at full width and depth in 'adaptive':
-    tokens against the plain run's with the kernel run's routing pinned
-    (``RouteReplay``), the share of (token, expert) pairs the kernel run's
-    capacity dropped, and a guarded steady run of its fused step."""
-    base = get_config("granite-moe-3b-a800m")
+    """20c: granite-moe-3b-a800m at full width, cut to FAMILY_SERVE_LAYERS
+    layers, in 'adaptive': tokens against the plain run's with the kernel
+    run's routing pinned (``RouteReplay``), the share of (token, expert)
+    pairs the kernel run's capacity dropped, and a guarded steady run of its
+    fused step."""
+    full = get_config("granite-moe-3b-a800m")
+    base = full.with_(num_layers=FAMILY_SERVE_LAYERS)
+    log(f"  granite-moe-3b-a800m cut from {full.num_layers} to {base.num_layers} layers "
+        f"for serving, width unchanged")
     params = family_params(base)
     cfg = base.with_(rank=RankConfig(mode="adaptive", rank_grid=base.rank.rank_grid,
                                      segment_len=32))
@@ -4482,13 +4868,13 @@ def check_families(card_name) -> dict:
     t0 = time.perf_counter()
     kern = check_family_kernels(card_name)
     free_memory()
-    phase("  qwen2.5-14b served at full width and depth")
+    phase(f"  qwen2.5-14b served at full width, {FAMILY_SERVE_LAYERS} layers")
     qwen_params, qwen = check_qwen_serving(card_name)
     phase("  qwen2.5-14b forward_dense(chunked=True), 2 x 4096")
     qwen_fwd = check_qwen_forward(qwen_params, card_name)
     del qwen_params
     free_memory()
-    phase("  granite-moe-3b-a800m served at full width and depth")
+    phase(f"  granite-moe-3b-a800m served at full width, {FAMILY_SERVE_LAYERS} layers")
     granite_params, granite = check_granite_serving(card_name)
     del granite_params
     free_memory()
@@ -5581,7 +5967,8 @@ def main() -> int:
     log(card_name)
     phase(f"[1/23] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    sources = ["decode_attn", "decode_attn_bf16", "lowrank_flash", "lowrank_flash_bf16"]
+    sources = ["decode_attn", "decode_attn_bf16", "lowrank_flash", "lowrank_flash_bf16",
+               "lowrank_flash_bwd"]
     secs = build.build(sources)
     for name in sources:
         log(f"  built {name}.cu in {secs[name]:.1f} s")
@@ -5625,9 +6012,10 @@ def main() -> int:
     t_verify = time_kernel(MAIN_VERIFY, card_name)
     profile_serving(cfg, params, card_name, st_adaptive["decode_s"])
 
-    phase("[6/23] lowrank_flash kernel vs its plain version on the card")
+    phase("[6/23] lowrank_flash kernel vs its plain version on the card; its backward")
     flash_err = check_flash()
     bf16_p = check_bf16_p_case()
+    bwd_err = check_flash_bwd()
 
     phase("[7/23] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
@@ -5635,9 +6023,12 @@ def main() -> int:
     phase("[8/23] one-shot serving (prefill_chunk=None) vs the chunked run")
     check_oneshot(cfg, params, outs, card_name)
 
-    phase("[9/23] lowrank_flash times at the forward shapes; the forwards by layer")
+    phase("[9/23] lowrank_flash times at the forward shapes, its backward's; the forwards "
+          "by layer")
     t_flash = time_flash(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
+    t_bwd = time_flash_bwd(PATH_MASKED, "masked r=64, dv=64", card_name)
+    t_bwd_static = time_flash_bwd(PATH_STATIC, "static r=32, dv=64", card_name)
     profile_forwards(cfg, params, card_name)
 
     # drrl-paper's own config: rank mode 'drrl', masked, grid 16..64
@@ -5795,6 +6186,16 @@ def main() -> int:
              "qwen2-vl-7b": {"forward": rec["qwen2_vl"]["launches"],
                              "prompt": rec["qwen2_vl"]["decode"]["launches"]["lowrank_flash"]}},
          "max_abs_err": flash_err, **t_flash, "r32": t_static,
+         "backward_source": "src/repro_torch/kernels/csrc/lowrank_flash_bwd.cu",
+         "backward_launches": {
+             "chunked_train_step": lm["chunked"]["launches_per_step"]["lowrank_flash_bwd"],
+             "chunked_train_steps": sum(h["launches"]["lowrank_flash_bwd"]
+                                        for h in lm["chunked"]["steps"]),
+             "chunked_train_forward": sum(h["launches"]["lowrank_flash"]
+                                          for h in lm["chunked"]["steps"])},
+         "backward_max_abs_err": bwd_err["max_abs_err"],
+         "backward_max_scaled_err": bwd_err["max_scaled_err"],
+         "backward": t_bwd, "backward_r32": t_bwd_static,
          "bf16_times": {label: {key: t[key] for key in BF16_TIME_KEYS}
                         for label, t in {**fam["kernels"]["times"]["lowrank_flash"],
                                          **rec["kernels"]["times"]}.items()},

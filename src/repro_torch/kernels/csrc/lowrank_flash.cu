@@ -13,6 +13,9 @@
 //   when causal, j <= q_offset + i; so every query sees key 0 and no row is
 //   ever empty. GQA maps row bh = b * hq + h to kv row bh / (hq / hkv), so K
 //   and V are never repeated in device memory. f32 accuracy throughout.
+//   Optionally also lse (b, hq, sq), each row's ln sum_j exp(scale q.k_j),
+//   the statistic csrc/lowrank_flash_bwd.cu rebuilds P from; out is the
+//   same with or without it.
 //
 // What bounds it on an H100: operations. A causal call does
 // 2 b hq (sq (sq + 1) / 2) (r + dv) flops against 4 (q + k + v + out) bytes
@@ -211,9 +214,9 @@ __device__ __forceinline__ void stage(float* dst, Pos pos, const float* src, int
 template <int KR, int ND>
 __global__ void __launch_bounds__(kThreads)
 lowrank_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, int hq, int hkv, int sq,
-                     int skv, int r, int dv, int q_offset, int causal, float scale, int vec_qk,
-                     int vec_v) {
+                     const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                     int hq, int hkv, int sq, int skv, int r, int dv, int q_offset, int causal,
+                     float scale, int vec_qk, int vec_v) {
   constexpr bool kQRegs = KR <= kQRegSteps && ND <= kQRegCols;
   constexpr int kNC = ND < kPVCols ? ND : kPVCols;
   constexpr int kQS = 8 * KR + 8;    // Q and K row stride (8 mod 32 words in f32)
@@ -393,6 +396,11 @@ lowrank_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = w0 + g + 8 * h;
     if (row >= n_q) continue;
     const float den = fmaxf(l[h], 1e-30f);
+    // the row's log-sum-exp in natural units, ln sum_j exp(scale q.k_j): m
+    // and l are in base 2 with the scale folded in (m = max of scale log2(e)
+    // q.k_j, l = sum of 2^(scale log2(e) q.k_j - m))
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * sq + q0 + row] = (m[h] + log2f(l[h])) * 0.6931471805599453f;
     float* o_row = out + ((size_t)bh * sq + q0 + row) * dv;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {   // mma column n, n index i is column i ND + n
@@ -404,9 +412,9 @@ lowrank_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int KR, int ND>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out, int b, int hq,
-                   int hkv, int sq, int skv, int r, int dv, int q_offset, int causal, float scale,
-                   int vec_qk, int vec_v, cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* lse, int b,
+                   int hq, int hkv, int sq, int skv, int r, int dv, int q_offset, int causal,
+                   float scale, int vec_qk, int vec_v, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (8 * KR + 8) +
                                        (size_t)2 * kBK * (ND >= 4 ? 8 * ND : 8 * ND + 4));
   cudaError_t err = cudaFuncSetAttribute(lowrank_flash_kernel<KR, ND>,
@@ -414,26 +422,26 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, i
   if (err != cudaSuccess) return err;
   const dim3 grid(b * hq, (sq + kBQ - 1) / kBQ);
   lowrank_flash_kernel<KR, ND><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v);
+      q, k, v, out, lse, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v);
   return cudaGetLastError();
 }
 
 // the kernel's padded widths: r 16, 32, 64, 128 or 192; dv 16, 32, 64 or 128
-#define LF_ARGS q, k, v, out, b, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v, s
+#define LF_ARGS q, k, v, out, lse, b, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, vec_qk, vec_v, s
 
 template <int KR>
-cudaError_t by_dv(const float* q, const float* k, const float* v, float* out, int b, int hq,
-                  int hkv, int sq, int skv, int r, int dv, int q_offset, int causal, float scale,
-                  int vec_qk, int vec_v, cudaStream_t s) {
+cudaError_t by_dv(const float* q, const float* k, const float* v, float* out, float* lse, int b,
+                  int hq, int hkv, int sq, int skv, int r, int dv, int q_offset, int causal,
+                  float scale, int vec_qk, int vec_v, cudaStream_t s) {
   if (dv <= 16) return launch<KR, 2>(LF_ARGS);
   if (dv <= 32) return launch<KR, 4>(LF_ARGS);
   if (dv <= 64) return launch<KR, 8>(LF_ARGS);
   return launch<KR, 16>(LF_ARGS);
 }
 
-cudaError_t dispatch(const float* q, const float* k, const float* v, float* out, int b, int hq,
-                     int hkv, int sq, int skv, int r, int dv, int q_offset, int causal,
-                     float scale, cudaStream_t s) {
+cudaError_t dispatch(const float* q, const float* k, const float* v, float* out, float* lse,
+                     int b, int hq, int hkv, int sq, int skv, int r, int dv, int q_offset,
+                     int causal, float scale, cudaStream_t s) {
   // 4-element loads need rows of a multiple of 4 and aligned base pointers
   const uintptr_t align = 4 * sizeof(float);
   const int vec_qk = r % 4 == 0 && (uintptr_t)q % align == 0 && (uintptr_t)k % align == 0;
@@ -453,16 +461,19 @@ cudaError_t dispatch(const float* q, const float* k, const float* v, float* out,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). q, k, v and out are contiguous
-// f32 tensors on the current device. Returns a cudaError_t value (0 =
-// launched).
-extern "C" int lowrank_flash_launch(const void* q, const void* k, const void* v, void* out, int b,
-                                    int hq, int hkv, int sq, int skv, int r, int dv, int q_offset,
-                                    int causal, float scale, void* stream) {
+// f32 tensors on the current device; lse, when not null, an f32 (b, hq, sq)
+// tensor that receives each row's log-sum-exp of its scaled scores in
+// natural units (the backward's P = exp(scale q.k - lse)). Returns a
+// cudaError_t value (0 = launched).
+extern "C" int lowrank_flash_launch(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, int b, int hq, int hkv, int sq, int skv, int r,
+                                    int dv, int q_offset, int causal, float scale, void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || r < 1 ||
       r > kMaxRank || dv < 1 || dv > kMaxDim || q_offset < 0 || (long long)b * hq > 0x7fffffffLL ||
       (sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(static_cast<const float*>(q), static_cast<const float*>(k),
-                       static_cast<const float*>(v), static_cast<float*>(out), b, hq, hkv, sq, skv,
-                       r, dv, q_offset, causal != 0, scale, static_cast<cudaStream_t>(stream));
+                       static_cast<const float*>(v), static_cast<float*>(out),
+                       static_cast<float*>(lse), b, hq, hkv, sq, skv, r, dv, q_offset, causal != 0,
+                       scale, static_cast<cudaStream_t>(stream));
 }

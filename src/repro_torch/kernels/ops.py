@@ -2,10 +2,17 @@
 
 A wrapper runs its kernel's plain PyTorch version only because the tensors
 it was given lie on the CPU; on CUDA tensors it launches the kernel or
-raises, never falling back. Neither kernel has a backward (nor has its
-Pallas original), so on CUDA tensors a wrapper also raises where autograd
-would record the call: the kernel's output would carry no gradient. The
-plain versions on the CPU stay differentiable.
+raises, never falling back.
+
+Gradients: where autograd records a call (grad enabled and an input that
+requires grad), :func:`flash_attention` goes to
+``lowrank_flash.LowrankFlash`` whatever the number of queries: on CUDA the
+f32 forward kernel and its backward kernel (``csrc/lowrank_flash_bwd.cu``),
+on the CPU the same Function over the plain versions. bf16 on CUDA raises
+(the bf16 kernel has no backward). ``flash_decode`` has no backward, so
+:func:`decode_attention` raises on CUDA where autograd would record it;
+its plain version on the CPU stays differentiable. Calls that need no
+gradient take the routes below unchanged.
 """
 from __future__ import annotations
 
@@ -22,8 +29,13 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def _records(*tensors) -> bool:
+    """Whether autograd records a call on these inputs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _refuse_grad(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if _records(*tensors):
         raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
                            "under torch.no_grad() or on inputs that do not "
                            "require grad")
@@ -44,11 +56,22 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     """Flash attention over (b, h, s, d) layouts, d possibly a truncated
     rank; see :mod:`repro_torch.kernels.lowrank_flash` for the semantics.
     ``q`` (b, hq, sq, r), ``k`` (b, hkv, skv, r), ``v`` (b, hkv, skv, dv),
-    any strides. A call with few queries (:func:`few_query`) is
-    flash_decode's function with kv_len = skv and q_start = q_offset
-    (causal) or skv - 1 (every key visible): it goes there with K and V
-    read in place; every other call to lowrank_flash, on contiguous
-    copies."""
+    any strides. A call that autograd records goes to
+    ``lowrank_flash.LowrankFlash`` on contiguous copies (f32 on CUDA: both
+    passes kernels; bf16 on CUDA raises). Otherwise a call with few queries
+    (:func:`few_query`) is flash_decode's function with kv_len = skv and
+    q_start = q_offset (causal) or skv - 1 (every key visible): it goes
+    there with K and V read in place; every other call to lowrank_flash,
+    on contiguous copies."""
+    if _records(q, k, v):
+        if q.device.type != "cpu" and q.dtype != torch.float32:
+            raise RuntimeError(
+                f"flash_attention: lowrank_flash has no {q.dtype} backward on CUDA "
+                "(the float32 kernel has one); call it under torch.no_grad() or "
+                "in float32")
+        return lowrank_flash.LowrankFlash.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale, causal,
+            lowrank_flash.check_offset(q_offset))
     if few_query(q.shape[2], q.shape[3], v.shape[3]):
         q_offset = lowrank_flash.check_offset(q_offset)
         b, skv = q.shape[0], k.shape[2]
@@ -62,7 +85,6 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
         return lowrank_flash.lowrank_flash_plain(q, k, v, scale=scale,
                                                  causal=causal,
                                                  q_offset=q_offset)
-    _refuse_grad("flash_attention", q, k, v)
     return lowrank_flash.lowrank_flash(q, k, v, scale=scale, causal=causal,
                                        q_offset=q_offset)
 

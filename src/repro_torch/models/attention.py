@@ -11,7 +11,8 @@ Both reach the port's attention kernels through ``attend`` wherever the
 JAX model takes its flash-semantics branch (``chunked`` and more than
 ``chunk`` keys): ``flash_decode`` for a call of at most 16 queries (the
 dense cache's decodes, K/V read in place from the cache), ``lowrank_flash``
-for the rest. Rank modes 'performer' and 'nystrom' replace the whole
+for the rest and, with its backward kernel, for every call a training
+step differentiates. Rank modes 'performer' and 'nystrom' replace the whole
 score/softmax/value core by the static baselines of ``core/baselines.py``.
 """
 from __future__ import annotations
@@ -55,9 +56,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     unrepeated: at most 16 queries (a dense-cache decode) go to the
     ``flash_decode`` kernel on CUDA tensors, which reads K/V in place
     through their strides; more go to ``lowrank_flash`` on contiguous
-    copies. With a cache, ``kv_len`` must be an int and the kernel reads
-    the valid prefix of K/V. That branch never materialises
-    probabilities."""
+    copies. A call that autograd records (a training step's
+    ``loss(chunked=True)``) goes to ``lowrank_flash`` whatever the number
+    of queries, with its backward kernel on the card (f32 only), so the
+    branch is differentiable as JAX's ``_attend_chunked`` is. With a cache,
+    ``kv_len`` must be an int and the kernel reads the valid prefix of
+    K/V. That branch never materialises probabilities."""
     if chunked and k.shape[1] > chunk:
         if return_probs:
             raise ValueError("return_probs is unsupported on the chunked "

@@ -4,9 +4,12 @@ compression, AdamW through :mod:`repro_torch.optim`, checkpoint / resume
 and straggler logging.
 
 The step runs eagerly on the device of the parameters; the reference jits
-it. Training calls the model's ``loss`` with ``chunked=False``, as the
-reference does, so no attention kernel runs in the step (the kernels have
-no backward; ``kernels/ops.py`` refuses inputs that require grad on CUDA).
+it. It differentiates whatever ``loss_fn`` computes. The training CLI calls
+the model's ``loss`` unchunked, as the reference's does, so no attention
+kernel runs there; a ``loss_fn`` that calls ``loss(..., chunked=True)``
+sends every attention over more than 1024 keys through
+``kernels/ops.py:flash_attention``, which on the card runs ``lowrank_flash``
+forward and its backward kernel (f32; bf16 raises, having no backward).
 """
 from __future__ import annotations
 

@@ -8,8 +8,8 @@
 The LM's params stay frozen (the paper adapts ranks at inference time):
 gradients flow only through the agent's policy network. Rollouts and the
 oracle are forward passes under ``torch.no_grad()``, so with ``chunked``
-their attentions over more than 1024 keys may run the ``lowrank_flash``
-kernel, which has no backward.
+their attentions over more than 1024 keys run the ``lowrank_flash``
+kernel forward only, its backward never.
 """
 from __future__ import annotations
 

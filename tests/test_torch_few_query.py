@@ -250,7 +250,8 @@ def test_cuda_route_counts_flash_decode(dtype):
         torch.cuda.synchronize()
         counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
         assert counts == {"flash_decode": int(kernel == "flash_decode"),
-                          "lowrank_flash": int(kernel == "lowrank_flash")}
+                          "lowrank_flash": int(kernel == "lowrank_flash"),
+                          "lowrank_flash_bwd": 0}
         want = lowrank_flash.lowrank_flash_plain(qq, k, v, scale=R ** -0.5, causal=True,
                                                  q_offset=SKV - sq)
         np.testing.assert_allclose(_np(out.cpu()), _np(want.cpu()), atol=TOL[dtype],

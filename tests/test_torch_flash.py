@@ -138,7 +138,7 @@ def test_cpu_tensors_run_the_plain_version():
     out = flash_attention(tq, tk, tv, scale=0.25)
     want = lowrank_flash.lowrank_flash_plain(tq, tk, tv, scale=0.25)
     assert torch.equal(out, want)
-    assert lowrank_flash.LAUNCHES == {"lowrank_flash": 0}
+    assert lowrank_flash.LAUNCHES == {"lowrank_flash": 0, "lowrank_flash_bwd": 0}
     with pytest.raises(ValueError, match="CUDA"):
         lowrank_flash.lowrank_flash(tq, tk, tv, scale=0.25)
 

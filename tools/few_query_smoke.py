@@ -22,13 +22,15 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import checkouts  # noqa: E402
+
+ROOT = checkouts.ROOT
 
 
 def ab_shapes(cs) -> list:
@@ -40,17 +42,18 @@ def ab_shapes(cs) -> list:
                for label in cs.FAMILY_DECODE_TIMED])
 
 
+def ab_labels(cs) -> list:
+    """``ab_shapes``' labels, each without and with probabilities."""
+    return [f"{label}, {str(dtype)[6:]}, {'with' if probs else 'no'} probs"
+            for label, _, dtype in ab_shapes(cs) for probs in (False, True)]
+
+
 def emit(mode: str, src: str, path: str) -> None:
     """Through the flash_decode of the ``repro_torch`` under ``src``:
     'outputs', phase 2's contiguous cases, (out, probs) per case; 'times',
     ms per call at ``ab_shapes`` without and with probabilities. Saved to
     ``path``."""
-    sys.path.insert(0, src)
-    import repro_torch  # noqa: F401  (src's package, before chip_smoke adds ROOT/src)
-    sys.path.insert(1, ROOT)
-    import chip_smoke as cs
-    assert os.path.dirname(cs.decode_attn.__file__).startswith(os.path.abspath(src)), \
-        cs.decode_attn.__file__
+    cs = checkouts.import_chip_smoke(src)
     for name in ("decode_attn", "decode_attn_bf16"):
         cs.build.build([name])
         for line in cs.ptxas_summary(cs.build.build_log.get(name, (0, ""))[1]):
@@ -69,59 +72,16 @@ def emit(mode: str, src: str, path: str) -> None:
     torch.save(res, path)
 
 
-def run_trees(mode: str, trees) -> list:
-    """``emit(mode)`` in a subprocess per (name, checkout), in order."""
-    out_dir = os.path.join(ROOT, ".scratch", "few_query")
-    os.makedirs(out_dir, exist_ok=True)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    outs = []
-    for i, (name, tree) in enumerate(trees):
-        path = os.path.join(out_dir, f"{mode}_{i}.pt")
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--emit", mode,
-                        os.path.join(tree, "src"), path], check=True, env=env)
-        print(f"  {mode}, {name} checkout ({tree}): built and ran in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        outs.append(torch.load(path))
-    return outs
-
-
-def ab(other: str, card: str) -> dict:
-    """flash_decode's times at ``ab_shapes``, other, this, this, other."""
-    import chip_smoke as cs
-    other = os.path.abspath(other)
-    runs = run_trees("times", [("other", other), ("this", ROOT), ("this", ROOT),
-                               ("other", other)])
-    res = {}
-    i = 0
-    for label, case, dtype in ab_shapes(cs):
-        for probs in (False, True):
-            key = f"{label}, {str(dtype)[6:]}, {'with' if probs else 'no'} probs"
-            mine, theirs = [runs[1][i], runs[2][i]], [runs[0][i], runs[3][i]]
-            res[key] = {"this_ms": mine, "other_ms": theirs}
-            cs.log(f"  {key}: this {mine[0]:.4f} / {mine[1]:.4f} ms, other {theirs[0]:.4f} / "
-                   f"{theirs[1]:.4f} ms (this / other of the means "
-                   f"{sum(mine) / sum(theirs):.3f}) [{card}]")
-            i += 1
-    return res
-
-
 def compare(other: str) -> dict:
-    """Both checkouts' outputs at the contiguous cases, case by case."""
-    this, that = run_trees("outputs", [("this", ROOT), ("other", os.path.abspath(other))])
+    """Both checkouts' outputs and probabilities at the contiguous cases."""
     import chip_smoke as cs
     cases = cs.decode_cases()
-    assert len(this) == len(that) == len(cases)
-    differ = [(case[:7], str(dtype)[6:])
-              for (case, dtype), a, b in zip(cases, this, that)
-              if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
     n32 = sum(dt == torch.float32 for _, dt in cases)
-    cs.log(f"  flash_decode at phase 2's {len(cases)} contiguous cases ({n32} f32, "
-           f"{len(cases) - n32} bf16): {len(cases) - len(differ)} bitwise equal to the "
-           f"other checkout's build, outputs and probabilities")
-    if differ:
-        raise AssertionError(f"flash_decode differs from the other checkout's build at {differ}")
-    return {"cases": len(cases), "f32": n32, "bitwise_equal": len(cases)}
+    res = checkouts.bitwise(__file__, "outputs", other,
+                            [(case[:7], str(dtype)[6:]) for case, dtype in cases],
+                            f"flash_decode's outputs and probabilities at phase 2's contiguous "
+                            f"cases ({n32} f32, {len(cases) - n32} bf16)")
+    return {**res, "f32": n32}
 
 
 def main(argv=None) -> int:
@@ -162,7 +122,7 @@ def main(argv=None) -> int:
         bitwise = compare(args.other)
         if args.ab:
             cs.phase("flash_decode's times, the other checkout against this one")
-            times_ab = ab(args.other, card)
+            times_ab = checkouts.ab(__file__, args.other, ab_labels(cs), card)
     cs.log("few-query numbers: " + cs.json.dumps({
         "max_abs_err_f32": err, "one_query": times, "bitwise": bitwise, "ab": times_ab,
         "card": card, "seconds": time.perf_counter() - t0}))

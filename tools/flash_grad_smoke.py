@@ -1,0 +1,129 @@
+"""The flash branch's backward on an NVIDIA GPU, the checks of
+``chip_smoke.py`` that cover it, alone: phase 6's backward cases
+(``chip_smoke.check_flash_bwd``: the kernel forward's log-sum-exp, the
+backward kernel against its plain version, one and 16 queries with grad,
+two runs bitwise), phase 12's autograd guard (``check_grad_guard``), phase
+9's backward times at drrl-paper's two training shapes
+(``time_flash_bwd``) and 17g, drrl-paper's LM step with
+``loss(chunked=True)`` at 2 x 4096 (``check_chunked_training``).
+
+    python3 tools/flash_grad_smoke.py [--other CHECKOUT [--ab]]
+
+``--other`` names a checkout of another commit (a ``git archive`` of it):
+``lowrank_flash``'s grad-free outputs at phase 6's cases (f32 and bf16,
+their seeds) from that checkout's kernels must equal this checkout's
+bitwise. ``--ab`` then times the f32 forward, without its log-sum-exp, at
+phase 9's two drrl-paper shapes (``chip_smoke.time_ms``) in the order
+other, this, this, other, and prints each shape's times. Each checkout's
+kernels are built and run in a subprocess of its own that imports that
+checkout's ``repro_torch`` (``tools/checkouts.py``). Exits non-zero
+without a CUDA device or when a check fails.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import checkouts  # noqa: E402
+
+ROOT = checkouts.ROOT
+
+
+def output_cases(cs) -> list:
+    """(case, dtype, seed): phase 6's flash cases and drrl-paper's two
+    shapes, f32 and bf16."""
+    return [(case, dtype, 100 + i)
+            for i, case in enumerate(cs.FLASH_CASES + [cs.PATH_MASKED, cs.PATH_STATIC])
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def time_shapes(cs) -> list:
+    """(label, case): phase 9's f32 forward shapes."""
+    return [("masked r=64, dv=64", cs.PATH_MASKED), ("static r=32, dv=64", cs.PATH_STATIC)]
+
+
+def emit(mode: str, src: str, path: str) -> None:
+    """Through the lowrank_flash of the ``repro_torch`` under ``src``:
+    'outputs', its outputs at ``output_cases``; 'times', ms per f32 call at
+    ``time_shapes``. Saved to ``path``."""
+    cs = checkouts.import_chip_smoke(src)
+    cs.build.build(["lowrank_flash", "lowrank_flash_bf16"])
+    res = []
+    if mode == "outputs":
+        for case, dtype, seed in output_cases(cs):
+            args, kw = cs.flash_inputs(case, dtype, seed=seed)
+            res.append(cs.lowrank_flash.lowrank_flash(*args, **kw).cpu())
+    else:
+        for _, case in time_shapes(cs):
+            (q, k, v), kw = cs.flash_inputs(case, torch.float32, seed=9)
+            res.append(cs.time_ms(lambda: cs.lowrank_flash.lowrank_flash(q, k, v, **kw), n=15))
+    torch.save(res, path)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", help="a checkout of another commit to hold lowrank_flash's "
+                                    "outputs to, bitwise")
+    ap.add_argument("--ab", action="store_true", help="with --other: time the f32 forward "
+                                                      "on both checkouts, alternating")
+    ap.add_argument("--emit", nargs=3, metavar=("MODE", "SRC", "PATH"), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("flash_grad_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if args.emit:
+        emit(*args.emit)
+        return 0
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = cs.card()
+    cs.log(card)
+    t0 = time.perf_counter()
+    sources = ["lowrank_flash", "lowrank_flash_bf16", "lowrank_flash_bwd"]
+    secs = cs.build.build(sources)
+    for name in sources:
+        cs.log(f"  built {name}.cu in {secs[name]:.1f} s")
+        if name != "lowrank_flash_bf16":
+            for line in cs.ptxas_summary(cs.build.build_log.get(name, (0, ""))[1]):
+                cs.log("  ptxas: " + line)
+    cs.phase("[6] the backward kernel against its plain version")
+    err = cs.check_flash_bwd()
+    cs.check_grad_guard()
+    cs.phase("[9] the backward's times at drrl-paper's training shapes")
+    times = {"masked": cs.time_flash_bwd(cs.PATH_MASKED, "masked r=64, dv=64", card),
+             "static": cs.time_flash_bwd(cs.PATH_STATIC, "static r=32, dv=64", card)}
+    cs.phase("[17g] drrl-paper's LM step with loss(chunked=True)")
+    paper = cs.get_config("drrl-paper")
+    agent = cs.drrl.init_agent(torch.Generator(device=cs.DEV).manual_seed(7), paper.rank,
+                               paper.d_model, device=cs.DEV)
+    chunked = cs.check_chunked_training(paper, agent, card)
+    bitwise = times_ab = None
+    if args.other:
+        cs.phase("[6] lowrank_flash's outputs against the other checkout's build")
+        cases = output_cases(cs)
+        n32 = sum(dt == torch.float32 for _, dt, _ in cases)
+        bitwise = checkouts.bitwise(
+            __file__, "outputs", args.other,
+            [(case, str(dtype)[6:]) for case, dtype, _ in cases],
+            f"lowrank_flash at phase 6's cases ({n32} f32, {len(cases) - n32} bf16; the "
+            f"few-query ones called on lowrank_flash directly, not through the route)")
+        if args.ab:
+            cs.phase("[9] the f32 forward's times, the other checkout against this one")
+            times_ab = checkouts.ab(__file__, args.other,
+                                    [label for label, _ in time_shapes(cs)], card)
+    cs.log("flash-grad numbers: " + cs.json.dumps({
+        "backward_max_err": err, "backward_times": times, "chunked_training": chunked,
+        "bitwise": bitwise, "forward_ab": times_ab, "card": card,
+        "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
