@@ -1155,7 +1155,8 @@ LSE_TOL = 2e-5
 # training shapes, GQA 4 and 7, q_offset > 0 with sq < skv, non-causal, MLA's
 # r = 192 with dv = 128, odd tails (r, dv off a multiple of 4: the plain-load
 # staging), and one and 16 queries (which autograd sends here, not to
-# flash_decode)
+# flash_decode); the last, qwen2-vl-7b's GQA 7 at r = dv = 128, sums dk and dv
+# over 7 x 4096 queries (its plain backward takes some 10 GB)
 BWD_CASES = [
     PATH_MASKED,
     PATH_STATIC,
@@ -1166,6 +1167,7 @@ BWD_CASES = [
     (1, 4, 4, 200, 200, 192, 128, True, 0),
     (1, 3, 1, 77, 77, 20, 12, True, 0),
     (2, 2, 2, 65, 129, 36, 72, True, 64),
+    (1, 28, 4, 4096, 4096, 128, 128, True, 0),
 ]
 BWD_ROUTE_CASES = [(2, 12, 12, 1, 1100, 64, 64, True, 1099),
                    (1, 28, 4, 16, 1100, 128, 128, True, 1084)]
@@ -1472,7 +1474,10 @@ def flash_bwd_bound_ms(case) -> dict:
     cores give as three TF32 products each (split TF32, as the forward's
     kernel): ``bound_ms`` takes those three passes at the TF32 peak, the
     larger of that and the byte time; ``bound_cuda_core_ms`` the same
-    flops on the f32 CUDA cores, which this kernel runs on."""
+    flops on the f32 CUDA cores (the kernel runs on the tensor cores in
+    split TF32; this is the ceiling of a kernel that would not);
+    ``bound_done_ms`` the work the kernel does, 2 (4 r + 3 dv) per visible
+    pair with its dq pass's recompute, as three TF32 passes."""
     b, hq, hkv, sq, skv, r, dv, causal, off = case
     i = np.arange(sq)
     pairs = float(np.minimum(skv, off + i + 1).sum() if causal else sq * skv) * b * hq
@@ -1483,19 +1488,27 @@ def flash_bwd_bound_ms(case) -> dict:
     t_cc = max(t_bytes, 1e3 * flops / F32_FLOPS)
     t_tf32 = 1e3 * 3 * flops / TF32_FLOPS
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
-    return dict(bound_ms=bnd, bound_by=by, bound_cuda_core_ms=t_cc, flops=flops,
-                pairs=pairs)
+    t_done = 1e3 * 3 * 2.0 * pairs * (4 * r + 3 * dv) / TF32_FLOPS
+    return dict(bound_ms=bnd, bound_by=by, bound_cuda_core_ms=t_cc, bound_done_ms=t_done,
+                flops=flops, pairs=pairs)
 
 
 def time_flash_bwd(case, label, card_name) -> dict:
     """The backward kernel at ``case`` (CUDA events, median, L2 flushed),
-    its plain version, and autograd through scaled_dot_product_attention's
-    backward on the same inputs (a yardstick only: the port never calls it),
-    beside the bound."""
+    its three device kernels' times per call (torch.profiler), its plain
+    version, and autograd through scaled_dot_product_attention's backward
+    on the same inputs (a yardstick only: the port never calls it), beside
+    the bound."""
     import torch.nn.functional as F
     (q, k, v, do), kw = bwd_inputs(case, seed=9)
     out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
     ms = time_ms(lambda: lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw), n=15)
+    # "void (anonymous namespace)::lowrank_flash_bwd_dq_kernel<8, 8>(float const*, ...)"
+    # -> "dq_kernel<8, 8>"
+    per_kernel = {re.sub(r".*lowrank_flash_bwd_|\(.*", "", name): us / 1e3 for name, us in
+                  kernel_us(lambda: lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do,
+                                                                    **kw)).items()
+                  if "lowrank_flash_bwd" in name}
     plain_ms = time_ms(lambda: lowrank_flash.lowrank_flash_bwd_plain(q, k, v, out, lse, do,
                                                                     **kw), n=5)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1510,10 +1523,15 @@ def time_flash_bwd(case, label, card_name) -> dict:
     log(f"  lowrank_flash backward {label} (b={b}, hq=hkv={hq}, sq=skv={sq}, causal, f32): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward ({backend}) "
         f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three TF32 "
-        f"passes), {bnd['bound_ms'] / ms:.1%} of it; f32 CUDA-core bound "
-        f"{bnd['bound_cuda_core_ms']:.4f} ms, {bnd['bound_cuda_core_ms'] / ms:.1%} of it "
-        f"[{card_name}]")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_backend=backend, **bnd)
+        f"passes), {bnd['bound_ms'] / ms:.1%} of it; the work it does (dq's recompute "
+        f"included) as three TF32 passes {bnd['bound_done_ms']:.4f} ms, "
+        f"{bnd['bound_done_ms'] / ms:.1%} of it; f32 CUDA-core bound "
+        f"{bnd['bound_cuda_core_ms']:.4f} ms, {bnd['bound_cuda_core_ms'] / ms:.1%} of it; "
+        f"torch.profiler per call: "
+        + ", ".join(f"{name} {t:.4f} ms" for name, t in sorted(per_kernel.items()))
+        + f" [{card_name}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_backend=backend,
+                profiler_ms=per_kernel, **bnd)
 
 
 def profile_forwards(cfg_base, params, card_name) -> None:
@@ -5975,7 +5993,8 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(name, (0, ""))[1]):
             log("  ptxas: " + line)
     for name, opcode, what in (("lowrank_flash_bf16", "HGMMA", "wgmma"),
-                               ("decode_attn_bf16", "HMMA", "mma.sync")):
+                               ("decode_attn_bf16", "HMMA", "mma.sync"),
+                               ("lowrank_flash_bwd", "HMMA", "mma.sync")):
         n = sass_count(name, opcode)
         if n == 0:
             raise AssertionError(f"{name}.cu's SASS holds no {opcode} ({what}) instruction")

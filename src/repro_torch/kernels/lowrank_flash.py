@@ -15,9 +15,9 @@ Two versions of one function live here:
 
 Both can also return each row's log-sum-exp (``return_lse``), from which
 the backward rebuilds P. The backward has two versions too:
-:func:`lowrank_flash_bwd` launches ``csrc/lowrank_flash_bwd.cu`` (f32 only;
-the Pallas kernel has none, the reference differentiates its flash branch
-with plain XLA) and :func:`lowrank_flash_bwd_plain` computes it in plain
+:func:`lowrank_flash_bwd` launches ``csrc/lowrank_flash_bwd.cu`` (split
+TF32 on ``mma.sync``, as the forward; f32 only; the Pallas kernel has none,
+the reference differentiates its flash branch with plain XLA) and :func:`lowrank_flash_bwd_plain` computes it in plain
 PyTorch. :class:`LowrankFlash` is the autograd Function over both passes:
 kernels on CUDA tensors, plain versions on CPU tensors.
 

@@ -284,8 +284,10 @@ def _cuda():
 @pytest.mark.parametrize("case", [(2, 4, 2, 300, 300, 64, 64, True, 0),
                                   (1, 7, 1, 130, 400, 32, 64, True, 270),
                                   (2, 2, 2, 77, 140, 20, 12, False, 0),
-                                  (1, 4, 4, 150, 150, 192, 128, True, 0)],
-                         ids=["gqa2", "gqa7-offset", "odd-noncausal", "mla-192"])
+                                  (1, 4, 4, 150, 150, 192, 128, True, 0),
+                                  (1, 28, 4, 4096, 4096, 128, 128, True, 0)],
+                         ids=["gqa2", "gqa7-offset", "odd-noncausal", "mla-192",
+                              "gqa7-4096-r128"])
 def test_cuda_backward_matches_plain(case):
     """(e) Through ops.flash_attention with grad on the card: one forward
     and one backward launch, gradients within 2e-5 x their largest

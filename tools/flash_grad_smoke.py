@@ -12,12 +12,15 @@ two runs bitwise), phase 12's autograd guard (``check_grad_guard``), phase
 ``--other`` names a checkout of another commit (a ``git archive`` of it):
 ``lowrank_flash``'s grad-free outputs at phase 6's cases (f32 and bf16,
 their seeds) from that checkout's kernels must equal this checkout's
-bitwise. ``--ab`` then times the f32 forward, without its log-sum-exp, at
-phase 9's two drrl-paper shapes (``chip_smoke.time_ms``) in the order
-other, this, this, other, and prints each shape's times. Each checkout's
-kernels are built and run in a subprocess of its own that imports that
-checkout's ``repro_torch`` (``tools/checkouts.py``). Exits non-zero
-without a CUDA device or when a check fails.
+bitwise. ``--ab`` then holds this checkout's backward gradients (dq, dk,
+dv) at phase 9's two drrl-paper shapes to the other checkout's within
+``chip_smoke.BWD_TOL`` times each gradient's largest magnitude (the two
+kernels sum in other orders), and times the f32 forward, without its
+log-sum-exp, and the backward at those shapes (``chip_smoke.time_ms``) in
+the order other, this, this, other, and prints each one's times. Each
+checkout's kernels are built and run in a subprocess of its own that
+imports that checkout's ``repro_torch`` (``tools/checkouts.py``). Exits
+non-zero without a CUDA device or when a check fails.
 """
 from __future__ import annotations
 
@@ -43,34 +46,71 @@ def output_cases(cs) -> list:
 
 
 def time_shapes(cs) -> list:
-    """(label, case): phase 9's f32 forward shapes."""
+    """(label, case): phase 9's f32 shapes."""
     return [("masked r=64, dv=64", cs.PATH_MASKED), ("static r=32, dv=64", cs.PATH_STATIC)]
 
 
+def ab_labels(cs) -> list:
+    """What 'times' measures, in its order: the forward, then the backward,
+    at each of ``time_shapes``."""
+    return [f"{kind} {label}" for kind in ("forward", "backward")
+            for label, _ in time_shapes(cs)]
+
+
+def bwd_call(cs, case):
+    """The backward kernel at ``case`` on phase 9's inputs (seed 9), as a
+    function of no arguments."""
+    lf = cs.lowrank_flash
+    (q, k, v, do), kw = cs.bwd_inputs(case, seed=9)
+    out, lse = lf.lowrank_flash(q, k, v, return_lse=True, **kw)
+    return lambda: lf.lowrank_flash_bwd(q, k, v, out, lse, do, **kw)
+
+
 def emit(mode: str, src: str, path: str) -> None:
-    """Through the lowrank_flash of the ``repro_torch`` under ``src``:
-    'outputs', its outputs at ``output_cases``; 'times', ms per f32 call at
-    ``time_shapes``. Saved to ``path``."""
+    """Through the kernels of the ``repro_torch`` under ``src``: 'outputs',
+    lowrank_flash's outputs at ``output_cases``; 'grads', the backward's
+    (dq, dk, dv) at ``time_shapes``; 'times', ms per f32 call at
+    ``ab_labels``. Saved to ``path``."""
     cs = checkouts.import_chip_smoke(src)
-    cs.build.build(["lowrank_flash", "lowrank_flash_bf16"])
+    cs.build.build(["lowrank_flash", "lowrank_flash_bf16", "lowrank_flash_bwd"])
     res = []
     if mode == "outputs":
         for case, dtype, seed in output_cases(cs):
             args, kw = cs.flash_inputs(case, dtype, seed=seed)
             res.append(cs.lowrank_flash.lowrank_flash(*args, **kw).cpu())
+    elif mode == "grads":
+        for _, case in time_shapes(cs):
+            res.append(tuple(g.cpu() for g in bwd_call(cs, case)()))
     else:
         for _, case in time_shapes(cs):
             (q, k, v), kw = cs.flash_inputs(case, torch.float32, seed=9)
             res.append(cs.time_ms(lambda: cs.lowrank_flash.lowrank_flash(q, k, v, **kw), n=15))
+        for _, case in time_shapes(cs):
+            res.append(cs.time_ms(bwd_call(cs, case), n=15))
     torch.save(res, path)
+
+
+def grads_ab(cs, other: str) -> dict:
+    """This checkout's backward gradients at ``time_shapes`` against the
+    other checkout's, each within BWD_TOL x the other's largest magnitude."""
+    this, that = checkouts.run_trees(__file__, "grads", [("this", ROOT), ("other", other)])
+    res = {}
+    for (label, _), mine, theirs in zip(time_shapes(cs), this, that):
+        res[label] = cs.grads_close(mine, theirs, f"{label}, this checkout against the other's")
+        cs.log(f"  backward {label}: max|this-other| {res[label]['max_abs_err']:.3g} "
+               f"({res[label]['max_scaled_err']:.3g} of the largest |grad|; tol "
+               f"{cs.BWD_TOL:g})")
+    return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", help="a checkout of another commit to hold lowrank_flash's "
                                     "outputs to, bitwise")
-    ap.add_argument("--ab", action="store_true", help="with --other: time the f32 forward "
-                                                      "on both checkouts, alternating")
+    ap.add_argument("--ab", action="store_true", help="with --other: hold the backward's "
+                                                      "gradients to the other checkout's and "
+                                                      "time the f32 forward and backward on "
+                                                      "both, alternating")
     ap.add_argument("--emit", nargs=3, metavar=("MODE", "SRC", "PATH"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -104,7 +144,7 @@ def main(argv=None) -> int:
     agent = cs.drrl.init_agent(torch.Generator(device=cs.DEV).manual_seed(7), paper.rank,
                                paper.d_model, device=cs.DEV)
     chunked = cs.check_chunked_training(paper, agent, card)
-    bitwise = times_ab = None
+    bitwise = times_ab = grads = None
     if args.other:
         cs.phase("[6] lowrank_flash's outputs against the other checkout's build")
         cases = output_cases(cs)
@@ -115,12 +155,14 @@ def main(argv=None) -> int:
             f"lowrank_flash at phase 6's cases ({n32} f32, {len(cases) - n32} bf16; the "
             f"few-query ones called on lowrank_flash directly, not through the route)")
         if args.ab:
-            cs.phase("[9] the f32 forward's times, the other checkout against this one")
-            times_ab = checkouts.ab(__file__, args.other,
-                                    [label for label, _ in time_shapes(cs)], card)
+            cs.phase("[6] the backward's gradients against the other checkout's build")
+            grads = grads_ab(cs, os.path.abspath(args.other))
+            cs.phase("[9] the f32 forward's and backward's times, the other checkout "
+                     "against this one")
+            times_ab = checkouts.ab(__file__, args.other, ab_labels(cs), card)
     cs.log("flash-grad numbers: " + cs.json.dumps({
         "backward_max_err": err, "backward_times": times, "chunked_training": chunked,
-        "bitwise": bitwise, "forward_ab": times_ab, "card": card,
+        "bitwise": bitwise, "backward_against_other": grads, "ab": times_ab, "card": card,
         "seconds": time.perf_counter() - t0}))
     return 0
 
