@@ -7,8 +7,8 @@ distribution layer on one NVIDIA GPU and check them.
 Phases (one line each, plus detail lines):
   1. card and build: the card's name and power limit (nvidia-smi), then
      the CUDA sources built from src/repro_torch/kernels/csrc (flash_decode,
-     lowrank_flash for f32 and for bf16, lowrank_flash's f32 backward), one
-     nvcc per source, started together;
+     lowrank_flash for f32 and for bf16, lowrank_flash's backward for f32
+     and for bf16), one nvcc per source, started together;
   2. the flash-decode kernel against its plain PyTorch version on the card,
      f32 (2e-5, and the exact zero pattern of the probabilities) and bf16
      (two bf16 steps of each output element): the CPU tests' shapes, cases
@@ -50,7 +50,14 @@ Phases (one line each, plus detail lines):
      dv = 128, odd tails, and 1 and 16 queries with grad through
      ``ops.flash_attention`` (one lowrank_flash and one lowrank_flash_bwd
      launch, no flash_decode); the forward's out bitwise the same with and
-     without its log-sum-exp, and two backward runs bitwise equal;
+     without its log-sum-exp, and two backward runs bitwise equal; then the
+     bf16 backward kernel against its plain version on the same bf16
+     inputs (2e-5 of each gradient's largest magnitude + two bf16 steps of
+     each element, the tolerance tests/test_torch_flash_bf16_grad.py
+     fixes): the same kinds of cases, r and dv odd, and qwen2.5-14b's
+     2 x 40 / 8 x 4096 at r = dv = 128; the bf16 forward's log-sum-exp
+     against the plain one, its out bitwise with and without it, and two
+     backward runs bitwise equal at every case;
   7. the full-width cache-free forward ``forward_dense(chunked=True)`` at
      2 x 4096 tokens, adaptive/masked with fidelity and fixed/static:
      kernel launches (12 per attention call site), logits and ranks against
@@ -66,7 +73,10 @@ Phases (one line each, plus detail lines):
      backward kernel at both shapes (CUDA events, L2 flushed) beside its
      plain version, autograd through ``scaled_dot_product_attention``'s
      backward (a yardstick the port never calls) and its bound (f32 CUDA
-     cores; three TF32 passes beside it);
+     cores; three TF32 passes beside it); the bf16 backward at qwen2.5-14b's
+     training shapes ('off' r = dv = 128, static r = 32) and qwen2-vl-7b's
+     (28 / 4 heads, r = dv = 128) beside its bound on the bf16 tensor cores
+     and the flops it issues, its plain version and SDPA's bf16 backward;
  10. the full-width forward in drrl-paper's own rank mode 'drrl' (masked,
      with fidelity) at 2 x 4096 tokens, the agent from ``init_agent`` on a
      seeded generator: 24 lowrank_flash launches, logits, ranks, the
@@ -226,7 +236,14 @@ Phases (one line each, plus detail lines):
      dense + 1 MoE layer + MTP: forward_deepseek(chunked=True) over 2 x 4096
      in adaptive/masked (3 lowrank_flash launches at r = 192) against the
      plain path, then 16 decode_step_deepseek steps; (g) the reduced qwen,
-     granite and DeepSeek-V3 on the card with the kernels against the CPU.
+     granite and DeepSeek-V3 on the card with the kernels against the CPU;
+     (h) qwen2.5-14b's LM step in bf16, full width cut to 2 layers (20b's
+     weights), ``make_train_step`` with ``loss(chunked=True)`` at 2 x 4096:
+     3 steps in 'off' and one in fixed/static at r = 32, 2 lowrank_flash
+     and 2 lowrank_flash_bwd launches each, step 1's loss and grad norm
+     against an f32 reference on the same weights no farther than twice the
+     unchunked bf16 step's, s/step and peak memory beside the unchunked
+     step's, one step profiled (the bf16 backward's device share).
  21. the remaining families at full width, bf16, seeded weights drawn on
      the card (``tools/recurrent_families_smoke.py`` runs it alone): (a)
      lowrank_flash against its plain version, f32 and bf16, at zamba2's
@@ -238,11 +255,12 @@ Phases (one line each, plus detail lines):
      views of the cache (flash_decode, one launch each) against
      lowrank_flash_plain, f32 and bf16, timed beside lowrank_flash on the
      copies the call site made before, SDPA and the bound; (b) zamba2-7b
-     at full depth (54 Mamba2 blocks + 27 shared-attention invocations):
-     forward_zamba(chunked=True) over 2 x 4096 in 'off' (27 lowrank_flash
-     launches) and 'adaptive'/masked with fidelity (54) against the plain
-     path, then 4064 tokens prefilled into init_cache_zamba (27
-     lowrank_flash launches) and 32 single-token decode steps (27
+     at full width cut from 81 to ZAMBA_LAYERS = 27 layers (18 Mamba2
+     blocks + 9 shared-attention invocations):
+     forward_zamba(chunked=True) over 2 x 4096 in 'off' (9 lowrank_flash
+     launches) and 'adaptive'/masked with fidelity (18) against the plain
+     path, then 4064 tokens prefilled into init_cache_zamba (9
+     lowrank_flash launches) and 32 single-token decode steps (9
      flash_decode launches each) against the 'off' forward's logits; (c) rwkv6-1.6b at
      full depth: forward_rwkv over 1 x 4096 (no kernel), 4032 tokens as one
      decode step and 64 single-token steps against it (tokens/s), and layer
@@ -358,6 +376,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM dense TF32 on the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
+# mma.sync m16n8k16 bf16 with f32 accumulators, measured on an NVIDIA H100 80GB
+# HBM3 at 700 W by tools/lowrank_flash_profile.py (tools/mma_tf32_peak.cu; PERF.md)
+MMA_SYNC_BF16_FLOPS = 638.6e12
 TOL = 2e-5                     # f32 kernel vs plain version
 # each kernel and its plain version both stay in f32 up to the one rounding
 # of the output, so in bf16 they may differ by one bf16 step (at most 2^-7 of
@@ -1173,11 +1194,11 @@ BWD_ROUTE_CASES = [(2, 12, 12, 1, 1100, 64, 64, True, 1099),
                    (1, 28, 4, 16, 1100, 128, 128, True, 1084)]
 
 
-def bwd_inputs(case, seed):
-    """flash_inputs in f32 and an output gradient from the same seed."""
-    (q, k, v), kw = flash_inputs(case, torch.float32, seed)
+def bwd_inputs(case, seed, dtype=torch.float32):
+    """flash_inputs in ``dtype`` and an output gradient from the same seed."""
+    (q, k, v), kw = flash_inputs(case, dtype, seed)
     g = torch.Generator(device=DEV).manual_seed(seed + 1000)
-    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=g, device=DEV)
+    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=g, device=DEV).to(dtype)
     return (q, k, v, do), kw
 
 
@@ -1266,6 +1287,134 @@ def check_flash_bwd() -> dict:
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("two backward runs at PATH_MASKED differ")
     log(f"  two backward runs at {PATH_MASKED}: dq, dk, dv bitwise equal (no atomics)")
+    return worst
+
+
+# -- phase 6: the bf16 backward -----------------------------------------------
+
+# lowrank_flash_bwd on bf16 inputs against lowrank_flash_bwd_plain on the same
+# (q, k, v, out, lse, dout), both rounding their f32 gradients to bf16 once:
+# each gradient elementwise within BWD_BF16_ATOL of its largest magnitude
+# (f32 sums in another order) + BWD_BF16_RTOL of the element (two bf16 steps:
+# the one rounding on each side). tests/test_torch_flash_bf16_grad.py fixes it
+# on the CPU: the kernel's arithmetic, emulated, meets it against a float64
+# backward at every case, and P and dS kept as one bf16 term miss it there
+BWD_BF16_ATOL, BWD_BF16_RTOL = 2e-5, 2 ** -6
+# the bf16 training shapes: qwen2.5-14b's 2 x 4096 (40 / 8 heads, dv 128; rank
+# mode 'off' at r = 128, fixed/static at r = 32) and qwen2-vl-7b's (28 / 4)
+QWEN_TRAIN = (2, 40, 8, 4096, 4096, 128, 128, True, 0)
+QWEN_TRAIN_STATIC = (2, 40, 8, 4096, 4096, 32, 128, True, 0)
+VL_TRAIN = (2, 28, 4, 4096, 4096, 128, 128, True, 0)
+# b, hq, hkv, sq, skv, r, dv, causal, q_offset: BWD_CASES' drrl-paper
+# training shapes, GQA 4 and 7, q_offset > 0 with sq < skv, non-causal, MLA's
+# r = 192 with dv = 128, r and dv off a multiple of 8 (the plain-load
+# staging; the last pair odd), and qwen2.5-14b's 2 x 40 / 8 x 4096 at
+# r = dv = 128 (its plain backward takes some 25 GB)
+BWD_BF16_CASES = [
+    PATH_MASKED,
+    PATH_STATIC,
+    (1, 8, 2, 300, 300, 64, 64, True, 0),
+    (2, 14, 2, 200, 200, 64, 64, True, 0),
+    (1, 4, 2, 100, 357, 48, 40, True, 257),
+    (2, 4, 4, 130, 250, 64, 64, False, 0),
+    (1, 4, 4, 200, 200, 192, 128, True, 0),
+    (1, 3, 1, 77, 77, 20, 12, True, 0),
+    (1, 2, 1, 50, 90, 21, 13, True, 40),
+    QWEN_TRAIN,
+]
+
+
+def grads_close_bf16(got, want, label) -> dict:
+    """Each of (dq, dk, dv) within BWD_BF16_ATOL x its largest |plain|
+    element + BWD_BF16_RTOL |plain| elementwise; returns the largest
+    absolute error and the largest error over its limit."""
+    worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == torch.bfloat16, (name, g.dtype, w.dtype)
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        top = w.abs().max().item()
+        over = (d / (BWD_BF16_ATOL * top + BWD_BF16_RTOL * w.abs())).max().item()
+        if not torch.isfinite(g).all().item() or over > 1.0:
+            raise AssertionError(f"bf16 lowrank_flash_bwd disagrees with its plain version at "
+                                 f"{label}: {name} max|kernel-plain| {d.max().item():.3g}, "
+                                 f"{over:.3g} x the tolerance {BWD_BF16_ATOL:g} x {top:.3g} + "
+                                 f"{BWD_BF16_RTOL:g} |plain|")
+        worst["max_abs_err"] = max(worst["max_abs_err"], d.max().item())
+        worst["max_err_over_tol"] = max(worst["max_err_over_tol"], over)
+    return worst
+
+
+def check_flash_bwd_bf16_case(case, seed) -> dict:
+    """The bf16 kernel forward with its log-sum-exp (out bitwise the forward
+    without it and within the forward's tolerance of the plain one; lse
+    within LSE_TOL of the plain one), then the bf16 backward kernel, twice
+    (bitwise equal), against lowrank_flash_bwd_plain on the same inputs."""
+    (q, k, v, do), kw = bwd_inputs(case, seed, torch.bfloat16)
+    out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
+    out_only = lowrank_flash.lowrank_flash(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_only):
+        raise AssertionError(f"bf16 lowrank_flash's out differs with and without lse at {case}")
+    ro, rlse = lowrank_flash.lowrank_flash_plain(q, k, v, return_lse=True, **kw)
+    lse_err = (lse - rlse).abs().max().item()
+    if ((lse - rlse).abs() > LSE_TOL + LSE_TOL * rlse.abs()).any().item():
+        raise AssertionError(f"bf16 lowrank_flash's lse disagrees with the plain one at {case}: "
+                             f"{lse_err:.3g} (tol {LSE_TOL:g} + {LSE_TOL:g}*|plain|)")
+    if ((out.float() - ro.float()).abs() > TOL + BF16_REL * ro.float().abs()).any().item():
+        raise AssertionError(f"bf16 lowrank_flash disagrees with its plain version at {case}")
+    del ro, rlse
+    got = lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw)
+    again = lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"two bf16 backward runs at {case} differ")
+    del again
+    want = lowrank_flash.lowrank_flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    res = grads_close_bf16(got, want, case)
+    log(f"  bf16 backward b,hq,hkv,sq,skv,r,dv,causal,q_offset={case}: max|grad-plain| "
+        f"{res['max_abs_err']:.3g} ({res['max_err_over_tol']:.3g} of the tolerance); lse "
+        f"{lse_err:.3g}; out bitwise with and without lse; two runs bitwise")
+    return res
+
+
+def check_flash_grad_route_bf16(case, seed) -> dict:
+    """check_flash_grad_route in bf16: one lowrank_flash and one
+    lowrank_flash_bwd launch, no flash_decode; the gradients against the
+    plain backward at the kernel forward's out."""
+    (q, k, v, do), kw = bwd_inputs(case, seed, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
+    if counts != {"flash_decode": 0, "lowrank_flash": 1, "lowrank_flash_bwd": 1}:
+        raise AssertionError(f"a bf16 {case[3]}-query call with grad launched {counts}")
+    ro, rlse = lowrank_flash.lowrank_flash_plain(q, k, v, return_lse=True, **kw)
+    if ((out.detach().float() - ro.float()).abs()
+            > TOL + BF16_REL * ro.float().abs()).any().item():
+        raise AssertionError(f"bf16 ops.flash_attention with grad disagrees at {case}")
+    res = grads_close_bf16(got, lowrank_flash.lowrank_flash_bwd_plain(
+        q, k, v, out.detach(), rlse, do, **kw), case)
+    log(f"  bf16 ops.flash_attention with grad, {case[3]} queries, {case}: launches {counts}; "
+        f"max|grad-plain| {res['max_abs_err']:.3g} ({res['max_err_over_tol']:.3g} of the "
+        f"tolerance)")
+    return res
+
+
+def check_flash_bwd_bf16() -> dict:
+    """Phase 6's bf16 backward checks: every BWD_BF16_CASES case and
+    BWD_ROUTE_CASES' one and 16 queries in bf16. Returns the largest
+    errors."""
+    worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    for i, case in enumerate(BWD_BF16_CASES):
+        res = check_flash_bwd_bf16_case(case, seed=340 + i)
+        worst = {key: max(worst[key], res[key]) for key in worst}
+        free_memory()
+    for i, case in enumerate(BWD_ROUTE_CASES):
+        res = check_flash_grad_route_bf16(case, seed=360 + i)
+        worst = {key: max(worst[key], res[key]) for key in worst}
     return worst
 
 
@@ -1465,7 +1614,7 @@ def time_flash(case, label, card_name, dtype=torch.float32, per_call=True) -> di
                 library_profiler_ms=lib_prof_ms, sdpa_backend=backend)
 
 
-def flash_bwd_bound_ms(case) -> dict:
+def flash_bwd_bound_ms(case, dtype=torch.float32) -> dict:
     """Least time for the backward's work: q, k, v, out, dout and lse read
     once and dq, dk, dv written once over HBM bandwidth, and the operations
     the function needs, S, dP, dv, dk and dq once each, 2 (3 r + 2 dv) per
@@ -1477,14 +1626,27 @@ def flash_bwd_bound_ms(case) -> dict:
     flops on the f32 CUDA cores (the kernel runs on the tensor cores in
     split TF32; this is the ceiling of a kernel that would not);
     ``bound_done_ms`` the work the kernel does, 2 (4 r + 3 dv) per visible
-    pair with its dq pass's recompute, as three TF32 passes."""
+    pair with its dq pass's recompute, as three TF32 passes. bf16 inputs:
+    ``bound_ms`` the needed flops at the bf16 peak (or the byte time);
+    ``bound_issued_ms`` the flops the kernel issues, 12 r + 8 dv per pair
+    (S and dP twice, P and dS as two bf16 terms in dv, dk and dq), at that
+    peak, and ``bound_issued_mma_sync_ms`` at mma.sync bf16's measured
+    rate (MMA_SYNC_BF16_FLOPS)."""
     b, hq, hkv, sq, skv, r, dv, causal, off = case
     i = np.arange(sq)
     pairs = float(np.minimum(skv, off + i + 1).sum() if causal else sq * skv) * b * hq
     flops = 2.0 * pairs * (3 * r + 2 * dv)
-    n_bytes = 4 * (2 * b * hq * sq * r + 2 * b * hkv * skv * (r + dv) + 2 * b * hq * sq * dv
-                   + b * hq * sq)
+    elem = torch.finfo(dtype).bits // 8
+    n_bytes = (elem * (2 * b * hq * sq * r + 2 * b * hkv * skv * (r + dv) + 2 * b * hq * sq * dv)
+               + 4 * b * hq * sq)
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    if dtype == torch.bfloat16:
+        t_ops = 1e3 * flops / BF16_FLOPS
+        bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        issued = pairs * (12 * r + 8 * dv)
+        return dict(bound_ms=bnd, bound_by=by, bound_issued_ms=1e3 * issued / BF16_FLOPS,
+                    bound_issued_mma_sync_ms=1e3 * issued / MMA_SYNC_BF16_FLOPS,
+                    flops=flops, pairs=pairs)
     t_cc = max(t_bytes, 1e3 * flops / F32_FLOPS)
     t_tf32 = 1e3 * 3 * flops / TF32_FLOPS
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
@@ -1493,14 +1655,14 @@ def flash_bwd_bound_ms(case) -> dict:
                 flops=flops, pairs=pairs)
 
 
-def time_flash_bwd(case, label, card_name) -> dict:
+def time_flash_bwd(case, label, card_name, dtype=torch.float32) -> dict:
     """The backward kernel at ``case`` (CUDA events, median, L2 flushed),
     its three device kernels' times per call (torch.profiler), its plain
     version, and autograd through scaled_dot_product_attention's backward
     on the same inputs (a yardstick only: the port never calls it), beside
     the bound."""
     import torch.nn.functional as F
-    (q, k, v, do), kw = bwd_inputs(case, seed=9)
+    (q, k, v, do), kw = bwd_inputs(case, seed=9, dtype=dtype)
     out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
     ms = time_ms(lambda: lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw), n=15)
     # "void (anonymous namespace)::lowrank_flash_bwd_dq_kernel<8, 8>(float const*, ...)"
@@ -1518,16 +1680,26 @@ def time_flash_bwd(case, label, card_name) -> dict:
     backend = sdpa_backend(q, k, v, kw["scale"])
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), n=15)
     del lib_out, leaves
-    bnd = flash_bwd_bound_ms(case)
+    bnd = flash_bwd_bound_ms(case, dtype)
     b, hq, hkv, sq = case[:4]
-    log(f"  lowrank_flash backward {label} (b={b}, hq=hkv={hq}, sq=skv={sq}, causal, f32): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward ({backend}) "
-        f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three TF32 "
-        f"passes), {bnd['bound_ms'] / ms:.1%} of it; the work it does (dq's recompute "
-        f"included) as three TF32 passes {bnd['bound_done_ms']:.4f} ms, "
-        f"{bnd['bound_done_ms'] / ms:.1%} of it; f32 CUDA-core bound "
-        f"{bnd['bound_cuda_core_ms']:.4f} ms, {bnd['bound_cuda_core_ms'] / ms:.1%} of it; "
-        f"torch.profiler per call: "
+    heads = f"hq=hkv={hq}" if hq == hkv else f"hq={hq}, hkv={hkv}"
+    if dtype == torch.bfloat16:
+        bounds = (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, bf16 tensor cores), "
+                  f"{bnd['bound_ms'] / ms:.1%} of it; the flops it issues (12 r + 8 dv per "
+                  f"pair) {bnd['bound_issued_ms']:.4f} ms at 989 TFLOP/s, "
+                  f"{bnd['bound_issued_ms'] / ms:.1%} of it, "
+                  f"{bnd['bound_issued_mma_sync_ms']:.4f} ms at mma.sync's measured "
+                  f"{MMA_SYNC_BF16_FLOPS / 1e12:.1f}, {bnd['bound_issued_mma_sync_ms'] / ms:.1%}")
+    else:
+        bounds = (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three TF32 passes), "
+                  f"{bnd['bound_ms'] / ms:.1%} of it; the work it does (dq's recompute "
+                  f"included) as three TF32 passes {bnd['bound_done_ms']:.4f} ms, "
+                  f"{bnd['bound_done_ms'] / ms:.1%} of it; f32 CUDA-core bound "
+                  f"{bnd['bound_cuda_core_ms']:.4f} ms, {bnd['bound_cuda_core_ms'] / ms:.1%} "
+                  f"of it")
+    log(f"  lowrank_flash backward {label} (b={b}, {heads}, sq=skv={sq}, causal, "
+        f"{str(dtype)[6:]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+        f"({backend}) {lib_ms:.4f} ms; {bounds}; torch.profiler per call: "
         + ", ".join(f"{name} {t:.4f} ms" for name, t in sorted(per_kernel.items()))
         + f" [{card_name}]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_backend=backend,
@@ -1803,39 +1975,37 @@ def _forbidden(ys, mask):
 
 
 def check_grad_guard():
-    """Where autograd records a call: ops.flash_attention on f32 CUDA
-    inputs runs lowrank_flash forward and, under torch.autograd.grad, its
-    backward kernel (one launch each); on bf16 inputs it raises (the bf16
-    kernel has no backward); ops.decode_attention raises (flash_decode has
-    none). Both launch under no_grad."""
+    """Where autograd records a call: ops.flash_attention on f32 and on bf16
+    CUDA inputs runs lowrank_flash forward and, under torch.autograd.grad,
+    its backward kernel for that type (one launch each);
+    ops.decode_attention raises (flash_decode has no backward) and launches
+    under no_grad."""
     g = torch.Generator(device=DEV).manual_seed(4)
     q, k, v = (torch.randn((1, 2, 20, 16), generator=g, device=DEV) for _ in range(3))
     kv_len = torch.tensor([12], dtype=torch.int32, device=DEV)
-    leaf = q.clone().requires_grad_(True)
-    reset_launches()
-    (dq,) = torch.autograd.grad(ops.flash_attention(leaf, k, v, scale=0.25).sum(), (leaf,))
-    torch.cuda.synchronize()
-    counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
-    assert counts == {"flash_decode": 0, "lowrank_flash": 1, "lowrank_flash_bwd": 1}, counts
-    assert torch.isfinite(dq).all()
-    kb, vb = k.bfloat16(), v.bfloat16()
-    calls = {"flash_attention (bf16)": (lambda x: ops.flash_attention(x, kb, vb, scale=0.25),
-                                        q.bfloat16()),
-             "decode_attention": (lambda x: ops.decode_attention(
-                 x[:, :, 0].contiguous(), k, v, kv_len, scale=0.25), q)}
-    for name, (call, x) in calls.items():
-        try:
-            call(x.clone().requires_grad_(True))
-        except RuntimeError as e:
-            assert "backward" in str(e), e
-        else:
-            raise AssertionError(f"{name} took an input that requires grad")
-        with torch.no_grad():
-            assert torch.isfinite(call(x.clone().requires_grad_(True)).float()).all()
-    log("  ops.flash_attention with grad on f32 CUDA inputs: one lowrank_flash and one "
-        "lowrank_flash_bwd launch; on bf16 ones it raises (no bf16 backward), as "
-        "ops.decode_attention does (flash_decode has none); both launch under "
-        "torch.no_grad()")
+    for dtype in (torch.float32, torch.bfloat16):
+        leaf = q.to(dtype).requires_grad_(True)
+        reset_launches()
+        (dq,) = torch.autograd.grad(ops.flash_attention(leaf, k.to(dtype), v.to(dtype),
+                                                        scale=0.25).float().sum(), (leaf,))
+        torch.cuda.synchronize()
+        counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
+        assert counts == {"flash_decode": 0, "lowrank_flash": 1, "lowrank_flash_bwd": 1}, counts
+        assert dq.dtype == dtype and torch.isfinite(dq.float()).all()
+
+    def call(x):
+        return ops.decode_attention(x[:, :, 0].contiguous(), k, v, kv_len, scale=0.25)
+    try:
+        call(q.clone().requires_grad_(True))
+    except RuntimeError as e:
+        assert "backward" in str(e), e
+    else:
+        raise AssertionError("decode_attention took an input that requires grad")
+    with torch.no_grad():
+        assert torch.isfinite(call(q.clone().requires_grad_(True))).all()
+    log("  ops.flash_attention with grad on f32 and on bf16 CUDA inputs: one lowrank_flash "
+        "and one lowrank_flash_bwd launch each; ops.decode_attention raises (flash_decode "
+        "has no backward) and launches under torch.no_grad()")
 
 
 def check_training(cfg, params, agent, card_name) -> int:
@@ -4747,6 +4917,162 @@ def check_qwen_forward(params, card_name) -> dict:
     return out
 
 
+# 20h: qwen2.5-14b's LM step in bf16 with loss(chunked=True) at 2 x 4096,
+# full width, cut to 2 layers (phase 23b's cut; its first 2 layers of 20b's
+# weights), 3 steps in rank mode 'off' (r = dv = 128) and one in
+# fixed/static at r = 32
+QWEN_TRAIN_LAYERS = 2
+QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ, QWEN_TRAIN_STEPS = 2, 4096, 3
+QWEN_TRAIN_MODES = {"off": 3, "fixed/static r=32": 1}     # mode -> chunked steps
+# step 1's loss and grad norm, each bf16 step's relative distance to the f32
+# reference on the same weights and batch: the chunked step's at most
+# BF16_DRIFT_RATIO times the unchunked step's, or this floor if that is
+# smaller. Both steps round every activation to bf16, so their distances are
+# samples of the same rounding noise, and one can lie near zero by chance:
+# below a quarter of one bf16 rounding of a single value (2^-9 / 4) neither
+# says which run is closer
+BF16_DISTANCE_FLOOR = 2 ** -11
+
+
+def qwen_train_cfg(mode):
+    cfg = get_config("qwen2.5-14b").with_(num_layers=QWEN_TRAIN_LAYERS)
+    return cfg if mode == "off" else forward_cfg(cfg, "fixed", "static")
+
+
+def f32_reference(cfg, params, batch) -> dict:
+    """The loss and the global grad norm of ``loss(chunked=False)`` on the
+    same weights in f32 (cfg computing in f32), no optimizer: the batch in
+    two halves of one sequence each (half the activations' memory), their
+    mean loss and their gradients' mean, summed in f32."""
+    cfg32, p32 = upcast(cfg, params)
+    fns = get_model(cfg32)
+    total, grads = 0.0, None
+    for i in range(QWEN_TRAIN_BATCH):
+        half = {name: x[i:i + 1] for name, x in batch.items()}
+        loss, g = rl.value_and_grad(lambda p, b: fns.loss(p, b, chunked=False)[0], p32, half)
+        total += float(loss) / QWEN_TRAIN_BATCH
+        g = [x / QWEN_TRAIN_BATCH for x in tu.leaves(g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        del g
+    norm = float(torch.sqrt(sum(x.square().sum() for x in grads)))
+    del p32, grads
+    free_memory()
+    return {"loss": total, "grad_norm": norm}
+
+
+def check_qwen_bf16_training(params, card_name) -> dict:
+    """20h: ``make_train_step`` with ``loss(chunked=True)`` on qwen2.5-14b in
+    bf16, full width, QWEN_TRAIN_LAYERS layers, at QWEN_TRAIN_BATCH x
+    QWEN_TRAIN_SEQ tokens, in each of QWEN_TRAIN_MODES: per step one bf16
+    lowrank_flash and one lowrank_flash_bwd launch per layer, no
+    flash_decode, finite metrics; step 1's loss and grad norm against the
+    f32 reference, no farther than BF16_DRIFT_RATIO x the unchunked bf16
+    step's distance (or BF16_DISTANCE_FLOOR); s/step and peak memory of
+    both steps; in 'off', one chunked step profiled (device busy and idle,
+    the bf16 backward kernel's share)."""
+    from torch.profiler import ProfilerActivity, profile
+    data = SyntheticLM(get_config("qwen2.5-14b").vocab_size, QWEN_TRAIN_SEQ, QWEN_TRAIN_BATCH,
+                       seed=0)
+    batch = data.batch_at(0, device=DEV)
+    n = sum(t.numel() for t in tu.leaves(params))
+    log(f"  qwen2.5-14b cut to {QWEN_TRAIN_LAYERS} layers for training, width unchanged: "
+        f"{n / 1e9:.3f} B bf16 parameters")
+    out = {}
+    for mode, n_steps in QWEN_TRAIN_MODES.items():
+        cfg = qwen_train_cfg(mode)
+        L = cfg.num_layers
+        tc = TrainConfig(global_batch=QWEN_TRAIN_BATCH, seq_len=QWEN_TRAIN_SEQ, lr=3e-4,
+                         warmup_steps=1, total_steps=n_steps)
+        fns = get_model(cfg)
+        steps = {c: train_loop.make_train_step(
+            cfg, tc, lambda p, b, rng, c=c: fns.loss(p, b, chunked=c)) for c in (True, False)}
+
+        def run(chunked, p, opt, i):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            p, opt, m = steps[chunked](p, opt, data.batch_at(i, device=DEV),
+                                       prng.fold_in(prng.key(0), i))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {**decode_attn.LAUNCHES, **lowrank_flash.LAUNCHES}
+            return p, opt, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                            "wall_s": wall, "launches": counts,
+                            "peak_above_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+        free_memory()
+        ref = f32_reference(cfg, params, batch)
+        plain = run(False, params, adamw.init(params), 0)[2]     # its params and state go
+        free_memory()
+        assert plain["launches"] == {"flash_decode": 0, "lowrank_flash": 0,
+                                     "lowrank_flash_bwd": 0}, plain["launches"]
+        p, opt, hist = params, adamw.init(params), []
+        for i in range(n_steps):
+            p, opt, m = run(True, p, opt, i)
+            want = {"flash_decode": 0, "lowrank_flash": L, "lowrank_flash_bwd": L}
+            if m["launches"] != want:
+                raise AssertionError(f"qwen bf16 chunked step {i + 1} ({mode}) launched "
+                                     f"{m['launches']}, not {want}")
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                raise AssertionError(f"qwen bf16 chunked step {i + 1} ({mode}): {m}")
+            hist.append(m)
+        dist = {}
+        for key in ("loss", "grad_norm"):
+            d_k = abs(hist[0][key] - ref[key]) / abs(ref[key])
+            d_p = abs(plain[key] - ref[key]) / abs(ref[key])
+            dist[key] = {"chunked": d_k, "unchunked": d_p,
+                         "limit": BF16_DRIFT_RATIO * max(d_p, BF16_DISTANCE_FLOOR)}
+        res = {"steps": hist, "unchunked": plain, "f32": ref, "distance": dist,
+               "launches_per_step": hist[0]["launches"],
+               "s_per_step": statistics.mean(h["wall_s"] for h in hist[1:]) if n_steps > 1
+               else hist[0]["wall_s"]}
+        log(f"  {mode}: {n_steps} step(s) of make_train_step with loss(chunked=True), bf16, "
+            f"{QWEN_TRAIN_BATCH} x {QWEN_TRAIN_SEQ} tokens: losses "
+            f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+            f"{[round(h['grad_norm'], 5) for h in hist]}, s/step "
+            f"{[round(h['wall_s'], 3) for h in hist]}; {L} lowrank_flash and {L} "
+            f"lowrank_flash_bwd launches per step, no flash_decode; peak "
+            f"{max(h['peak_above_gib'] for h in hist):.2f} GiB above the start; unchunked "
+            f"step {plain['wall_s']:.3f} s, peak {plain['peak_above_gib']:.2f} GiB [{card_name}]")
+        log(f"  {mode}: step 1 against the f32 reference (loss {ref['loss']:.7f}, grad norm "
+            f"{ref['grad_norm']:.7f}): chunked loss {hist[0]['loss']:.7f} (distance "
+            f"{dist['loss']['chunked']:.3g}), unchunked {plain['loss']:.7f} "
+            f"({dist['loss']['unchunked']:.3g}); chunked grad norm {hist[0]['grad_norm']:.7f} "
+            f"({dist['grad_norm']['chunked']:.3g}), unchunked {plain['grad_norm']:.7f} "
+            f"({dist['grad_norm']['unchunked']:.3g}); limit {BF16_DRIFT_RATIO} x max(unchunked, "
+            f"{BF16_DISTANCE_FLOOR:.3g})")
+        for key, d in dist.items():
+            if d["chunked"] > d["limit"]:
+                raise AssertionError(f"qwen bf16 chunked step ({mode}): its {key} strays "
+                                     f"{d['chunked']:.3g} from f32, the unchunked step's "
+                                     f"{d['unchunked']:.3g} (limit {d['limit']:.3g})")
+        if mode == "off":
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                steps[True](p, opt, batch, prng.fold_in(prng.key(0), 0))
+                torch.cuda.synchronize()
+            kern = raw_device_kernels(prof)
+            busy = sum(dev_us(e) for e in kern)
+            layers = by_layer(kern)
+            bwd_ms = layers["lowrank_flash backward kernel"] / 1e3
+            fwd_ms = layers["lowrank_flash kernel"] / 1e3
+            step_s = res["s_per_step"]
+            log(f"  {mode}: one chunked step profiled: device busy {busy / 1e3:.2f} ms of "
+                f"{step_s * 1e3:.1f} ms (steps 2-{n_steps}' mean wall; idle "
+                f"{1 - busy / (step_s * 1e6):.1%}); lowrank_flash_bwd (bf16) {bwd_ms:.2f} ms "
+                f"({bwd_ms * 1e3 / busy:.1%} of busy), lowrank_flash {fwd_ms:.2f} ms "
+                f"({fwd_ms * 1e3 / busy:.1%}) [{card_name}]")
+            log_layers(layers, busy)
+            res.update(busy_ms=busy / 1e3, idle=1 - busy / (step_s * 1e6), bwd_ms=bwd_ms,
+                       bwd_share=bwd_ms * 1e3 / busy, fwd_ms=fwd_ms)
+        del p, opt
+        free_memory()
+        out[mode] = res
+    return out
+
+
 def check_deepseek(card_name) -> dict:
     """20f: DeepSeek-V3 at full width, cut to DEEPSEEK_CUT with MTP kept:
     forward_deepseek(chunked=True) over 2 x 4096 tokens in adaptive/masked
@@ -4881,7 +5207,7 @@ def check_family_reference() -> None:
 
 
 def check_families(card_name) -> dict:
-    """Phase 20, the dense configs and the MoE family: 20a-g. Returns the
+    """Phase 20, the dense configs and the MoE family: 20a-h. Returns the
     phase's numbers."""
     t0 = time.perf_counter()
     kern = check_family_kernels(card_name)
@@ -4890,7 +5216,14 @@ def check_families(card_name) -> dict:
     qwen_params, qwen = check_qwen_serving(card_name)
     phase("  qwen2.5-14b forward_dense(chunked=True), 2 x 4096")
     qwen_fwd = check_qwen_forward(qwen_params, card_name)
+    cut = {**qwen_params, "layers": tu.tree_map(lambda t: t[:QWEN_TRAIN_LAYERS].clone(),
+                                                qwen_params["layers"])}
     del qwen_params
+    free_memory()
+    phase(f"  20h: qwen2.5-14b's LM step in bf16 with loss(chunked=True), "
+          f"{QWEN_TRAIN_BATCH} x {QWEN_TRAIN_SEQ}, {QWEN_TRAIN_LAYERS} layers")
+    qwen_train = check_qwen_bf16_training(cut, card_name)
+    del cut
     free_memory()
     phase(f"  granite-moe-3b-a800m served at full width, {FAMILY_SERVE_LAYERS} layers")
     granite_params, granite = check_granite_serving(card_name)
@@ -4904,8 +5237,8 @@ def check_families(card_name) -> dict:
     check_family_reference()
     secs = time.perf_counter() - t0
     nums = {"kernels": kern, "qwen_serving": qwen, "qwen_forward": qwen_fwd,
-            "granite": granite, "dense_cut": dense, "deepseek": deepseek,
-            "phase_s": secs, "card": card_name}
+            "qwen_bf16_training": qwen_train, "granite": granite, "dense_cut": dense,
+            "deepseek": deepseek, "phase_s": secs, "card": card_name}
     log("phase 20 numbers: " + json.dumps(nums))
     return nums
 
@@ -4930,6 +5263,10 @@ RECURRENT_DECODE = {
     "qwen2-vl-7b decode r=dv=128": (2, 28, 4, 1, 2064, 128, 128, True, 2063),
 }
 ZAMBA_DECODE_STEPS = 32
+# 21b: zamba2-7b cut in depth from 81 layers (54 mamba blocks + 27 shared
+# attention invocations) to 27 (18 + 9), widths unchanged, for the smoke's
+# 1200 s once phase 20h joined it (the full depth took 62 s of a whole run)
+ZAMBA_LAYERS = 27
 RWKV_DECODE_STEPS = 64
 SEAMLESS_DECODE_STEPS = 16
 SEAMLESS_PROMPT = 64
@@ -5159,14 +5496,15 @@ def kernel_and_plain(fwd, want_launches, label):
 
 
 def check_zamba(card_name) -> dict:
-    """21b: zamba2-7b at full width and depth (54 mamba blocks + 27 shared
-    attention invocations): forward_zamba(chunked=True) over 2 x 4096 in
-    'off' (27 lowrank_flash launches) and 'adaptive'/masked with fidelity
-    (54), each against the plain path, in bf16 and in f32; then the first
-    4096 - 32 tokens prefilled into init_cache_zamba (27 lowrank_flash
-    launches) and 32 single-token decode steps (27 flash_decode launches
-    each: the few-query route), against the 'off' forward's logits."""
-    full = get_config("zamba2-7b")
+    """21b: zamba2-7b at full width, cut to ZAMBA_LAYERS layers (18 mamba
+    blocks + 9 shared attention invocations): forward_zamba(chunked=True)
+    over 2 x 4096 in 'off' (9 lowrank_flash launches) and 'adaptive'/masked
+    with fidelity (18), each against the plain path, in bf16 and in f32;
+    then the first 4096 - 32 tokens prefilled into init_cache_zamba (9
+    lowrank_flash launches) and 32 single-token decode steps (9 flash_decode
+    launches each: the few-query route), against the 'off' forward's
+    logits."""
+    full = get_config("zamba2-7b").with_(num_layers=ZAMBA_LAYERS)
     n_mamba, n_inv = zamba2.n_blocks(full)
     torch.cuda.reset_peak_memory_stats()
     params = family_params(full)
@@ -5508,7 +5846,7 @@ def check_recurrent_families(card_name) -> dict:
     numbers."""
     t0 = time.perf_counter()
     kern = check_recurrent_kernels(card_name)
-    phase("  zamba2-7b at full width and depth")
+    phase(f"  zamba2-7b at full width, {ZAMBA_LAYERS} of its 81 layers")
     zamba = check_zamba(card_name)
     phase("  rwkv6-1.6b at full width and depth")
     rwkv = check_rwkv(card_name)
@@ -5986,7 +6324,7 @@ def main() -> int:
     phase(f"[1/23] card and build: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     sources = ["decode_attn", "decode_attn_bf16", "lowrank_flash", "lowrank_flash_bf16",
-               "lowrank_flash_bwd"]
+               "lowrank_flash_bwd", "lowrank_flash_bwd_bf16"]
     secs = build.build(sources)
     for name in sources:
         log(f"  built {name}.cu in {secs[name]:.1f} s")
@@ -5994,7 +6332,8 @@ def main() -> int:
             log("  ptxas: " + line)
     for name, opcode, what in (("lowrank_flash_bf16", "HGMMA", "wgmma"),
                                ("decode_attn_bf16", "HMMA", "mma.sync"),
-                               ("lowrank_flash_bwd", "HMMA", "mma.sync")):
+                               ("lowrank_flash_bwd", "HMMA", "mma.sync"),
+                               ("lowrank_flash_bwd_bf16", "HMMA", "mma.sync")):
         n = sass_count(name, opcode)
         if n == 0:
             raise AssertionError(f"{name}.cu's SASS holds no {opcode} ({what}) instruction")
@@ -6035,6 +6374,8 @@ def main() -> int:
     flash_err = check_flash()
     bf16_p = check_bf16_p_case()
     bwd_err = check_flash_bwd()
+    phase("  the bf16 backward")
+    bwd_bf16_err = check_flash_bwd_bf16()
 
     phase("[7/23] full-width forward_dense(chunked=True), 2 x 4096 tokens")
     flash_launches = check_forward(cfg, params, card_name)
@@ -6048,6 +6389,11 @@ def main() -> int:
     t_static = time_flash(PATH_STATIC, "static r=32, dv=64", card_name)
     t_bwd = time_flash_bwd(PATH_MASKED, "masked r=64, dv=64", card_name)
     t_bwd_static = time_flash_bwd(PATH_STATIC, "static r=32, dv=64", card_name)
+    t_bwd_bf16 = {label: time_flash_bwd(case, label, card_name, torch.bfloat16)
+                  for label, case in (("qwen2.5-14b off r=dv=128", QWEN_TRAIN),
+                                      ("qwen2.5-14b static r=32, dv=128", QWEN_TRAIN_STATIC),
+                                      ("qwen2-vl-7b r=dv=128", VL_TRAIN))}
+    free_memory()
     profile_forwards(cfg, params, card_name)
 
     # drrl-paper's own config: rank mode 'drrl', masked, grid 16..64
@@ -6130,8 +6476,8 @@ def main() -> int:
     del params
     free_memory()
     phase("[20/23] the dense configs and the MoE family at full width: qwen2.5-14b and "
-          "granite served, internlm2, phi3, deepseek-coder cut in depth, DeepSeek-V3 "
-          "with MLA and MTP")
+          "granite served, qwen2.5-14b trained in bf16 through the flash branch, internlm2, "
+          "phi3, deepseek-coder cut in depth, DeepSeek-V3 with MLA and MTP")
     fam = check_families(card_name)
 
     phase("[21/23] the remaining families at full width: zamba2-7b (Mamba2 and the shared "
@@ -6215,6 +6561,15 @@ def main() -> int:
          "backward_max_abs_err": bwd_err["max_abs_err"],
          "backward_max_scaled_err": bwd_err["max_scaled_err"],
          "backward": t_bwd, "backward_r32": t_bwd_static,
+         "bf16_backward_source": "src/repro_torch/kernels/csrc/lowrank_flash_bwd_bf16.cu",
+         "bf16_backward_launches": {
+             mode: {"train_step": res["launches_per_step"]["lowrank_flash_bwd"],
+                    "train_steps": sum(h["launches"]["lowrank_flash_bwd"] for h in res["steps"]),
+                    "train_forward": sum(h["launches"]["lowrank_flash"] for h in res["steps"])}
+             for mode, res in fam["qwen_bf16_training"].items()},
+         "bf16_backward_max_abs_err": bwd_bf16_err["max_abs_err"],
+         "bf16_backward_max_err_over_tol": bwd_bf16_err["max_err_over_tol"],
+         "bf16_backward": t_bwd_bf16,
          "bf16_times": {label: {key: t[key] for key in BF16_TIME_KEYS}
                         for label, t in {**fam["kernels"]["times"]["lowrank_flash"],
                                          **rec["kernels"]["times"]}.items()},

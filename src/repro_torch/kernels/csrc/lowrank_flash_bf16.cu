@@ -6,7 +6,9 @@
 // go to csrc/lowrank_flash.cu. Same function, same masks:
 //
 //   q (b, hq, sq, r), k (b, hkv, skv, r), v (b, hkv, skv, dv) -> out
-//   (b, hq, sq, dv) in bf16, r <= 192 and dv <= 128. Query i sits at position
+//   (b, hq, sq, dv) in bf16, r <= 192 and dv <= 128; optionally also lse
+//   (b, hq, sq) in f32, each row's ln sum_j exp(scale q.k_j), which the
+//   backward (csrc/lowrank_flash_bwd_bf16.cu) rebuilds P from. Query i sits at position
 //   q_offset + i (q_offset >= 0) and sees key j iff j < skv and, when causal,
 //   j <= q_offset + i; so every query sees key 0. GQA maps row bh = b * hq + h
 //   to kv row bh / (hq / hkv): K and V are never repeated in device memory.
@@ -318,7 +320,7 @@ lowrank_flash_kernel_bf16(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                          int hq, int hkv, int sq, int skv, int r, int dv, int q_offset,
+                          float* __restrict__ lse, int hq, int hkv, int sq, int skv, int r, int dv, int q_offset,
                           int causal, float scale, int tma_qk, int tma_v) {
   constexpr int kSBK = slab_bytes(KR), kSCK = slab_cols(KR);   // Q and K rows
   constexpr int kSBV = slab_bytes(DV), kSCV = slab_cols(DV);   // V rows
@@ -509,6 +511,10 @@ lowrank_flash_kernel_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int row = 64 * wg + 16 * wl + g + 8 * h;
     if (row >= n_q) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    // the row's log-sum-exp in natural units: m is in base 2 with the scale
+    // folded in (the max of scale log2(e) q.k_j), l the sum of 2^(that - m)
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * sq + q0 + row] = (m[h] + log2f(l[h])) * 0.6931471805599453f;
     __nv_bfloat16* o_row = out + ((size_t)bh * sq + q0 + row) * dv;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
@@ -571,8 +577,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int width, int rows, int planes
 
 template <int KR, int DV>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   __nv_bfloat16* out, int b, int hq, int hkv, int sq, int skv, int r, int dv,
-                   int q_offset, int causal, float scale, cudaStream_t stream) {
+                   __nv_bfloat16* out, float* lse, int b, int hq, int hkv, int sq, int skv, int r,
+                   int dv, int q_offset, int causal, float scale, cudaStream_t stream) {
   // TMA needs 16-byte aligned bases and rows of a multiple of 16 bytes
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   const int tma_qk = r % 8 == 0 && aligned(q) && aligned(k);
@@ -589,18 +595,18 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
   if (err != cudaSuccess) return err;
   const dim3 grid(b * hq, (sq + kBQ - 1) / kBQ);
   lowrank_flash_kernel_bf16<KR, DV><<<grid, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, q, k, v, out, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, tma_qk,
+      tm_q, tm_k, tm_v, q, k, v, out, lse, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, tma_qk,
       tma_v);
   return cudaGetLastError();
 }
 
 // the kernel's padded widths: r 16, 32, 64, 128 or 192; dv 16, 32, 64 or 128
-#define LF_ARGS q, k, v, out, b, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, s
+#define LF_ARGS q, k, v, out, lse, b, hq, hkv, sq, skv, r, dv, q_offset, causal, scale, s
 
 template <int KR>
 cudaError_t by_dv(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                  __nv_bfloat16* out, int b, int hq, int hkv, int sq, int skv, int r, int dv,
-                  int q_offset, int causal, float scale, cudaStream_t s) {
+                  __nv_bfloat16* out, float* lse, int b, int hq, int hkv, int sq, int skv, int r,
+                  int dv, int q_offset, int causal, float scale, cudaStream_t s) {
   if (dv <= 16) return launch<KR, 16>(LF_ARGS);
   if (dv <= 32) return launch<KR, 32>(LF_ARGS);
   if (dv <= 64) return launch<KR, 64>(LF_ARGS);
@@ -608,8 +614,8 @@ cudaError_t by_dv(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfl
 }
 
 cudaError_t dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                     __nv_bfloat16* out, int b, int hq, int hkv, int sq, int skv, int r, int dv,
-                     int q_offset, int causal, float scale, cudaStream_t s) {
+                     __nv_bfloat16* out, float* lse, int b, int hq, int hkv, int sq, int skv,
+                     int r, int dv, int q_offset, int causal, float scale, cudaStream_t s) {
   if (r <= 16) return by_dv<16>(LF_ARGS);
   if (r <= 32) return by_dv<32>(LF_ARGS);
   if (r <= 64) return by_dv<64>(LF_ARGS);
@@ -624,18 +630,21 @@ cudaError_t dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). q, k, v and out are contiguous
-// bf16 tensors on the current device. Returns a cudaError_t value (0 =
+// bf16 tensors on the current device; lse, when not null, an f32 (b, hq, sq)
+// tensor that receives each row's log-sum-exp of its scaled scores in
+// natural units (the backward's P = exp(scale q.k - lse)). Returns a cudaError_t value (0 =
 // launched; cudaErrorNotSupported when the driver could not encode a TMA
 // tensor map).
 extern "C" int lowrank_flash_bf16_launch(const void* q, const void* k, const void* v, void* out,
-                                         int b, int hq, int hkv, int sq, int skv, int r, int dv,
-                                         int q_offset, int causal, float scale, void* stream) {
+                                         void* lse, int b, int hq, int hkv, int sq, int skv, int r,
+                                         int dv, int q_offset, int causal, float scale,
+                                         void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || r < 1 ||
       r > kMaxRank || dv < 1 || dv > kMaxDim || q_offset < 0 || (long long)b * hq > 0x7fffffffLL ||
       (sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), b,
-                       hq, hkv, sq, skv, r, dv, q_offset, causal != 0, scale,
-                       static_cast<cudaStream_t>(stream));
+                       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+                       static_cast<float*>(lse), b, hq, hkv, sq, skv, r, dv, q_offset,
+                       causal != 0, scale, static_cast<cudaStream_t>(stream));
 }

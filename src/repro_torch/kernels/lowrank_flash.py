@@ -16,10 +16,13 @@ Two versions of one function live here:
 Both can also return each row's log-sum-exp (``return_lse``), from which
 the backward rebuilds P. The backward has two versions too:
 :func:`lowrank_flash_bwd` launches ``csrc/lowrank_flash_bwd.cu`` (split
-TF32 on ``mma.sync``, as the forward; f32 only; the Pallas kernel has none,
-the reference differentiates its flash branch with plain XLA) and :func:`lowrank_flash_bwd_plain` computes it in plain
-PyTorch. :class:`LowrankFlash` is the autograd Function over both passes:
-kernels on CUDA tensors, plain versions on CPU tensors.
+TF32 on ``mma.sync``, as the forward) for f32 inputs and
+``csrc/lowrank_flash_bwd_bf16.cu`` (bf16 ``mma.sync``, P and dS as two bf16
+terms) for bf16 ones (the Pallas kernel has none, the reference
+differentiates its flash branch with plain XLA), and
+:func:`lowrank_flash_bwd_plain` computes it in plain PyTorch.
+:class:`LowrankFlash` is the autograd Function over both passes: kernels
+on CUDA tensors, plain versions on CPU tensors.
 
 Semantics (both): ``q`` (b, hq, sq, r), ``k`` (b, hkv, skv, r), ``v``
 (b, hkv, skv, dv) with hq a multiple of hkv (GQA: q head h reads kv head
@@ -50,10 +53,11 @@ LAUNCHES: Dict[str, int] = {"lowrank_flash": 0, "lowrank_flash_bwd": 0}
 
 MAX_RANK = 192         # largest r the CUDA kernels take (MLA: qk_nope 128 + qk_rope 64)
 MAX_DIM = 128          # largest dv the CUDA kernels take
-# input type -> (csrc/<source>.cu, its C entry point)
+# input type -> (csrc/<source>.cu, its C entry point): the forward, the backward
 SOURCES = {torch.float32: ("lowrank_flash", "lowrank_flash_launch"),
            torch.bfloat16: ("lowrank_flash_bf16", "lowrank_flash_bf16_launch")}
-BWD_SOURCE = ("lowrank_flash_bwd", "lowrank_flash_bwd_launch")   # f32 only
+BWD_SOURCES = {torch.float32: ("lowrank_flash_bwd", "lowrank_flash_bwd_launch"),
+               torch.bfloat16: ("lowrank_flash_bwd_bf16", "lowrank_flash_bwd_bf16_launch")}
 
 
 def check_offset(q_offset) -> int:
@@ -160,28 +164,21 @@ def _library(source, entry, n_ptrs):
 def lowrank_flash(q, k, v, *, scale: float, causal: bool = True,
                   q_offset: int = 0, return_lse: bool = False):
     """Launch the CUDA kernel for q's type on the current stream (no
-    fallback). ``return_lse`` (f32 only) also returns the kernel's
-    log-sum-exp of each row, (b, hq, sq) f32 in natural units."""
+    fallback). ``return_lse`` also returns the kernel's log-sum-exp of each
+    row, (b, hq, sq) f32 in natural units."""
     q_offset = check_offset(q_offset)
     _check(q, k, v)
     b, hq, sq, r = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
-    if return_lse and q.dtype != torch.float32:
-        raise ValueError("return_lse: only the float32 kernel writes the "
-                         f"log-sum-exp, got {q.dtype}")
     out = torch.empty((b, hq, sq, dv), dtype=v.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    source, entry = SOURCES[q.dtype]
-    f32 = q.dtype == torch.float32      # the f32 entry point takes lse (or null)
-    launch = _library(source, entry, 5 if f32 else 4)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if f32:
-        ptrs.append(None if lse is None else lse.data_ptr())
+    launch = _library(*SOURCES[q.dtype], 5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(*ptrs, b, hq, hkv, sq, skv, r, dv, q_offset, int(causal),
-                     float(scale), stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, r,
+                     dv, q_offset, int(causal), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"lowrank_flash kernel launch failed: CUDA error {err}")
     LAUNCHES["lowrank_flash"] += 1
@@ -190,27 +187,27 @@ def lowrank_flash(q, k, v, *, scale: float, causal: bool = True,
 
 def lowrank_flash_bwd(q, k, v, o, lse, do, *, scale: float,
                       causal: bool = True, q_offset: int = 0):
-    """Launch ``csrc/lowrank_flash_bwd.cu`` on the current stream (no
-    fallback): (dq, dk, dv) of :func:`lowrank_flash` at (q, k, v) for the
-    output gradient ``do``, from the forward's ``o`` and ``lse``
-    (``return_lse=True``). float32 only, contiguous, shapes as the
-    forward's."""
+    """Launch the backward kernel for q's type on the current stream (no
+    fallback): ``csrc/lowrank_flash_bwd.cu`` for float32,
+    ``csrc/lowrank_flash_bwd_bf16.cu`` for bfloat16. (dq, dk, dv) of
+    :func:`lowrank_flash` at (q, k, v) for the output gradient ``do``, from
+    the forward's ``o`` and ``lse`` (``return_lse=True``): o and do in q's
+    type, lse float32, all contiguous, shapes as the forward's; the
+    gradients in q's type."""
     q_offset = check_offset(q_offset)
     _check(q, k, v)
-    if q.dtype != torch.float32:
-        raise ValueError(f"lowrank_flash_bwd takes float32 (the bf16 kernel has "
-                         f"no backward), got {q.dtype}")
     b, hq, sq, r = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
-    for name, t, shape in (("o", o, (b, hq, sq, dv)), ("do", do, (b, hq, sq, dv)),
-                           ("lse", lse, (b, hq, sq))):
-        if (t.device != q.device or t.dtype != torch.float32
+    for name, t, dtype, shape in (("o", o, q.dtype, (b, hq, sq, dv)),
+                                  ("do", do, q.dtype, (b, hq, sq, dv)),
+                                  ("lse", lse, torch.float32, (b, hq, sq))):
+        if (t.device != q.device or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on "
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} tensor on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    launch = _library(*BWD_SOURCE, 10)
+    launch = _library(*BWD_SOURCES[q.dtype], 10)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -225,9 +222,9 @@ def lowrank_flash_bwd(q, k, v, o, lse, do, *, scale: float,
 
 class LowrankFlash(torch.autograd.Function):
     """:func:`lowrank_flash` with a gradient. On CUDA tensors both passes
-    are kernels (the f32 forward with its log-sum-exp, then
-    :func:`lowrank_flash_bwd`); on CPU tensors both are the plain versions.
-    Inputs contiguous; ``apply(q, k, v, scale, causal, q_offset)``. The
+    are kernels (the forward for the inputs' type with its log-sum-exp,
+    then :func:`lowrank_flash_bwd`); on CPU tensors both are the plain
+    versions. Inputs contiguous; ``apply(q, k, v, scale, causal, q_offset)``. The
     backward is not itself differentiable: a second derivative raises."""
 
     @staticmethod

@@ -7,12 +7,13 @@ raises, never falling back.
 Gradients: where autograd records a call (grad enabled and an input that
 requires grad), :func:`flash_attention` goes to
 ``lowrank_flash.LowrankFlash`` whatever the number of queries: on CUDA the
-f32 forward kernel and its backward kernel (``csrc/lowrank_flash_bwd.cu``),
-on the CPU the same Function over the plain versions. bf16 on CUDA raises
-(the bf16 kernel has no backward). ``flash_decode`` has no backward, so
-:func:`decode_attention` raises on CUDA where autograd would record it;
-its plain version on the CPU stays differentiable. Calls that need no
-gradient take the routes below unchanged.
+forward kernel for the inputs' type and its backward kernel
+(``csrc/lowrank_flash_bwd.cu`` for f32, ``csrc/lowrank_flash_bwd_bf16.cu``
+for bf16), on the CPU the same Function over the plain versions.
+``flash_decode`` has no backward, so :func:`decode_attention` raises on
+CUDA where autograd would record it; its plain version on the CPU stays
+differentiable. Calls that need no gradient take the routes below
+unchanged.
 """
 from __future__ import annotations
 
@@ -57,18 +58,13 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     rank; see :mod:`repro_torch.kernels.lowrank_flash` for the semantics.
     ``q`` (b, hq, sq, r), ``k`` (b, hkv, skv, r), ``v`` (b, hkv, skv, dv),
     any strides. A call that autograd records goes to
-    ``lowrank_flash.LowrankFlash`` on contiguous copies (f32 on CUDA: both
-    passes kernels; bf16 on CUDA raises). Otherwise a call with few queries
+    ``lowrank_flash.LowrankFlash`` on contiguous copies (on CUDA, f32 or
+    bf16: both passes kernels). Otherwise a call with few queries
     (:func:`few_query`) is flash_decode's function with kv_len = skv and
     q_start = q_offset (causal) or skv - 1 (every key visible): it goes
     there with K and V read in place; every other call to lowrank_flash,
     on contiguous copies."""
     if _records(q, k, v):
-        if q.device.type != "cpu" and q.dtype != torch.float32:
-            raise RuntimeError(
-                f"flash_attention: lowrank_flash has no {q.dtype} backward on CUDA "
-                "(the float32 kernel has one); call it under torch.no_grad() or "
-                "in float32")
         return lowrank_flash.LowrankFlash.apply(
             q.contiguous(), k.contiguous(), v.contiguous(), scale, causal,
             lowrank_flash.check_offset(q_offset))

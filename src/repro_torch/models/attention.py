@@ -58,7 +58,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through their strides; more go to ``lowrank_flash`` on contiguous
     copies. A call that autograd records (a training step's
     ``loss(chunked=True)``) goes to ``lowrank_flash`` whatever the number
-    of queries, with its backward kernel on the card (f32 only), so the
+    of queries, with its backward kernel on the card (f32 or bf16), so the
     branch is differentiable as JAX's ``_attend_chunked`` is. With a cache,
     ``kv_len`` must be an int and the kernel reads the valid prefix of
     K/V. That branch never materialises probabilities."""

@@ -9,7 +9,7 @@ the model's ``loss`` unchunked, as the reference's does, so no attention
 kernel runs there; a ``loss_fn`` that calls ``loss(..., chunked=True)``
 sends every attention over more than 1024 keys through
 ``kernels/ops.py:flash_attention``, which on the card runs ``lowrank_flash``
-forward and its backward kernel (f32; bf16 raises, having no backward).
+forward and its backward kernel, in f32 or bf16.
 """
 from __future__ import annotations
 

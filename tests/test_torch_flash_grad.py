@@ -18,8 +18,9 @@ versions here) and the slice it serves, ``make_train_step`` with
 (d) the route on the CPU: a call of 1 or 16 queries that requires grad goes
     to ``LowrankFlash`` (exactly the plain backward's gradients), a
     grad-free one keeps flash_decode's plain version;
-(e) ``cuda``-marked, skipped without a card: the backward kernel against
-    its plain version, two runs bitwise, bf16 with grad raising.
+(e) ``cuda``-marked, skipped without a card: the backward kernels against
+    their plain version through ``ops.flash_attention`` with grad, f32 and
+    bf16, and two runs of each bitwise.
 
 Tolerances (f32 throughout):
   * (a): both sides are f32 sums over at most 300 terms in another order:
@@ -280,14 +281,17 @@ def _cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# (e): b, hq, hkv, sq, skv, r, dv, causal, q_offset
+CUDA_CASES = [(2, 4, 2, 300, 300, 64, 64, True, 0),
+              (1, 7, 1, 130, 400, 32, 64, True, 270),
+              (2, 2, 2, 77, 140, 20, 12, False, 0),
+              (1, 4, 4, 150, 150, 192, 128, True, 0),
+              (1, 28, 4, 4096, 4096, 128, 128, True, 0)]
+CUDA_IDS = ["gqa2", "gqa7-offset", "odd-noncausal", "mla-192", "gqa7-4096-r128"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(2, 4, 2, 300, 300, 64, 64, True, 0),
-                                  (1, 7, 1, 130, 400, 32, 64, True, 270),
-                                  (2, 2, 2, 77, 140, 20, 12, False, 0),
-                                  (1, 4, 4, 150, 150, 192, 128, True, 0),
-                                  (1, 28, 4, 4096, 4096, 128, 128, True, 0)],
-                         ids=["gqa2", "gqa7-offset", "odd-noncausal", "mla-192",
-                              "gqa7-4096-r128"])
+@pytest.mark.parametrize("case", CUDA_CASES, ids=CUDA_IDS)
 def test_cuda_backward_matches_plain(case):
     """(e) Through ops.flash_attention with grad on the card: one forward
     and one backward launch, gradients within 2e-5 x their largest
@@ -318,15 +322,49 @@ def test_cuda_backward_is_deterministic():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# the bf16 backward kernel against its plain version on the same inputs (the
+# kernel forward's out, the plain log-sum-exp): tests/test_torch_flash_bf16_grad.py
+# fixes this tolerance, 2e-5 of each gradient's largest magnitude + two bf16
+# steps of each element (both sides round their f32 gradient to bf16 once)
+BF16_ATOL, BF16_RTOL = 2e-5, 2 ** -6
+
+
 @pytest.mark.cuda
-def test_cuda_bf16_with_grad_raises():
-    """(e) bf16 has no backward kernel: a recorded call raises, a grad-free
-    one runs."""
+@pytest.mark.parametrize("case", CUDA_CASES, ids=CUDA_IDS)
+def test_cuda_bf16_backward_matches_plain(case):
+    """(e) bf16 through ops.flash_attention with grad on the card: one
+    forward and one backward launch (csrc/lowrank_flash_bwd_bf16.cu), bf16
+    gradients within BF16_ATOL x their largest magnitude + BF16_RTOL of
+    each element of the plain backward's."""
     _cuda()
-    q, k, v, _ = (torch.from_numpy(a).cuda().bfloat16()
-                  for a in _arrays((1, 2, 2, 40, 40, 16, 16), 6))
-    with pytest.raises(RuntimeError, match="backward"):
-        ops.flash_attention(q.clone().requires_grad_(True), k, v, scale=0.25)
-    with torch.no_grad():
-        assert torch.isfinite(ops.flash_attention(q.requires_grad_(True), k, v,
-                                                  scale=0.25).float()).all()
+    kw = dict(scale=case[5] ** -0.5, causal=case[7], q_offset=case[8])
+    q, k, v, do = (torch.from_numpy(a).cuda().bfloat16() for a in _arrays(case, 6))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert lowrank_flash.LAUNCHES == {"lowrank_flash": 1, "lowrank_flash_bwd": 1}
+    assert decode_attn.LAUNCHES == {"flash_decode": 0}
+    ro, lse = lowrank_flash.lowrank_flash_plain(q, k, v, return_lse=True, **kw)
+    assert ((out.detach().float() - ro.float()).abs()
+            <= 2e-5 + BF16_RTOL * ro.float().abs()).all()
+    want = lowrank_flash.lowrank_flash_bwd_plain(q, k, v, out.detach(), lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16
+        g, w = g.float(), w.float()
+        assert ((g - w).abs() <= BF16_ATOL * w.abs().max() + BF16_RTOL * w.abs()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_is_deterministic():
+    """(e) Two bf16 backward runs give the same bits (no atomics); the bf16
+    forward's out is the same with and without its log-sum-exp."""
+    _cuda()
+    case = (2, 6, 2, 500, 500, 64, 64, True, 0)
+    kw = dict(scale=0.125, causal=True, q_offset=0)
+    q, k, v, do = (torch.from_numpy(a).cuda().bfloat16() for a in _arrays(case, 7))
+    out, lse = lowrank_flash.lowrank_flash(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, lowrank_flash.lowrank_flash(q, k, v, **kw))
+    a, b = (lowrank_flash.lowrank_flash_bwd(q, k, v, out, lse, do, **kw) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -480,9 +480,9 @@ def test_train_agent_leaves_no_graph_on_its_trajectories(monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_inputs_that_require_grad():
-    """decode_attention (flash_decode has no backward) and flash_attention
-    in bf16 (lowrank_flash has no bf16 backward) refuse inputs that require
-    grad; f32 flash_attention differentiates through its backward kernel."""
+    """decode_attention (flash_decode has no backward) refuses inputs that
+    require grad; flash_attention differentiates through its backward
+    kernel in f32 and in bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card: pytest -m cuda)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -490,16 +490,15 @@ def test_cuda_wrappers_refuse_inputs_that_require_grad():
     k = torch.randn((1, 2, 20, 8), generator=g, device="cuda")
     v = torch.randn((1, 2, 20, 8), generator=g, device="cuda")
     kv_len = torch.tensor([12], dtype=torch.int32, device="cuda")
-    kb, vb = k.bfloat16(), v.bfloat16()
-    calls = [(lambda x: ops.flash_attention(x, kb, vb, scale=0.3), q.bfloat16()),
-             (lambda x: ops.decode_attention(x[:, :, 0].contiguous(), k, v, kv_len,
-                                             scale=0.3), q)]
-    for call, x in calls:
-        with pytest.raises(RuntimeError, match="backward"):
-            call(x.clone().requires_grad_(True))
-        with torch.no_grad():
-            assert torch.isfinite(call(x.clone().requires_grad_(True)).float()).all()
-        assert torch.isfinite(call(x).float()).all()
-    leaf = q.clone().requires_grad_(True)
-    (dq,) = torch.autograd.grad(ops.flash_attention(leaf, k, v, scale=0.3).sum(), (leaf,))
-    assert torch.isfinite(dq).all()
+    def call(x):
+        return ops.decode_attention(x[:, :, 0].contiguous(), k, v, kv_len, scale=0.3)
+    with pytest.raises(RuntimeError, match="backward"):
+        call(q.clone().requires_grad_(True))
+    with torch.no_grad():
+        assert torch.isfinite(call(q.clone().requires_grad_(True))).all()
+    assert torch.isfinite(call(q)).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        leaf = q.to(dtype).requires_grad_(True)
+        (dq,) = torch.autograd.grad(ops.flash_attention(leaf, k.to(dtype), v.to(dtype),
+                                                        scale=0.3).float().sum(), (leaf,))
+        assert dq.dtype == dtype and torch.isfinite(dq.float()).all()

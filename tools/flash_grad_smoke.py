@@ -7,7 +7,13 @@ two runs bitwise), phase 12's autograd guard (``check_grad_guard``), phase
 (``time_flash_bwd``) and 17g, drrl-paper's LM step with
 ``loss(chunked=True)`` at 2 x 4096 (``check_chunked_training``).
 
-    python3 tools/flash_grad_smoke.py [--other CHECKOUT [--ab]]
+    python3 tools/flash_grad_smoke.py [--bf16] [--other CHECKOUT [--ab]]
+
+``--bf16`` runs the bf16 backward's checks instead: phase 6's bf16 cases
+(``check_flash_bwd_bf16``), the guard, phase 9's bf16 backward times at
+qwen2.5-14b's and qwen2-vl-7b's training shapes and 20h, qwen2.5-14b's LM
+step in bf16 with ``loss(chunked=True)`` at 2 x 4096 on 2 layers of seeded
+full-width weights (``check_qwen_bf16_training``).
 
 ``--other`` names a checkout of another commit (a ``git archive`` of it):
 ``lowrank_flash``'s grad-free outputs at phase 6's cases (f32 and bf16,
@@ -111,6 +117,8 @@ def main(argv=None) -> int:
                                                       "gradients to the other checkout's and "
                                                       "time the f32 forward and backward on "
                                                       "both, alternating")
+    ap.add_argument("--bf16", action="store_true", help="the bf16 backward's checks, times "
+                                                        "and 20h instead of the f32 ones")
     ap.add_argument("--emit", nargs=3, metavar=("MODE", "SRC", "PATH"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -126,24 +134,41 @@ def main(argv=None) -> int:
     card = cs.card()
     cs.log(card)
     t0 = time.perf_counter()
-    sources = ["lowrank_flash", "lowrank_flash_bf16", "lowrank_flash_bwd"]
+    sources = ["lowrank_flash", "lowrank_flash_bf16", "lowrank_flash_bwd",
+               "lowrank_flash_bwd_bf16"]
     secs = cs.build.build(sources)
+    shown = ("lowrank_flash_bwd_bf16",) if args.bf16 else ("lowrank_flash", "lowrank_flash_bwd")
     for name in sources:
         cs.log(f"  built {name}.cu in {secs[name]:.1f} s")
-        if name != "lowrank_flash_bf16":
+        if name in shown:
             for line in cs.ptxas_summary(cs.build.build_log.get(name, (0, ""))[1]):
                 cs.log("  ptxas: " + line)
-    cs.phase("[6] the backward kernel against its plain version")
-    err = cs.check_flash_bwd()
-    cs.check_grad_guard()
-    cs.phase("[9] the backward's times at drrl-paper's training shapes")
-    times = {"masked": cs.time_flash_bwd(cs.PATH_MASKED, "masked r=64, dv=64", card),
-             "static": cs.time_flash_bwd(cs.PATH_STATIC, "static r=32, dv=64", card)}
-    cs.phase("[17g] drrl-paper's LM step with loss(chunked=True)")
-    paper = cs.get_config("drrl-paper")
-    agent = cs.drrl.init_agent(torch.Generator(device=cs.DEV).manual_seed(7), paper.rank,
-                               paper.d_model, device=cs.DEV)
-    chunked = cs.check_chunked_training(paper, agent, card)
+    if args.bf16:
+        cs.log(f"  sass: lowrank_flash_bwd_bf16.cu holds "
+               f"{cs.sass_count('lowrank_flash_bwd_bf16', 'HMMA')} HMMA (mma.sync) instructions")
+        cs.phase("[6] the bf16 backward kernel against its plain version")
+        err = cs.check_flash_bwd_bf16()
+        cs.check_grad_guard()
+        cs.phase("[9] the bf16 backward's times at qwen2.5-14b's and qwen2-vl-7b's shapes")
+        times = {label: cs.time_flash_bwd(case, label, card, torch.bfloat16)
+                 for label, case in (("qwen2.5-14b off r=dv=128", cs.QWEN_TRAIN),
+                                     ("qwen2.5-14b static r=32, dv=128", cs.QWEN_TRAIN_STATIC),
+                                     ("qwen2-vl-7b r=dv=128", cs.VL_TRAIN))}
+        cs.free_memory()
+        cs.phase("[20h] qwen2.5-14b's LM step in bf16 with loss(chunked=True)")
+        chunked = cs.check_qwen_bf16_training(cs.family_params(cs.qwen_train_cfg("off")), card)
+    else:
+        cs.phase("[6] the backward kernel against its plain version")
+        err = cs.check_flash_bwd()
+        cs.check_grad_guard()
+        cs.phase("[9] the backward's times at drrl-paper's training shapes")
+        times = {"masked": cs.time_flash_bwd(cs.PATH_MASKED, "masked r=64, dv=64", card),
+                 "static": cs.time_flash_bwd(cs.PATH_STATIC, "static r=32, dv=64", card)}
+        cs.phase("[17g] drrl-paper's LM step with loss(chunked=True)")
+        paper = cs.get_config("drrl-paper")
+        agent = cs.drrl.init_agent(torch.Generator(device=cs.DEV).manual_seed(7), paper.rank,
+                                   paper.d_model, device=cs.DEV)
+        chunked = cs.check_chunked_training(paper, agent, card)
     bitwise = times_ab = grads = None
     if args.other:
         cs.phase("[6] lowrank_flash's outputs against the other checkout's build")
