@@ -8,7 +8,10 @@ Phases (one line each, plus detail lines):
   1. card and build: the card's name and power limit (nvidia-smi), then
      the CUDA sources built from src/repro_torch/kernels/csrc (flash_decode,
      lowrank_flash for f32 and for bf16, lowrank_flash's backward for f32
-     and for bf16), one nvcc per source, started together;
+     and for bf16), one nvcc per source, started together; each source's
+     tensor-core opcode counted in its SASS (the bf16 backward's: HGMMA,
+     and no HMMA), and ptxas's report of the bf16 backward's kernels held
+     to no spill store;
   2. the flash-decode kernel against its plain PyTorch version on the card,
      f32 (2e-5, and the exact zero pattern of the probabilities) and bf16
      (two bf16 steps of each output element): the CPU tests' shapes, cases
@@ -55,9 +58,11 @@ Phases (one line each, plus detail lines):
      inputs (2e-5 of each gradient's largest magnitude + two bf16 steps of
      each element, the tolerance tests/test_torch_flash_bf16_grad.py
      fixes): the same kinds of cases, r and dv odd, and qwen2.5-14b's
-     2 x 40 / 8 x 4096 at r = dv = 128; the bf16 forward's log-sum-exp
-     against the plain one, its out bitwise with and without it, and two
-     backward runs bitwise equal at every case;
+     2 x 40 / 8 x 4096 at r = dv = 128, and a long-sum case (8 q heads on
+     one kv head over 16384 keys: 131,072 summands per dk / dv row); each
+     case's worst error over the tolerance logged; the bf16 forward's
+     log-sum-exp against the plain one, its out bitwise with and without
+     it, and two backward runs bitwise equal at every case;
   7. the full-width cache-free forward ``forward_dense(chunked=True)`` at
      2 x 4096 tokens, adaptive/masked with fidelity and fixed/static:
      kernel launches (12 per attention call site), logits and ranks against
@@ -376,9 +381,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12            # H100 SXM dense TF32 on the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
-# mma.sync m16n8k16 bf16 with f32 accumulators, measured on an NVIDIA H100 80GB
+# wgmma m64n128k16 bf16 with f32 accumulators, measured on an NVIDIA H100 80GB
 # HBM3 at 700 W by tools/lowrank_flash_profile.py (tools/mma_tf32_peak.cu; PERF.md)
-MMA_SYNC_BF16_FLOPS = 638.6e12
+WGMMA_BF16_FLOPS = 987.4e12
 TOL = 2e-5                     # f32 kernel vs plain version
 # each kernel and its plain version both stay in f32 up to the one rounding
 # of the output, so in bf16 they may differ by one bf16 step (at most 2^-7 of
@@ -425,6 +430,26 @@ def ptxas_summary(log: str) -> list:
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
     return out
+
+
+def check_bwd_bf16_build(secs: float) -> list:
+    """Phase 1's checks of csrc/lowrank_flash_bwd_bf16.cu: no mma.sync
+    (HMMA) in its SASS, every product on wgmma; and, when it was built in
+    this run, a ptxas report for each of its kernels with no spill store.
+    Returns the report's lines."""
+    name = "lowrank_flash_bwd_bf16"
+    if sass_count(name, "HMMA"):
+        raise AssertionError(f"{name}.cu's SASS holds HMMA (mma.sync) instructions")
+    lines = ptxas_summary(build.build_log.get(name, (0, ""))[1])
+    if secs > 0:
+        if not lines:
+            raise AssertionError(f"no ptxas report for {name}.cu")
+        spilled = [line for line in lines
+                   if int(re.search(r"(\d+) bytes spill stores", line).group(1))]
+        if spilled:
+            raise AssertionError(f"{name}.cu spills: {spilled}")
+        log(f"  ptxas: {name}.cu's {len(lines)} kernels store no spill; its SASS holds no HMMA")
+    return lines
 
 
 def sass_count(name: str, opcode: str) -> int:
@@ -1322,6 +1347,11 @@ BWD_BF16_CASES = [
     (1, 2, 1, 50, 90, 21, 13, True, 40),
     QWEN_TRAIN,
 ]
+# the long sums: 8 q heads on one kv head over 16384 causal keys, 131,072
+# summands per dk / dv row (qwen's shape: 20,480), which the kernel joins
+# tile by tile with f32 adds (its plain backward holds about four 8.6 GB f32
+# (1, 8, 16384, 16384) matrices)
+BWD_BF16_LONG = (1, 8, 1, 16384, 16384, 128, 128, True, 0)
 
 
 def grads_close_bf16(got, want, label) -> dict:
@@ -1404,18 +1434,23 @@ def check_flash_grad_route_bf16(case, seed) -> dict:
 
 
 def check_flash_bwd_bf16() -> dict:
-    """Phase 6's bf16 backward checks: every BWD_BF16_CASES case and
-    BWD_ROUTE_CASES' one and 16 queries in bf16. Returns the largest
-    errors."""
+    """Phase 6's bf16 backward checks: every BWD_BF16_CASES case,
+    BWD_BF16_LONG, and BWD_ROUTE_CASES' one and 16 queries in bf16. Returns
+    the largest errors and each case's error over its tolerance."""
     worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    for i, case in enumerate(BWD_BF16_CASES):
+    over = {}
+    for i, case in enumerate(BWD_BF16_CASES + [BWD_BF16_LONG]):
         res = check_flash_bwd_bf16_case(case, seed=340 + i)
         worst = {key: max(worst[key], res[key]) for key in worst}
+        over[str(case)] = res["max_err_over_tol"]
         free_memory()
     for i, case in enumerate(BWD_ROUTE_CASES):
         res = check_flash_grad_route_bf16(case, seed=360 + i)
         worst = {key: max(worst[key], res[key]) for key in worst}
-    return worst
+        over[f"route {case}"] = res["max_err_over_tol"]
+    log("  bf16 backward, worst error over the tolerance per case: "
+        + ", ".join(f"{case} {x:.3f}" for case, x in over.items()))
+    return {**worst, "over_tol_by_case": over}
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1630,8 +1665,8 @@ def flash_bwd_bound_ms(case, dtype=torch.float32) -> dict:
     ``bound_ms`` the needed flops at the bf16 peak (or the byte time);
     ``bound_issued_ms`` the flops the kernel issues, 12 r + 8 dv per pair
     (S and dP twice, P and dS as two bf16 terms in dv, dk and dq), at that
-    peak, and ``bound_issued_mma_sync_ms`` at mma.sync bf16's measured
-    rate (MMA_SYNC_BF16_FLOPS)."""
+    peak, and ``bound_issued_wgmma_ms`` at wgmma bf16's measured rate
+    (WGMMA_BF16_FLOPS)."""
     b, hq, hkv, sq, skv, r, dv, causal, off = case
     i = np.arange(sq)
     pairs = float(np.minimum(skv, off + i + 1).sum() if causal else sq * skv) * b * hq
@@ -1645,7 +1680,7 @@ def flash_bwd_bound_ms(case, dtype=torch.float32) -> dict:
         bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         issued = pairs * (12 * r + 8 * dv)
         return dict(bound_ms=bnd, bound_by=by, bound_issued_ms=1e3 * issued / BF16_FLOPS,
-                    bound_issued_mma_sync_ms=1e3 * issued / MMA_SYNC_BF16_FLOPS,
+                    bound_issued_wgmma_ms=1e3 * issued / WGMMA_BF16_FLOPS,
                     flops=flops, pairs=pairs)
     t_cc = max(t_bytes, 1e3 * flops / F32_FLOPS)
     t_tf32 = 1e3 * 3 * flops / TF32_FLOPS
@@ -1688,8 +1723,8 @@ def time_flash_bwd(case, label, card_name, dtype=torch.float32) -> dict:
                   f"{bnd['bound_ms'] / ms:.1%} of it; the flops it issues (12 r + 8 dv per "
                   f"pair) {bnd['bound_issued_ms']:.4f} ms at 989 TFLOP/s, "
                   f"{bnd['bound_issued_ms'] / ms:.1%} of it, "
-                  f"{bnd['bound_issued_mma_sync_ms']:.4f} ms at mma.sync's measured "
-                  f"{MMA_SYNC_BF16_FLOPS / 1e12:.1f}, {bnd['bound_issued_mma_sync_ms'] / ms:.1%}")
+                  f"{bnd['bound_issued_wgmma_ms']:.4f} ms at wgmma's measured "
+                  f"{WGMMA_BF16_FLOPS / 1e12:.1f}, {bnd['bound_issued_wgmma_ms'] / ms:.1%}")
     else:
         bounds = (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three TF32 passes), "
                   f"{bnd['bound_ms'] / ms:.1%} of it; the work it does (dq's recompute "
@@ -6333,11 +6368,12 @@ def main() -> int:
     for name, opcode, what in (("lowrank_flash_bf16", "HGMMA", "wgmma"),
                                ("decode_attn_bf16", "HMMA", "mma.sync"),
                                ("lowrank_flash_bwd", "HMMA", "mma.sync"),
-                               ("lowrank_flash_bwd_bf16", "HMMA", "mma.sync")):
+                               ("lowrank_flash_bwd_bf16", "HGMMA", "wgmma")):
         n = sass_count(name, opcode)
         if n == 0:
             raise AssertionError(f"{name}.cu's SASS holds no {opcode} ({what}) instruction")
         log(f"  sass: {name}.cu holds {n} {opcode} ({what}) instructions")
+    bwd_bf16_ptxas = check_bwd_bf16_build(secs["lowrank_flash_bwd_bf16"])
 
     phase("[2/23] flash_decode kernel vs its plain version on the card")
     max_err = check_kernel()
@@ -6569,6 +6605,8 @@ def main() -> int:
              for mode, res in fam["qwen_bf16_training"].items()},
          "bf16_backward_max_abs_err": bwd_bf16_err["max_abs_err"],
          "bf16_backward_max_err_over_tol": bwd_bf16_err["max_err_over_tol"],
+         "bf16_backward_over_tol_by_case": bwd_bf16_err["over_tol_by_case"],
+         "bf16_backward_ptxas": bwd_bf16_ptxas,
          "bf16_backward": t_bwd_bf16,
          "bf16_times": {label: {key: t[key] for key in BF16_TIME_KEYS}
                         for label, t in {**fam["kernels"]["times"]["lowrank_flash"],

@@ -66,12 +66,9 @@
 //     tile t - 1 with tile t - 1 + kStages after its warpgroup has finished
 //     tile t, so a load has one tile's compute to land in.
 
-#include <cuda.h>          // CUtensorMap and its enums (no libcuda link: see encode_fn)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "hopper_bf16.cuh"   // TMA, mbarriers, wgmma, the swizzled layout
 
 namespace {
 
@@ -83,234 +80,6 @@ constexpr int kStages = 3;                   // K/V ring depth
 constexpr int kIssuer = 4 * (kWG - 1);       // the warp that fills the ring
 constexpr int kMaxRank = 192;                // largest r this kernel takes (MLA: 128 + 64)
 constexpr int kMaxDim = 128;                 // largest dv this kernel takes
-
-// A width W (16, 32, 64, 128 or 192 elements) in shared memory: slabs of
-// slab_cols(W) columns, rows of slab_bytes(W) bytes
-__host__ __device__ constexpr int slab_bytes(int w) { return w >= 64 ? 128 : 2 * w; }
-__host__ __device__ constexpr int slab_cols(int w) { return slab_bytes(w) / 2; }
-
-// Byte offset of element (row, col) of an R-row tile of width W: the slab,
-// then the row, then its 16-byte chunk XOR-swizzled by row bits (CuTe's
-// Swizzle<B, 4, 3>, the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_32B,
-// 64B or 128B)
-template <int W, int R>
-__device__ __forceinline__ uint32_t tile_off(int row, int col) {
-  constexpr int kSB = slab_bytes(W), kSC = slab_cols(W);
-  const uint32_t o = row * kSB + (col % kSC) * 2;
-  return (col / kSC) * R * kSB + (o ^ (((o >> 7) & (kSB / 16 - 1)) << 4));
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading and stride
-// byte offsets, and the swizzle of sb-byte rows (1: 128 B, 2: 64 B, 3: 32 B)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int sb) {
-  const uint64_t layout = sb == 128 ? 1 : sb == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-// 2^x (the SFU's approximation, relative error about 2^-22; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// arrive, and expect `bytes` more from TMA copies before the phase completes
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the phase of this parity has completed; a wait of more than 4 s
-// (a fault: no phase takes a millisecond) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  uint64_t t0, now;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  while (!mbar_try_wait(bar, parity)) {
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    if (now - t0 > 4000000000ull) __trap();
-  }
-}
-
-// TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory at dst,
-// its bytes counted on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// cp.async of 4 bytes; src_bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
-
-// Registers that an asynchronous wgmma reads or writes: after the wait, this
-// tells the compiler they change here, so nothing reads them earlier or reuses
-// them while the tensor cores still may
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
-}
-
-// d (64 x 64) (+)= A B: A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 16) (+)= A B: A from registers, B from shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// d (64 x 32) (+)= A B: A from registers, B from shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// d (64 x 64) (+)= A B: A from registers, B from shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// d (64 x 128) (+)= A B: A from registers, B from shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// P.V's wgmma for a tile of DV output columns
-template <int DV>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DV / 2], const uint32_t (&a)[4], uint64_t db,
-                                         int acc) {
-  if constexpr (DV == 16) wgmma_rs_n16(d, a, db, acc);
-  else if constexpr (DV == 32) wgmma_rs_n32(d, a, db, acc);
-  else if constexpr (DV == 64) wgmma_rs_n64(d, a, db, acc);
-  else wgmma_rs_n128(d, a, db, acc);
-}
-
-// Stage rows [0, R) of a row-major (rows x width) bf16 array into an R-row
-// tile of width W in shared memory (tile_off's layout), zero past `valid`
-// rows and `width` columns; run by one warp. Pairs of columns go by 4-byte
-// cp.async where the rows allow it (width even, src 4-byte aligned), else by
-// plain loads and stores. Then the copies are waited for and made visible to
-// wgmma (the async proxy).
-template <int W, int R>
-__device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src, int width, int valid,
-                                      int lane) {
-  const bool vec = width % 2 == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0;
-  const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
-  for (int i = lane; i < R * W / 2; i += 32) {
-    const int row = i / (W / 2), col = 2 * (i % (W / 2));
-    const uint32_t d = dst + tile_off<W, R>(row, col);
-    const size_t at = (size_t)row * width + col;
-    if (vec) {
-      const bool in = row < valid && col < width;
-      cp_async4(d, in ? s16 + at : s16, in ? 4 : 0);
-    } else {
-      const uint32_t lo = row < valid && col < width ? s16[at] : 0u;
-      const uint32_t hi = row < valid && col + 1 < width ? s16[at + 1] : 0u;
-      asm volatile("st.shared.u32 [%0], %1;" ::"r"(d), "r"(lo | hi << 16));
-    }
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncwarp();
-}
 
 // KR, DV: r and dv padded to the kernel's widths
 template <int KR, int DV>
@@ -530,50 +299,6 @@ lowrank_flash_kernel_bf16(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, a driver function, reached through the runtime
-// (cudaGetDriverEntryPoint) so the library needs no link against libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D tensor map over `planes` row-major (rows x width) bf16 arrays, boxes
-// of box_rows rows by one slab of a W-wide tile (slab_cols(W) columns,
-// swizzled as tile_off lays them out); reads past the array are zeros
-template <int W>
-bool make_map(CUtensorMap* map, const void* ptr, int width, int rows, int planes, int box_rows) {
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)width * 2 * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)slab_cols(W), (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  constexpr int kSB = slab_bytes(W);
-  const CUtensorMapSwizzle swizzle = kSB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : kSB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
 
 template <int KR, int DV>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,

@@ -1,5 +1,5 @@
 // The backward of low-rank flash attention for bf16 inputs on NVIDIA Hopper
-// (sm_90a), hand-written CUDA C++ on the bf16 tensor cores (mma.sync).
+// (sm_90a), hand-written CUDA C++ on the bf16 tensor cores (wgmma), with TMA.
 //
 // Replaces no TPU kernel: the Pallas kernel src/repro/kernels/lowrank_flash.py:
 // lowrank_flash has no backward, and the reference differentiates its flash
@@ -33,7 +33,7 @@
 // gradient on the CPU at chip_smoke.py's tolerance (2e-5 of each gradient's
 // largest magnitude + 2^-6 of each element): two terms meet it at every
 // case, one term misses it at every case. The gradients are rounded to bf16
-// once, in the epilogue.
+// once, in the epilogue, after the scale.
 //
 // What bounds it on an H100: operations. Per visible (query, key) pair the
 // function needs S, dP, dv, dk and dq once each, 2 (3 r + 2 dv) flops. At
@@ -42,243 +42,177 @@
 // 989 TFLOP/s (0.478 ms at r = 32, dv = 128), against about 0.37 GB of
 // inputs and outputs (0.11 ms at 3.35 TB/s). This design issues 12 r + 8 dv
 // flops per pair (S and dP twice, since the dq pass recomputes them; two
-// terms of P and dS in dv, dk and dq): 1.74 ms at 989 TFLOP/s, 2.69 ms at
-// the 638.6 TFLOP/s that mma.sync bf16 reached on the card (PERF.md).
-// A first right kernel, it will take longer: each warp reads its own copy of
-// every B fragment from shared memory (ldmatrix), one read per two mma.
-// wgmma is later work.
+// terms of P and dS in dv, dk and dq): 1.74 ms at 989 TFLOP/s.
 //
-// Design (FlashAttention-2's backward, csrc/lowrank_flash_bwd.cu's design
-// on bf16 operands, deterministic, no atomics), every product on
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate; fragments per the PTX ISA,
-// g = lane / 4, t = lane % 4: A a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g,
-// 2t+8..), a3 (g+8, 2t+8..); B b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
-// C c0 c1 (g, 2t) (g, 2t+1), c2 c3 (g+8, 2t) (g+8, 2t+1)):
+// Design: FlashAttention-2's backward, deterministic (no atomics), every
+// product on wgmma (bf16 in, f32 accumulate), every operand tile delivered
+// into shared memory by TMA. The layout, the descriptors, the mbarrier ring
+// and the wgmma wrappers are the forward's (hopper_bf16.cuh).
 //   * lowrank_flash_bwd_bf16_dsum_kernel: D = rowsum(dout o out) in f32, one
-//     warp per (b hq, query) row;
-//   * lowrank_flash_bwd_bf16_dkdv_kernel: one block of four warps per (b hkv,
-//     tile of 64 keys), each warp owning 16 keys, K and V tiles in shared
-//     memory for the block's life. It loops over the group's q heads and over
-//     the 64-query tiles from the key tile's causal edge to sq, the Q, dout,
-//     lse and D tiles arriving through a two-stage cp.async ring. Per step of
-//     16 queries a warp computes S^T = K Q^T and dP^T = V dout^T with its keys
-//     as the M rows, turns them into P^T and dS^T in the accumulator
-//     fragments, and hands those over as the A fragments of dv += P^T dout and
-//     dk += dS^T Q: two accumulator tiles of 8 queries are one A fragment of
-//     16 (a0 a1 from the first's c0 c1 and c2 c3, a2 a3 from the second's), so
-//     P and dS never touch shared memory. The GQA sum stays in registers and
-//     dk, dv are written once;
-//   * lowrank_flash_bwd_bf16_dq_kernel: one block of four warps per (b hq,
-//     tile of 64 queries), heaviest causal tiles first, each warp owning 16
-//     queries; Q and dout stay in shared memory, K and V tiles arrive up to
-//     the tile's causal edge through a two-stage cp.async ring. Per step of
-//     16 keys: S = Q K^T, dP = dout V^T, dS, then dq += dS K with dS's
-//     accumulator fragments as the A fragment.
-// Operands come from shared memory through ldmatrix: the S-like products
-// (X Y^T over r or dv) read X's A fragment and Y's B fragment with
-// ldmatrix.x4 as they lie (rows of X, rows of Y); the products that contract
-// over the step's queries or keys (dv, dk, dq) read their B operand, which
-// lies MN-major (a row per query or key), with ldmatrix.x4.trans. Every tile
-// lies row-major with a row stride of its padded width + 8 elements (16
-// bytes), so the eight 16-byte rows of an 8 x 8 matrix fall in eight
-// different bank groups.
+//     warp per (b hq, query) row.
+//   * lowrank_flash_bwd_bf16_dkdv_kernel: one block of two warpgroups per
+//     (b hkv, tile of 128 keys), lowest keys (the heaviest under causality)
+//     first; warpgroup w owns keys 64 w .. 64 w + 63, whose K and V rows sit
+//     in shared memory for the block's life. The block runs over the GQA
+//     group's q heads and, in each, over the 64-query tiles from the key
+//     tile's causal edge to sq; each tile's Q and dout arrive by TMA through
+//     a ring of kStages stages, its lse and D beside them. Per tile a
+//     warpgroup computes S^T = K Q^T and dP^T = V dout^T with its keys as
+//     wgmma's 64 M rows (m64n64k16, all operands K-major from shared memory),
+//     turns the accumulators into P^T and dS^T in registers, and hands them
+//     over as register A operands: dv += P^T dout and dk += dS^T Q
+//     (m64n64k16, or m64n32k16 at r = 32), dout and Q read MN-major
+//     (transposed) from the same swizzled tiles that S^T and dP^T read
+//     K-major. The GQA sum stays in registers; dk and dv are written once.
+//   * lowrank_flash_bwd_bf16_dq_kernel: the forward's skeleton with one more
+//     product. One block of two warpgroups per (b hq, tile of 128 queries),
+//     heaviest causal tiles first; Q and dout of the tile arrive by TMA once,
+//     K and V tiles of 64 keys through the ring, up to each warpgroup's
+//     causal edge. Per key tile: S = Q K^T and dP = dout V^T (m64n64k16,
+//     K-major), P and dS = P o (dP - D) in the accumulators, then dq += dS K
+//     (m64n<r>k16, three m64n64k16 at r = 192) with dS as the register A
+//     operand and K read MN-major from the tile S read K-major.
+// The accumulator fragment of an m64nN product is the A fragment of the
+// next one as it stands: thread element i of a warp's 16 rows sits at row
+// g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2t + (i & 1) (g = lane / 4,
+// t = lane % 4), so register j of k-step kk packs elements 8 kk + 2j and
+// 8 kk + 2j + 1, twice (the hi and the lo term).
 // Masks. The exponent is taken only where the pair is visible; elsewhere
-// P = 0 exactly and so dS = 0 (dP - D is finite: rows and columns past sq,
-// skv, r and dv are zeros, and lse and D are 0 past sq). Steps where no key
-// of the warp is visible to any query of the step are skipped whole.
-// Accumulation. The tensor cores' f32 accumulation is not IEEE
-// round-to-nearest, and dk, dv sum over up to group x sq queries. So each
-// product sums one step (16 queries or keys, both terms) in registers of its
-// own and joins its accumulator with one f32 add: the long sums are IEEE
-// adds, whatever sq and the group. The scale multiplies dk and dq once, on
-// the way out, before the one rounding to bf16.
+// P = 0 exactly and so dS = 0 (dP - D is finite: rows past sq and skv and
+// columns past r and dv are zeros from TMA's out-of-bound fill, and lse and
+// D are 0 past sq). A warpgroup skips a tile none of whose pairs it sees;
+// the per-element mask runs only on tiles that cross an edge.
+// The ring (the forward's): a stage's full mbarrier counts the TMA bytes, its
+// empty mbarrier one arrival per consumer warp once that warp's wgmmas on it
+// are done; the issuing warp, the first of the warpgroup that runs every
+// tile (dK/dV: the low keys; dQ: the high queries), refills the stage of tile
+// t - 1 with tile t - 1 + kStages after its warpgroup has finished tile t.
+// Rows that are not a multiple of 16 bytes, or pointers off 16 bytes, are
+// staged by that warp with cp.async into the same layout (the forward's
+// stage); lse and D it copies with plain loads.
+// Accumulation. The tensor cores do not round their f32 sums to nearest:
+// with dv, dk and dq summed on the accumulators across all tiles (the choice
+// of FlashAttention-3 and cuDNN), the gradients reached 2.3 times the
+// tolerance at chip_smoke.py's 16384-key case (131,072 summands per dk / dv
+// row) and 0.63 of it at qwen2.5-14b's shape, against 0.48 and 0.49 for the
+// sums below (tools/bwd_bf16_variants.py, on an H100; PERF.md). So each
+// product sums one tile (64 queries or keys, both terms) in a partial
+// accumulator of its own and joins its accumulator with one f32 add: the
+// long sums are IEEE adds, whatever sq, skv and the group. The partial costs registers: dK/dV forms dv and dk in chunks of 64
+// columns (32 registers beside dk 64 + dv 64 + S^T 32 + dP^T 32 at
+// r = dv = 128: ptxas uses 244), each waited for; dQ, with registers to
+// spare, joins up to 128 columns at once. At r = 192 one launch would hold
+// dk 96 + dv 64 + the tile's operands and spilled, so dK/dV runs twice: dv
+// with dk's first 128 columns, then dk's last 64, each recomputing S^T and
+// dP^T. The scale multiplies dk and dq once, on the way out, before the one
+// rounding to bf16.
+// No producer warpgroup: beside a third warpgroup setmaxnreg could give the
+// two consumer warpgroups at most 240 registers a thread, under dK/dV's 244;
+// two warpgroups of 128 threads keep 255.
 // r pads to 32, 64, 128 or 192 with zeros and dv to 64 or 128 (exact): six
-// instantiations per kernel.
+// instantiations of dQ, seven of dK/dV (r = 192's two launches).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "hopper_bf16.cuh"   // TMA, mbarriers, wgmma, the swizzled layout
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;                     // 16 keys (dK/dV) or queries (dQ) each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kB = 16 * kWarps;               // rows of every tile: 64 keys or 64 queries
+constexpr int kWG = 2;                        // warpgroups per block
+constexpr int kThreads = 128 * kWG;
+constexpr int kBT = 64;                       // rows of a warpgroup and of a ring tile
+constexpr int kBB = kBT * kWG;                // rows a block owns: 128 keys or queries
+constexpr int kStages = 3;                    // ring depth
 constexpr int kMaxRank = 192;                 // the forward's range
 constexpr int kMaxDim = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of N bytes (4 or 16) from device to shared memory; src_bytes = 0
-// fills the N bytes with zeros and reads nothing
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  const uint32_t d = smem_u32(dst);
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d), "l"(src), "n"(N),
-                 "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-
-// wait until at most `kPending` of this thread's newest groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
-}
-
-// 2^x (the SFU's approximation, relative error about 2^-22; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; r[i] holds matrix i's row lane / 4, columns
-// 2 (lane % 4) and + 1 (.trans: column lane / 4, rows 2 (lane % 4) and + 1)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
 // (x0, x1) as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi); x0 in the
-// low half (the lower column of an mma fragment)
+// low half (the lower column of a fragment)
 __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// The A fragments (hi and lo terms) of a 16 x 16 operand held as two
-// accumulator tiles of 8 columns: a0 a1 from c[0], a2 a3 from c[1]
-__device__ __forceinline__ void c_to_a(const float (&c)[2][4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split2(c[0][0], c[0][1], hi[0], lo[0]);
-  split2(c[0][2], c[0][3], hi[1], lo[1]);
-  split2(c[1][0], c[1][1], hi[2], lo[2]);
-  split2(c[1][2], c[1][3], hi[3], lo[3]);
+// The 64 x 64 accumulator x as the A operand of four k-steps of 16, twice
+__device__ __forceinline__ void pack(const float (&x)[32], uint32_t (&hi)[4][4],
+                                     uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split2(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1], hi[kk][j], lo[kk][j]);
 }
 
-// Queue the copy of rows [0, kB) of a row-major (rows x width) bf16 array
-// into a kB x W tile (row stride W + 8), zero past `valid` rows and `width`
-// columns. vec (width % 8 == 0 and src aligned to 8 elements): cp.async of 8
-// elements at a time, which the caller commits and waits for; else plain
-// loads and stores.
+// d = X Y^T over W columns: X the warpgroup's 64 rows of an XR-row tile, Y a
+// 64-row tile, both of width W in tile_off's layout, K-major (issued, not
+// waited for)
+template <int W, int XR>
+__device__ __forceinline__ void row_product(float (&d)[32], uint32_t x, uint32_t y, int wg) {
+  constexpr int kSB = slab_bytes(W), kSC = slab_cols(W);
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t sl = 16 * kk / kSC, col = 16 * kk % kSC * 2;
+    const uint64_t da = make_desc(x + sl * XR * kSB + wg * 64 * kSB + col, 16, 8 * kSB, kSB);
+    const uint64_t db = make_desc(y + sl * kBT * kSB + col, 16, 8 * kSB, kSB);
+    wgmma_ss_n64(d, da, db, kk > 0);
+  }
+}
+
+// acc += (lo + hi) Y over a tile's 64 contraction rows (4 k-steps of 16): Y
+// a 64-row tile of width W (one row per contraction index), read MN-major.
+// Each chunk of C columns (C = W, or a multiple of 64 dividing it) is summed
+// over the tile, both terms, in a partial accumulator of its own on the
+// tensor cores and joined to acc with one f32 add: the long sums are IEEE
+// adds, whatever sq, skv and the group. The wgmmas are waited for.
+template <int W, int C>
+__device__ __forceinline__ void col_product(float (&acc)[W / 2], uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4], uint32_t y) {
+  constexpr int kC = C, kSB = slab_bytes(W);
+  static_assert(W % C == 0 && (C == W || C % 64 == 0), "chunks of whole slabs");
+#pragma unroll
+  for (int c = 0; c < W / kC; ++c) {
+    float part[kC / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = make_desc(y + c * (kC / 64) * kBT * kSB + 16 * kk * kSB, kBT * kSB,
+                                    8 * kSB, kSB);
+      wgmma_rs<kC>(part, lo[kk], db, kk > 0);
+      wgmma_rs<kC>(part, hi[kk], db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(part);
+    fence_regs(hi);
+    fence_regs(lo);
+#pragma unroll
+    for (int e = 0; e < kC / 2; ++e) acc[c * kC / 2 + e] += part[e];
+  }
+}
+
+// dK/dV's partials: 64 columns (all of a narrower W), 32 registers beside
+// dk and dv's accumulators
 template <int W>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int width, int valid, bool vec) {
-  constexpr int kL = W + 8;
-  if (vec) {
-    for (int i = threadIdx.x; i < kB * (W / 8); i += kThreads) {
-      const int row = i / (W / 8), col = 8 * (i % (W / 8));
-      const bool in = row < valid && col < width;
-      cp_async<16>(dst + row * kL + col, in ? src + (size_t)row * width + col : src,
-                   in ? 16 : 0);
-    }
-  } else {
-    uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
-    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
-    for (int i = threadIdx.x; i < kB * W; i += kThreads) {
-      const int row = i / W, col = i % W;
-      d16[row * kL + col] = row < valid && col < width ? s16[(size_t)row * width + col] : 0;
-    }
-  }
-}
+constexpr int kChunk = W < 64 ? W : 64;
 
-// Queue the copy of kB floats from src (zero past `valid`) into dst
-__device__ __forceinline__ void stage_row(float* dst, const float* src, int valid) {
-  for (int i = threadIdx.x; i < kB; i += kThreads)
-    cp_async<4>(dst + i, i < valid ? src + i : src, i < valid ? 4 : 0);
-}
-
-// c[j] (j = 0, 1) = X Y_j^T over KK steps of 16 columns: X the warp's 16
-// rows of one tile, Y_j rows 8 j .. 8 j + 7 of the step's 16 rows of
-// another (row strides LX, LY). x: this lane's ldmatrix address in X (row
-// lane % 8 + 8 ((lane / 8) % 2), column 8 (lane / 16)); y: in Y (row lane %
-// 8 + 8 (lane / 16), column 8 ((lane / 8) % 2)).
-template <int KK>
-__device__ __forceinline__ void row_product(float (&c)[2][4], uint32_t x, uint32_t y) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    uint32_t a[4], b[4];
-    ldsm_x4(a, x + 32 * kk);            // 16 bf16 = 32 bytes per step
-    ldsm_x4(b, y + 32 * kk);
-    mma(c[0], a, b[0], b[1]);
-    mma(c[1], a, b[2], b[3]);
-  }
-}
-
-// acc[n] += (hi + lo) Y over the step's 16 contraction rows, for NN output
-// tiles of 8 columns: Y the step's 16 rows of a tile (row-major, one row
-// per contraction index), read with ldmatrix.trans; y: this lane's address
-// (row lane % 8 + 8 ((lane / 8) % 2), column 8 (lane / 16)). Each pair of
-// output tiles sums both terms in registers of its own and joins acc with
-// one f32 add.
-template <int NN>
-__device__ __forceinline__ void col_product(float (&acc)[NN][4], const uint32_t (&hi)[4],
-                                            const uint32_t (&lo)[4], uint32_t y) {
-#pragma unroll
-  for (int n = 0; n < NN; n += 2) {
-    uint32_t b[4];
-    ldsm_x4_t(b, y + 16 * n);           // 8 bf16 = 16 bytes per output tile
-    float part[2][4] = {};
-    mma(part[0], lo, b[0], b[1]);
-    mma(part[0], hi, b[0], b[1]);
-    mma(part[1], lo, b[2], b[3]);
-    mma(part[1], hi, b[2], b[3]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[n][e] += part[0][e];
-      acc[n + 1][e] += part[1][e];
-    }
-  }
-}
-
-// Rows row0 + g and row0 + g + 8 (< n_rows) of a row-major (n_rows x width)
-// bf16 array from an accumulator of NN tiles of 8 columns, times `mul`,
-// rounded to bf16 once
-template <int NN>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[NN][4], int row0,
-                                           int n_rows, int width, float mul, int g, int t) {
+// Rows row and row + 8 (h = 0, 1; < n_rows) of a row-major (n_rows x width)
+// bf16 array, columns col0 .. col0 + W - 1 (< width), from a W-wide
+// accumulator, times `mul`, rounded to bf16 once
+template <int W>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[W / 2], int row,
+                                           int n_rows, int width, int col0, float mul, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row >= n_rows) continue;
-    bf16* d = dst + (size_t)row * width;
+    if (row + 8 * h >= n_rows) continue;
+    bf16* d = dst + (size_t)(row + 8 * h) * width;
 #pragma unroll
-    for (int n = 0; n < NN; ++n) {
-      const int col = 8 * n + 2 * t;
-      const float x0 = mul * acc[n][2 * h], x1 = mul * acc[n][2 * h + 1];
+    for (int j = 0; j < W / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      const float x0 = mul * acc[4 * j + 2 * h], x1 = mul * acc[4 * j + 2 * h + 1];
       if (col + 1 < width && width % 2 == 0) {
         *reinterpret_cast<__nv_bfloat162*>(d + col) = __floats2bfloat162_rn(x0, x1);
       } else {
@@ -289,45 +223,31 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[NN][4],
   }
 }
 
-// KR: steps of 16 over r (r <= 16 KR); ND: tiles of 8 over dv (dv <= 8 ND)
-template <int KR, int ND>
-struct Plan {
-  static constexpr int kR = 16 * KR, kD = 8 * ND;           // padded widths
-  static constexpr int kLR = kR + 8, kLD = kD + 8;          // row strides: see stage
-  static constexpr size_t kTile = (size_t)kB * (kLR + kLD) * sizeof(bf16);  // an (r, dv) pair
-  // dK/dV: K and V, then two stages of (Q, dout, lse, D)
-  static constexpr size_t kStageKV = kTile + 2 * kB * sizeof(float);
-  static constexpr size_t dkdv_smem() { return kTile + 2 * kStageKV; }
-  // dQ: Q and dout, then two stages of (K, V)
-  static constexpr size_t dq_smem() { return 3 * kTile; }
+// Copy `rows` rows (64 or 128) of a W-wide tile from plane `plane`, row
+// `row0`, of a tensor map into shared memory at dst: one 64-row box per slab
+// and half, counted on bar
+template <int W>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int rows, int row0,
+                                         int plane, int tile_rows, uint32_t bar) {
+  constexpr int kSB = slab_bytes(W), kSC = slab_cols(W);
+  for (int sl = 0; sl < W / kSC; ++sl)
+    for (int h = 0; h < rows; h += kBT)
+      tma_load(dst + sl * tile_rows * kSB + h * kSB, map, sl * kSC, row0 + h, plane, bar);
+}
+
+// Shared memory of both kernels: the block's two tiles (128 rows of r and of
+// dv: K and V, or Q and dout), kStages ring stages of 64-row tiles (Q and
+// dout, or K and V), kStages x (lse, D) of 64 floats (dK/dV), mbarriers
+template <int KR, int DV>
+struct Smem {
+  static constexpr uint32_t kBlockR = kBB * KR * 2, kBlockD = kBB * DV * 2;
+  static constexpr uint32_t kTileR = kBT * KR * 2, kTileD = kBT * DV * 2;
+  static constexpr uint32_t kRing = kBlockR + kBlockD;          // from the 1024-aligned base
+  static constexpr uint32_t kRingD = kRing + kStages * kTileR;
+  static constexpr uint32_t kRows = kRingD + kStages * kTileD;  // lse, D
+  static constexpr uint32_t kBars = kRows + kStages * 2 * kBT * 4;
+  static constexpr size_t bytes() { return 1024 + kBars + 8 * (2 * kStages + 1); }
 };
-
-// dK/dV: queue a query tile (rows row0 .. row0 + kB - 1 of (b hq sq)'s rows,
-// `valid` of them before sq) into a ring stage: Q, dout, lse, D
-template <int KR, int ND>
-__device__ __forceinline__ void stage_queries(unsigned char* st, const bf16* q, const bf16* dout,
-                                              const float* lse, const float* dsum, size_t row0,
-                                              int valid, int r, int dvw, bool vec_qk, bool vec_v) {
-  using P = Plan<KR, ND>;
-  bf16* q_t = reinterpret_cast<bf16*>(st);
-  bf16* do_t = q_t + kB * P::kLR;
-  float* l_t = reinterpret_cast<float*>(do_t + kB * P::kLD);
-  stage<P::kR>(q_t, q + row0 * r, r, valid, vec_qk);
-  stage<P::kD>(do_t, dout + row0 * dvw, dvw, valid, vec_v);
-  stage_row(l_t, lse + row0, valid);
-  stage_row(l_t + kB, dsum + row0, valid);
-}
-
-// dQ: queue the key tile from key k0 into a ring stage: K, V
-template <int KR, int ND>
-__device__ __forceinline__ void stage_keys(unsigned char* st, const bf16* k_bh, const bf16* v_bh,
-                                           int k0, int skv, int r, int dvw, bool vec_qk,
-                                           bool vec_v) {
-  using P = Plan<KR, ND>;
-  bf16* k_t = reinterpret_cast<bf16*>(st);
-  stage<P::kR>(k_t, k_bh + (size_t)k0 * r, r, skv - k0, vec_qk);
-  stage<P::kD>(k_t + kB * P::kLR, v_bh + (size_t)k0 * dvw, dvw, skv - k0, vec_v);
-}
 
 __global__ void __launch_bounds__(256)
 lowrank_flash_bwd_bf16_dsum_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
@@ -344,230 +264,374 @@ lowrank_flash_bwd_bf16_dsum_kernel(const bf16* __restrict__ out, const bf16* __r
   if (lane == 0) dsum[row] = acc;
 }
 
-template <int KR, int ND>
-__global__ void __launch_bounds__(kThreads)
-lowrank_flash_bwd_bf16_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+// NK: the dk columns kc0 .. kc0 + NK - 1 this launch sums (kc0 a multiple
+// of 64); NV: dv's width, or 0 when another launch sums dv
+template <int KR, int DV, int NK, int NV>
+__global__ void __launch_bounds__(kThreads, 1)
+lowrank_flash_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ CUtensorMap tm_do,
+                                   const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                    const float* __restrict__ lse, const float* __restrict__ dsum,
                                    bf16* __restrict__ dk, bf16* __restrict__ dv, int hq, int hkv,
                                    int sq, int skv, int r, int dvw, int q_offset, int causal,
-                                   float scale, int vec_qk, int vec_v) {
-  using P = Plan<KR, ND>;
-  constexpr int kLR = P::kLR, kLD = P::kLD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);         // kB x kLR
-  bf16* v_s = k_s + kB * kLR;                        // kB x kLD
-  unsigned char* ring = smem + P::kTile;             // two stages of Q, dout, lse, D
+                                   float scale, int tma_qk, int tma_v, int kc0) {
+  using L = Smem<KR, DV>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + L::kBlockR;          // the block's keys
+  const uint32_t q_s = base + L::kRing, o_s = base + L::kRingD;  // kStages Q, dout tiles
+  float* rows_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kRows);
+  const uint32_t bars = base + L::kBars;
+  const auto full = [&](int st) { return bars + 8 * st; };
+  const auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t kv_full = bars + 16 * kStages;
 
-  const int bkv = blockIdx.x;          // b * hkv + kv head
-  const int k0 = blockIdx.y * kB;      // key tile 0 sees the most query tiles: first
+  const int bkv = blockIdx.x;                       // b * hkv + kv head
+  const int k0 = blockIdx.y * kBB;                  // low keys see the most queries: first
   const int group = hq / hkv;
-  const int b = bkv / hkv, hk = bkv % hkv;
+  const size_t bh0 = (size_t)(bkv / hkv) * hq + (size_t)(bkv % hkv) * group;  // its first q head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int n_k = min(kB, skv - k0);
-  const int wk = k0 + 16 * warp;       // the warp's first key
-  const bool live = 16 * warp < n_k;   // the warp has a key
+  const bool issuer = warp == 0;                    // warpgroup 0 runs every tile
+  const int n_k = min(kBB, skv - k0);
+  const int wg_k0 = k0 + 64 * wg;                   // the warpgroup's first key
+  const int w_k0 = wg_k0 + 16 * wl;                 // the warp's
+  const bool wg_live = 64 * wg < n_k;
+  // the first query tile that sees key k0 (position q_offset + i >= k0)
+  const int t_first = causal ? max(0, k0 - q_offset) / kBT : 0;
+  const int nt = max(0, (sq + kBT - 1) / kBT - t_first);
+  const int n_it = group * nt;                      // (q head, query tile) pairs
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * kWG);                // one arrival per warp
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the issuing warp fills stage it % kStages with iteration it's query
+  // tile: q head bh0 + it / nt, queries from (t_first + it % nt) 64
+  const auto load_tile = [&](int it) {
+    const int st = it % kStages, q0 = (t_first + it % nt) * kBT;
+    const size_t bh = bh0 + it / nt;
+    const uint32_t qd = q_s + st * L::kTileR, od = o_s + st * L::kTileD;
+    if (!tma_qk) stage<KR, kBT>(qd, q + (bh * sq + q0) * r, r, sq - q0, lane);
+    if (!tma_v) stage<DV, kBT>(od, dout + (bh * sq + q0) * dvw, dvw, sq - q0, lane);
+    float* rl = rows_s + st * 2 * kBT;
+    for (int i = lane; i < kBT; i += 32) {
+      const bool in = q0 + i < sq;
+      rl[i] = in ? lse[bh * sq + q0 + i] * kLog2e : 0.f;
+      rl[kBT + i] = in ? dsum[bh * sq + q0 + i] : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      const uint32_t tx = (tma_qk ? L::kTileR : 0) + (tma_v ? L::kTileD : 0);
+      if (tx == 0) {
+        mbar_arrive(full(st));
+      } else {
+        mbar_arrive_tx(full(st), tx);
+        if (tma_qk) tma_tile<KR>(qd, &tm_q, kBT, q0, (int)bh, kBT, full(st));
+        if (tma_v) tma_tile<DV>(od, &tm_do, kBT, q0, (int)bh, kBT, full(st));
+      }
+    }
+    __syncwarp();
+  };
+  if (issuer) {
+    // the block's K and V: 128 rows, or 64 when no key lies past the first 64
+    const int rows = n_k > kBT ? kBB : kBT;
+    const size_t row0 = (size_t)bkv * skv + k0;
+    if (!tma_qk) stage<KR, kBB>(k_s, k + row0 * r, r, n_k, lane);
+    if (!tma_v) stage<DV, kBB>(v_s, v + row0 * dvw, dvw, n_k, lane);
+    if (lane == 0) {
+      const uint32_t tx = (tma_qk ? rows * KR * 2 : 0) + (tma_v ? rows * DV * 2 : 0);
+      if (tx == 0) {
+        mbar_arrive(kv_full);
+      } else {
+        mbar_arrive_tx(kv_full, tx);
+        if (tma_qk) tma_tile<KR>(k_s, &tm_k, rows, k0, bkv, kBB, kv_full);
+        if (tma_v) tma_tile<DV>(v_s, &tm_v, rows, k0, bkv, kBB, kv_full);
+      }
+    }
+    __syncwarp();
+    for (int it = 0; it < min(kStages, n_it); ++it) load_tile(it);
+  }
+
   const float c = scale * kLog2e;
-  // ldmatrix rows and columns of this lane: A and .trans B, then B
-  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
-
-  stage<P::kR>(k_s, k + ((size_t)bkv * skv + k0) * r, r, n_k, vec_qk);
-  stage<P::kD>(v_s, v + ((size_t)bkv * skv + k0) * dvw, dvw, n_k, vec_v);
-  cp_async_commit();
-
-  // the first query that sees key k0 sits at q_offset + i >= k0
-  const int t_first = causal ? max(0, k0 - q_offset) / kB : 0;
-  const int nt = max(0, (sq + kB - 1) / kB - t_first);
-  const int n_it = group * nt;         // (q head, query tile) pairs
-  const size_t bh0 = (size_t)b * hq + (size_t)hk * group;  // the group's first q head
-  // iteration it: q head bh0 + it / nt, query tile t_first + it % nt, ring stage it % 2
-#define LB_STAGE_Q(it)                                                                       \
-  stage_queries<KR, ND>(ring + ((it) % 2) * P::kStageKV, q, dout, lse, dsum,                 \
-                        (bh0 + (it) / nt) * sq + (t_first + (it) % nt) * kB,                 \
-                        sq - (t_first + (it) % nt) * kB, r, dvw, vec_qk, vec_v)
-  if (n_it > 0) LB_STAGE_Q(0);
-  cp_async_commit();
-
-  float acc_k[2 * KR][4], acc_v[ND][4];
+  float acc_k[NK / 2], acc_v[NV > 0 ? NV / 2 : 1];
 #pragma unroll
-  for (int n = 0; n < 2 * KR; ++n) acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
+  for (int i = 0; i < NK / 2; ++i) acc_k[i] = 0.f;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
-  const uint32_t k_a = smem_u32(k_s + (16 * warp + a_row) * kLR + a_col);
-  const uint32_t v_a = smem_u32(v_s + (16 * warp + a_row) * kLD + a_col);
+  for (int i = 0; i < NV / 2; ++i) acc_v[i] = 0.f;
+  mbar_wait(kv_full, 0);
 
   for (int it = 0; it < n_it; ++it) {
-    __syncthreads();                   // iteration it - 1 is consumed: its stage may be refilled
-    if (it + 1 < n_it) LB_STAGE_Q(it + 1);
-    cp_async_commit();                 // possibly empty: one group per iteration
-    cp_async_wait<1>();                // K, V and this iteration's tiles have landed
-    __syncthreads();
-    if (!live) continue;
-    const int q0 = (t_first + it % nt) * kB;
-    const bf16* q_t = reinterpret_cast<const bf16*>(ring + (it % 2) * P::kStageKV);
-    const bf16* do_t = q_t + kB * kLR;
-    const float* l_t = reinterpret_cast<const float*>(do_t + kB * kLD);
-    const float* d_t = l_t + kB;
-#pragma unroll 1
-    for (int qa = 0; qa < kB; qa += 16) {
-      if (q0 + qa >= sq) break;
-      // warp-uniform: no key of the warp is visible to any query of the step
-      if (causal && wk > q_offset + q0 + qa + 15) continue;
-      float s[2][4], dp[2][4];         // S^T, dP^T: the warp's keys x the step's 16 queries
-      row_product<KR>(s, k_a, smem_u32(q_t + (qa + b_row) * kLR + b_col));
-      row_product<ND / 2>(dp, v_a, smem_u32(do_t + (qa + b_row) * kLD + b_col));
-      const bool edge = wk + 16 > skv || q0 + qa + 16 > sq ||
-                        (causal && wk + 15 > q_offset + q0 + qa);
+    const int st = it % kStages, q0 = (t_first + it % nt) * kBT;
+    mbar_wait(full(st), (it / kStages) & 1);
+    // warpgroup-uniform: the last query of the tile sees the warpgroup's first key
+    if (wg_live && (!causal || q_offset + q0 + kBT - 1 >= wg_k0)) {
+      const uint32_t q_t = q_s + st * L::kTileR, o_t = o_s + st * L::kTileD;
+      const float* rl = rows_s + st * 2 * kBT;      // lse log2(e), then D
+      // S^T = K Q^T, dP^T = V dout^T: the warpgroup's 64 keys x the tile's 64
+      // queries; thread element i at key g + 8 ((i >> 1) & 1) of the warp's
+      // 16, query 8 (i >> 2) + 2t + (i & 1)
+      float s[32], dp[32];
+      wgmma_fence();
+      row_product<KR, kBB>(s, k_s, q_t, wg);
+      row_product<DV, kBB>(dp, v_s, o_t, wg);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
+      const bool edge = w_k0 + 16 > skv || q0 + kBT > sq || (causal && w_k0 + 15 > q_offset + q0);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qi = qa + 8 * j + 2 * t;   // the tile's query of columns 2t, 2t + 1
-        const float2 lq = *reinterpret_cast<const float2*>(l_t + qi);
-        const float2 dq2 = *reinterpret_cast<const float2*>(d_t + qi);
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(rl + 8 * j + 2 * t);
+        const float2 dd = *reinterpret_cast<const float2*>(rl + kBT + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = wk + g + 8 * (e >> 1), query = q0 + qi + (e & 1);
-          const float l2 = (e & 1 ? lq.y : lq.x) * kLog2e, dd = e & 1 ? dq2.y : dq2.x;
-          const bool vis =
-              !edge || (key < skv && query < sq && (!causal || key <= q_offset + query));
-          const float p = vis ? ex2(fmaf(s[j][e], c, -l2)) : 0.f;
-          s[j][e] = p;                         // P^T
-          dp[j][e] = p * (dp[j][e] - dd);      // dS^T
+          const int i = 4 * j + e;
+          const int key = w_k0 + g + 8 * (e >> 1), query = q0 + 8 * j + 2 * t + (e & 1);
+          const bool vis = !edge || (key < skv && query < sq && (!causal || key <= q_offset + query));
+          const float p = vis ? ex2(fmaf(s[i], c, -(e & 1 ? l2.y : l2.x))) : 0.f;
+          s[i] = p;                                   // P^T
+          dp[i] = p * (dp[i] - (e & 1 ? dd.y : dd.x));  // dS^T
         }
       }
-      uint32_t hi[4], lo[4];
-      c_to_a(s, hi, lo);
-      col_product<ND>(acc_v, hi, lo, smem_u32(do_t + (qa + a_row) * kLD + a_col));
-      c_to_a(dp, hi, lo);
-      col_product<2 * KR>(acc_k, hi, lo, smem_u32(q_t + (qa + a_row) * kLR + a_col));
+      uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+      if constexpr (NV > 0) pack(s, p_hi, p_lo);
+      pack(dp, d_hi, d_lo);
+      // dv += P^T dout, dk[kc0 ..] += dS^T Q[kc0 ..]: k-step kk reads the
+      // tile's queries 16 kk .. 16 kk + 15
+      if constexpr (NV > 0) col_product<DV, kChunk<DV>>(acc_v, p_hi, p_lo, o_t);
+      col_product<NK, kChunk<NK>>(acc_k, d_hi, d_lo, q_t + kc0 / 64 * kBT * slab_bytes(KR));
+    }
+    // this warp is done with the stage; the issuing warp refills the one
+    // before it, which both warpgroups have most likely left by now
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+    if (issuer && it >= 1 && it - 1 + kStages < n_it) {
+      mbar_wait(empty((it - 1) % kStages), ((it - 1) / kStages) & 1);
+      load_tile(it - 1 + kStages);
     }
   }
-#undef LB_STAGE_Q
-  cp_async_wait<0>();                  // nothing in flight at exit (n_it = 0: K and V)
-  if (!live) return;
-  store_rows<2 * KR>(dk + (size_t)bkv * skv * r, acc_k, wk, skv, r, scale, g, t);
-  store_rows<ND>(dv + (size_t)bkv * skv * dvw, acc_v, wk, skv, dvw, 1.f, g, t);
+  if (!wg_live) return;
+  store_rows<NK>(dk + (size_t)bkv * skv * r, acc_k, w_k0 + g, skv, r, kc0, scale, t);
+  if constexpr (NV > 0)
+    store_rows<NV>(dv + (size_t)bkv * skv * dvw, acc_v, w_k0 + g, skv, dvw, 0, 1.f, t);
 }
 
-template <int KR, int ND>
-__global__ void __launch_bounds__(kThreads)
-lowrank_flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+template <int KR, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+lowrank_flash_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_do,
+                                 const bf16* __restrict__ q, const bf16* __restrict__ k,
                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                  const float* __restrict__ lse, const float* __restrict__ dsum,
                                  bf16* __restrict__ dq, int hq, int hkv, int sq, int skv, int r,
-                                 int dvw, int q_offset, int causal, float scale, int vec_qk,
-                                 int vec_v) {
-  using P = Plan<KR, ND>;
-  constexpr int kLR = P::kLR, kLD = P::kLD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);         // kB x kLR
-  bf16* do_s = q_s + kB * kLR;                       // kB x kLD
-  unsigned char* ring = smem + P::kTile;             // two stages of K, V
+                                 int dvw, int q_offset, int causal, float scale, int tma_qk,
+                                 int tma_v) {
+  using L = Smem<KR, DV>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, o_s = base + L::kBlockR;          // the block's queries
+  const uint32_t k_s = base + L::kRing, v_s = base + L::kRingD;  // kStages K, V tiles
+  const uint32_t bars = base + L::kBars;
+  const auto full = [&](int st) { return bars + 8 * st; };
+  const auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t q_full = bars + 16 * kStages;
 
-  const size_t bh = blockIdx.x;                       // b * hq + h
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;   // heaviest tiles first
-  const size_t kv_row = bh / (hq / hkv);
+  const int bh = blockIdx.x;                             // b * hq + h
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBB;     // heaviest tiles first
+  const int kv_row = bh / (hq / hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, t = lane & 3;
-  const float c = scale * kLog2e;
-  const int n_q = min(kB, sq - q0);
-  const int w0 = 16 * warp;                           // the warp's first row in the tile
-  const int w_rows = min(16, n_q - w0);               // <= 0: the warp has no query
-  // one past the last key any query of the block, or of the warp, can see
+  const bool issuer = warp == 4 * (kWG - 1);             // the last warpgroup runs every tile
+
+  const int n_q = min(kBB, sq - q0);
+  const int wg_rows = min(64, n_q - 64 * wg);            // <= 0: no query
+  // one past the last key any query of the block, or of the warpgroup, sees
   const int key_hi = causal ? min(skv, q_offset + q0 + n_q) : skv;
-  const int w_key_hi = w_rows <= 0 ? 0 : causal ? min(skv, q_offset + q0 + w0 + w_rows) : skv;
-  const int n_tiles = (key_hi + kB - 1) / kB;
-  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  const int wg_key_hi = wg_rows <= 0 ? 0 : causal ? min(skv, q_offset + q0 + 64 * wg + wg_rows) : skv;
+  const int n_tiles = (key_hi + kBT - 1) / kBT;
+  const int wg_tiles = (wg_key_hi + kBT - 1) / kBT;
 
-  const bf16* k_bh = k + kv_row * skv * r;
-  const bf16* v_bh = v + kv_row * skv * dvw;
-  stage<P::kR>(q_s, q + (bh * sq + q0) * r, r, n_q, vec_qk);
-  stage<P::kD>(do_s, dout + (bh * sq + q0) * dvw, dvw, n_q, vec_v);
-  cp_async_commit();
-  stage_keys<KR, ND>(ring, k_bh, v_bh, 0, skv, r, dvw, vec_qk, vec_v);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * kWG);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  // rows w0 + g and w0 + g + 8: lse log2(e) and D (0 past sq)
+  // the issuing warp fills stage tile % kStages with K and V tile `tile`
+  const auto load_tile = [&](int tile) {
+    const int st = tile % kStages, k0 = tile * kBT;
+    const size_t row0 = (size_t)kv_row * skv + k0;
+    const uint32_t kd = k_s + st * L::kTileR, vd = v_s + st * L::kTileD;
+    if (!tma_qk) stage<KR, kBT>(kd, k + row0 * r, r, skv - k0, lane);
+    if (!tma_v) stage<DV, kBT>(vd, v + row0 * dvw, dvw, skv - k0, lane);
+    if (lane == 0) {
+      const uint32_t tx = (tma_qk ? L::kTileR : 0) + (tma_v ? L::kTileD : 0);
+      if (tx == 0) {
+        mbar_arrive(full(st));
+      } else {
+        mbar_arrive_tx(full(st), tx);
+        if (tma_qk) tma_tile<KR>(kd, &tm_k, kBT, k0, kv_row, kBT, full(st));
+        if (tma_v) tma_tile<DV>(vd, &tm_v, kBT, k0, kv_row, kBT, full(st));
+      }
+    }
+    __syncwarp();
+  };
+  if (issuer) {
+    // the block's Q and dout: 128 rows, or 64 when no query lies past the first 64
+    const int rows = n_q > kBT ? kBB : kBT;
+    const size_t row0 = (size_t)bh * sq + q0;
+    if (!tma_qk) stage<KR, kBB>(q_s, q + row0 * r, r, n_q, lane);
+    if (!tma_v) stage<DV, kBB>(o_s, dout + row0 * dvw, dvw, n_q, lane);
+    if (lane == 0) {
+      const uint32_t tx = (tma_qk ? rows * KR * 2 : 0) + (tma_v ? rows * DV * 2 : 0);
+      if (tx == 0) {
+        mbar_arrive(q_full);
+      } else {
+        mbar_arrive_tx(q_full, tx);
+        if (tma_qk) tma_tile<KR>(q_s, &tm_q, rows, q0, bh, kBB, q_full);
+        if (tma_v) tma_tile<DV>(o_s, &tm_do, rows, q0, bh, kBB, q_full);
+      }
+    }
+    __syncwarp();
+    for (int tile = 0; tile < min(kStages, n_tiles); ++tile) load_tile(tile);
+  }
+
+  // rows g and g + 8 of the warp's 16: lse log2(e) and D (0 past sq)
+  const int w_row = 64 * wg + 16 * wl;                   // the warp's first row in the block
+  const int w_pos = q_offset + q0 + w_row;               // and its position
   float l2[2], dd[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = w0 + g + 8 * h;
-    l2[h] = row < n_q ? lse[bh * sq + q0 + row] * kLog2e : 0.f;
-    dd[h] = row < n_q ? dsum[bh * sq + q0 + row] : 0.f;
+    const int row = w_row + g + 8 * h;
+    l2[h] = row < n_q ? lse[(size_t)bh * sq + q0 + row] * kLog2e : 0.f;
+    dd[h] = row < n_q ? dsum[(size_t)bh * sq + q0 + row] : 0.f;
   }
-  float acc[2 * KR][4];
+  const float c = scale * kLog2e;
+  float acc[KR / 2];
 #pragma unroll
-  for (int n = 0; n < 2 * KR; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const uint32_t q_a = smem_u32(q_s + (w0 + a_row) * kLR + a_col);
-  const uint32_t do_a = smem_u32(do_s + (w0 + a_row) * kLD + a_col);
+  for (int i = 0; i < KR / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kB;
-    __syncthreads();                   // tile - 1 is consumed: its stage may be refilled
-    if (tile + 1 < n_tiles)
-      stage_keys<KR, ND>(ring + ((tile + 1) % 2) * P::kTile, k_bh, v_bh, k0 + kB, skv, r, dvw,
-                         vec_qk, vec_v);
-    cp_async_commit();                 // possibly empty: one group per tile
-    cp_async_wait<1>();                // Q, dout and this tile have landed
-    __syncthreads();
-    const bf16* k_t = reinterpret_cast<const bf16*>(ring + (tile % 2) * P::kTile);
-    const bf16* v_t = k_t + kB * kLR;
-#pragma unroll 1
-    for (int ka = 0; ka < kB; ka += 16) {
-      // warp-uniform: no key of the step is visible to the warp
-      if (k0 + ka >= w_key_hi) break;
-      float s[2][4], dp[2][4];         // S, dP: the warp's queries x the step's 16 keys
-      row_product<KR>(s, q_a, smem_u32(k_t + (ka + b_row) * kLR + b_col));
-      row_product<ND / 2>(dp, do_a, smem_u32(v_t + (ka + b_row) * kLD + b_col));
+    const int st = tile % kStages, k0 = tile * kBT;
+    mbar_wait(full(st), (tile / kStages) & 1);
+    if (tile < wg_tiles) {                               // warpgroup-uniform
+      const uint32_t k_t = k_s + st * L::kTileR, v_t = v_s + st * L::kTileD;
+      // S = Q K^T, dP = dout V^T: the warpgroup's 64 queries x the tile's 64
+      // keys; thread element i at query g + 8 ((i >> 1) & 1) of the warp's
+      // 16, key 8 (i >> 2) + 2t + (i & 1)
+      float s[32], dp[32];
+      wgmma_fence();
+      row_product<KR, kBB>(s, q_s, k_t, wg);
+      row_product<DV, kBB>(dp, o_s, v_t, wg);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
       // rows past sq are never stored: only keys need masks
-      const bool edge = k0 + ka + 16 > skv || (causal && k0 + ka + 15 > q_offset + q0 + w0);
+      const bool edge = k0 + kBT > skv || (causal && k0 + kBT - 1 > w_pos);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + ka + 8 * j + 2 * t + (e & 1);
-          const int q_pos = q_offset + q0 + w0 + g + 8 * (e >> 1);
-          const bool vis = !edge || (key < skv && (!causal || key <= q_pos));
-          const float p = vis ? ex2(fmaf(s[j][e], c, -l2[e >> 1])) : 0.f;
-          dp[j][e] = p * (dp[j][e] - dd[e >> 1]);   // dS
-        }
-      uint32_t hi[4], lo[4];
-      c_to_a(dp, hi, lo);
-      col_product<2 * KR>(acc, hi, lo, smem_u32(k_t + (ka + a_row) * kLR + a_col));
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1), h = (i >> 1) & 1;
+        const bool vis = !edge || (key < skv && (!causal || key <= w_pos + g + 8 * h));
+        const float p = vis ? ex2(fmaf(s[i], c, -l2[h])) : 0.f;
+        dp[i] = p * (dp[i] - dd[h]);                     // dS
+      }
+      uint32_t d_hi[4][4], d_lo[4][4];
+      pack(dp, d_hi, d_lo);
+      // dq += dS K: k-step kk reads the tile's keys 16 kk .. 16 kk + 15
+      col_product<KR, (KR <= 128 ? KR : 64)>(acc, d_hi, d_lo, k_t);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+    if (issuer && tile >= 1 && tile - 1 + kStages < n_tiles) {
+      mbar_wait(empty((tile - 1) % kStages), ((tile - 1) / kStages) & 1);
+      load_tile(tile - 1 + kStages);
     }
   }
-  cp_async_wait<0>();
-  if (w_rows <= 0) return;
-  store_rows<2 * KR>(dq + (bh * sq + q0) * r, acc, w0, n_q, r, scale, g, t);
+  if (wg_rows <= 0) return;
+  store_rows<KR>(dq + ((size_t)bh * sq + q0) * r, acc, w_row + g, n_q, r, 0, scale, t);
 }
 
-template <int KR, int ND>
+// One dK/dV launch: dk columns kc0 .. kc0 + NK - 1, and dv when NV > 0
+template <int KR, int DV, int NK, int NV>
+cudaError_t launch_dkdv(const CUtensorMap (&tm)[4], const bf16* q, const bf16* k, const bf16* v,
+                        const bf16* dout, const float* lse, const float* dsum, bf16* dk, bf16* dv,
+                        int b, int hq, int hkv, int sq, int skv, int r, int dvw, int q_offset,
+                        int causal, float scale, int tma_qk, int tma_v, int kc0,
+                        cudaStream_t stream) {
+  constexpr size_t kSmem = Smem<KR, DV>::bytes();
+  cudaError_t err = cudaFuncSetAttribute(lowrank_flash_bwd_bf16_dkdv_kernel<KR, DV, NK, NV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * hkv, (skv + kBB - 1) / kBB);
+  lowrank_flash_bwd_bf16_dkdv_kernel<KR, DV, NK, NV><<<grid, kThreads, kSmem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], q, k, v, dout, lse, dsum, dk, dv, hq, hkv, sq, skv, r, dvw,
+      q_offset, causal, scale, tma_qk, tma_v, kc0);
+  return cudaGetLastError();
+}
+
+template <int KR, int DV>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                    const float* lse, const float* dsum, bf16* dq, bf16* dk, bf16* dv, int b,
                    int hq, int hkv, int sq, int skv, int r, int dvw, int q_offset, int causal,
-                   float scale, int vec_qk, int vec_v, cudaStream_t stream) {
-  // r = 192 with dv = 128: 130,048 bytes (dk/dv) and 129,024 (dq), under
-  // the H100's 227 KB per block
-  constexpr size_t kSmemKV = Plan<KR, ND>::dkdv_smem(), kSmemQ = Plan<KR, ND>::dq_smem();
-  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "shared memory per block");
-  cudaError_t err = cudaFuncSetAttribute(lowrank_flash_bwd_bf16_dkdv_kernel<KR, ND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemKV);
+                   float scale, cudaStream_t stream) {
+  // TMA needs 16-byte aligned bases and rows of a multiple of 16 bytes
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int tma_qk = r % 8 == 0 && aligned(q) && aligned(k);
+  const int tma_v = dvw % 8 == 0 && aligned(v) && aligned(dout);
+  CUtensorMap tm[4] = {};                                  // q, k, v, dout
+  if (tma_qk && !(make_map<KR>(&tm[0], q, r, sq, b * hq, kBT) &&
+                  make_map<KR>(&tm[1], k, r, skv, b * hkv, kBT)))
+    return cudaErrorNotSupported;
+  if (tma_v && !(make_map<DV>(&tm[2], v, dvw, skv, b * hkv, kBT) &&
+                 make_map<DV>(&tm[3], dout, dvw, sq, b * hq, kBT)))
+    return cudaErrorNotSupported;
+  // r = 192 with dv = 128: 207,416 bytes, under the H100's 227 KB per block
+  constexpr size_t kSmem = Smem<KR, DV>::bytes();
+  static_assert(kSmem <= 232448, "shared memory per block");
+  cudaError_t err;
+  if constexpr (KR + DV <= 256) {
+    err = launch_dkdv<KR, DV, KR, DV>(tm, q, k, v, dout, lse, dsum, dk, dv, b, hq, hkv, sq, skv,
+                                      r, dvw, q_offset, causal, scale, tma_qk, tma_v, 0, stream);
+  } else {
+    // r = 192: dk 96 + dv 64 accumulators and a tile's operands spill past
+    // 255 registers, so one launch sums dv and dk's first 128 columns and a
+    // second dk's last 64, each recomputing S^T and dP^T
+    err = launch_dkdv<KR, DV, 128, DV>(tm, q, k, v, dout, lse, dsum, dk, dv, b, hq, hkv, sq, skv,
+                                       r, dvw, q_offset, causal, scale, tma_qk, tma_v, 0, stream);
+    if (err == cudaSuccess)
+      err = launch_dkdv<KR, DV, KR - 128, 0>(tm, q, k, v, dout, lse, dsum, dk, dv, b, hq, hkv, sq,
+                                             skv, r, dvw, q_offset, causal, scale, tma_qk, tma_v,
+                                             128, stream);
+  }
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(lowrank_flash_bwd_bf16_dq_kernel<KR, ND>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemQ);
+  err = cudaFuncSetAttribute(lowrank_flash_bwd_bf16_dq_kernel<KR, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv(b * hkv, (skv + kB - 1) / kB), grid_q(b * hq, (sq + kB - 1) / kB);
-  lowrank_flash_bwd_bf16_dkdv_kernel<KR, ND><<<grid_kv, kThreads, kSmemKV, stream>>>(
-      q, k, v, dout, lse, dsum, dk, dv, hq, hkv, sq, skv, r, dvw, q_offset, causal, scale, vec_qk,
-      vec_v);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  lowrank_flash_bwd_bf16_dq_kernel<KR, ND><<<grid_q, kThreads, kSmemQ, stream>>>(
-      q, k, v, dout, lse, dsum, dq, hq, hkv, sq, skv, r, dvw, q_offset, causal, scale, vec_qk,
-      vec_v);
+  const dim3 grid_q(b * hq, (sq + kBB - 1) / kBB);
+  lowrank_flash_bwd_bf16_dq_kernel<KR, DV><<<grid_q, kThreads, kSmem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], q, k, v, dout, lse, dsum, dq, hq, hkv, sq, skv, r, dvw, q_offset,
+      causal, scale, tma_qk, tma_v);
   return cudaGetLastError();
 }
 
@@ -578,7 +642,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout
 // tensor from lowrank_flash_bf16_launch on the same q, k, v; dq, dk and dv
 // (bf16) receive the gradients (the inputs' shapes) and dsum (f32,
 // (b, hq, sq)) is scratch for D. Launches three kernels on `stream` and does
-// not synchronise. Returns a cudaError_t value (0 = launched).
+// not synchronise. Returns a cudaError_t value (0 = launched;
+// cudaErrorNotSupported when the driver could not encode a TMA tensor map).
 extern "C" int lowrank_flash_bwd_bf16_launch(const void* q, const void* k, const void* v,
                                              const void* out, const void* lse, const void* dout,
                                              void* dq, void* dk, void* dv, void* dsum, int b,
@@ -587,8 +652,8 @@ extern "C" int lowrank_flash_bwd_bf16_launch(const void* q, const void* k, const
                                              void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || r < 1 ||
       r > kMaxRank || dvw < 1 || dvw > kMaxDim || q_offset < 0 ||
-      (long long)b * hq > 0x7fffffffLL || (sq + kB - 1) / kB > 65535 ||
-      (skv + kB - 1) / kB > 65535 || (long long)b * hq * sq > 0x7fffffffLL)
+      (long long)b * hq > 0x7fffffffLL || (sq + kBB - 1) / kBB > 65535 ||
+      (skv + kBB - 1) / kBB > 65535 || (long long)b * hq * sq > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = b * hq * sq;
@@ -598,27 +663,23 @@ extern "C" int lowrank_flash_bwd_bf16_launch(const void* q, const void* k, const
       rows, dvw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // 16-byte copies need rows of a multiple of 8 elements and aligned base pointers
-  const uintptr_t align = 16;
-  const int vec_qk = r % 8 == 0 && (uintptr_t)q % align == 0 && (uintptr_t)k % align == 0;
-  const int vec_v = dvw % 8 == 0 && (uintptr_t)v % align == 0 && (uintptr_t)dout % align == 0;
-#define LB_CALL(KR, ND)                                                                       \
-  (int)launch<KR, ND>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),               \
+#define LB_CALL(KR, DV)                                                                       \
+  (int)launch<KR, DV>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),               \
                       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),            \
                       static_cast<const float*>(lse), static_cast<const float*>(dsum),        \
                       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), \
-                      b, hq, hkv, sq, skv, r, dvw, q_offset, causal != 0, scale, vec_qk, vec_v, s)
+                      b, hq, hkv, sq, skv, r, dvw, q_offset, causal != 0, scale, s)
   // r pads to 32, 64, 128 or 192 and dv to 64 or 128: six instantiations
   // (drrl-paper's r = 32 / 64 at dv = 64, qwen's r = 32 / 128 at dv = 128,
   // MLA's r = 192)
   if (dvw <= 64) {
-    if (r <= 32) return LB_CALL(2, 8);
-    if (r <= 64) return LB_CALL(4, 8);
-    if (r <= 128) return LB_CALL(8, 8);
+    if (r <= 32) return LB_CALL(32, 64);
+    if (r <= 64) return LB_CALL(64, 64);
+    if (r <= 128) return LB_CALL(128, 64);
   } else {
-    if (r <= 32) return LB_CALL(2, 16);
-    if (r <= 128) return LB_CALL(8, 16);
+    if (r <= 32) return LB_CALL(32, 128);
+    if (r <= 128) return LB_CALL(128, 128);
   }
-  return LB_CALL(12, 16);
+  return LB_CALL(192, 128);
 #undef LB_CALL
 }

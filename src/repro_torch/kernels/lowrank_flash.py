@@ -17,9 +17,9 @@ Both can also return each row's log-sum-exp (``return_lse``), from which
 the backward rebuilds P. The backward has two versions too:
 :func:`lowrank_flash_bwd` launches ``csrc/lowrank_flash_bwd.cu`` (split
 TF32 on ``mma.sync``, as the forward) for f32 inputs and
-``csrc/lowrank_flash_bwd_bf16.cu`` (bf16 ``mma.sync``, P and dS as two bf16
-terms) for bf16 ones (the Pallas kernel has none, the reference
-differentiates its flash branch with plain XLA), and
+``csrc/lowrank_flash_bwd_bf16.cu`` (``wgmma`` and TMA, as the bf16
+forward; P and dS as two bf16 terms) for bf16 ones (the Pallas kernel has
+none, the reference differentiates its flash branch with plain XLA), and
 :func:`lowrank_flash_bwd_plain` computes it in plain PyTorch.
 :class:`LowrankFlash` is the autograd Function over both passes: kernels
 on CUDA tensors, plain versions on CPU tensors.

@@ -8,11 +8,20 @@ training slice it serves, against the JAX package.
     P = exp2(S scale log2 e - lse log2 e), D = rowsum(dout o out) and
     dS = P o (dP - D) in f32; P and dS entering dv = P^T dout,
     dk = dS^T Q and dq = dS K as two bf16 terms, x_hi = bf16(x) and x_lo =
-    bf16(x - x_hi), each step of 16 queries (dk, dv: the dK/dV kernel's
-    step) or 16 keys (dq) summed on its own and joined with one f32 add,
-    over the GQA group's heads; the scale applied last and each gradient
-    rounded to bf16 once. It is held against the float64 backward on the
-    same inputs (q, k, v, the forward's bf16 out, dout) at the tolerance
+    bf16(x - x_hi), in the kernel's order: each tile of 64 queries (dk, dv:
+    the dK/dV kernel's query tiles, the GQA group's heads one after
+    another) or 64 keys (dq) summed in a partial of its own, k-step by
+    k-step (16 queries or keys, the lo term and then the hi term added in
+    f32), and joined to its gradient with one f32 add; the scale applied
+    last and each gradient rounded to bf16 once. Inside a k-step and in the
+    partial the tensor cores sum in their own way, not f32
+    round-to-nearest, which cannot be emulated here: the partial holds 8
+    such sums of 16 terms, and phase 6 of ``chip_smoke.py`` holds the
+    kernel to the same tolerance on the card, at a 16384-key case with
+    131,072 summands per dk / dv row among its cases (summed over all
+    tiles on the tensor cores, the gradients missed it there 2.3-fold).
+    It is held against the float64 backward on the same inputs (q, k, v,
+    the forward's bf16 out, dout) at the tolerance
     ``chip_smoke.py`` holds the kernel to against ``lowrank_flash_bwd_plain``
     on the card: ``BWD_BF16_ATOL`` of each gradient's largest magnitude
     plus ``BWD_BF16_RTOL`` of each element. Two bf16 steps of the element
@@ -63,7 +72,8 @@ from repro_torch.train import loop as tloop  # noqa: E402
 
 # chip_smoke.BWD_BF16_ATOL, chip_smoke.BWD_BF16_RTOL
 BWD_BF16_ATOL, BWD_BF16_RTOL = 2e-5, 2 ** -6
-STEP = 16                       # queries (dK/dV) or keys (dQ) per step of the kernel
+TILE = 64                       # queries (dK/dV) or keys (dQ) per partial of the kernel
+K_STEP = 16                     # rows per wgmma k-step
 ATTEND_FACTOR = 1.0
 ATTEND_STEPS = 2
 TRAIN_REL = 2 ** -12
@@ -155,22 +165,34 @@ def emulate_bwd(q, k, v, o, lse, do, *, scale, causal, q_offset, terms):
     ds = p * (dof @ vr.transpose(-1, -2) - dsum[..., None])
     p_hi, p_lo = _terms(p, terms)
     ds_hi, ds_lo = _terms(ds, terms)
-    dk, dvv = torch.zeros(b, hq, skv, r), torch.zeros(b, hq, skv, dv)
-    for q0 in range(0, sq, STEP):                       # the dK/dV kernel's steps
-        w = slice(q0, q0 + STEP)
-        dvv = dvv + (p_lo[..., w, :].transpose(-1, -2) @ dof[..., w, :]
-                     + p_hi[..., w, :].transpose(-1, -2) @ dof[..., w, :])
-        dk = dk + (ds_lo[..., w, :].transpose(-1, -2) @ qf[..., w, :]
-                   + ds_hi[..., w, :].transpose(-1, -2) @ qf[..., w, :])
-    dq = torch.zeros(b, hq, sq, r)
-    for k0 in range(0, skv, STEP):                      # the dQ kernel's steps
-        w = slice(k0, k0 + STEP)
-        dq = dq + (ds_lo[..., w] @ kr[..., w, :] + ds_hi[..., w] @ kr[..., w, :])
 
-    def fold(x):
-        return x.reshape(b, hkv, g, skv, x.shape[-1]).sum(dim=2)
-    return ((scale * dq).bfloat16(), (scale * fold(dk)).bfloat16(),
-            fold(dvv).bfloat16())
+    def tiles(n, product):
+        """sum over tiles of TILE rows of the contraction (n of them) of
+        the tile's partial: its k-steps' products (lo term, then hi term)
+        added in f32 in turn, the partial then joined with one f32 add"""
+        acc = 0.0
+        for t0 in range(0, n, TILE):
+            part = 0.0
+            for s0 in range(t0, min(t0 + TILE, n), K_STEP):
+                lo, hi = product(slice(s0, s0 + K_STEP))
+                part = part + lo
+                part = part + hi
+            acc = acc + part
+        return acc
+
+    def by_head(x):                                     # (b, hq, ...) -> (b, hkv, g, ...)
+        return x.reshape(b, hkv, g, *x.shape[2:])
+    pq_hi, pq_lo, dst_hi, dst_lo = (by_head(x).transpose(-1, -2)
+                                  for x in (p_hi, p_lo, ds_hi, ds_lo))
+    qg, dog = by_head(qf), by_head(dof)
+    dk, dvv = 0.0, 0.0
+    for h in range(g):                                  # the dK/dV kernel's heads, then tiles
+        dvv = dvv + tiles(sq, lambda w: (pq_lo[:, :, h, :, w] @ dog[:, :, h, w],
+                                         pq_hi[:, :, h, :, w] @ dog[:, :, h, w]))
+        dk = dk + tiles(sq, lambda w: (dst_lo[:, :, h, :, w] @ qg[:, :, h, w],
+                                       dst_hi[:, :, h, :, w] @ qg[:, :, h, w]))
+    dq = tiles(skv, lambda w: (ds_lo[..., w] @ kr[..., w, :], ds_hi[..., w] @ kr[..., w, :]))
+    return (scale * dq).bfloat16(), (scale * dk).bfloat16(), dvv.bfloat16()
 
 
 def backward_f64(q, k, v, o, do, *, scale, causal, q_offset):

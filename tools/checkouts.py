@@ -71,12 +71,12 @@ def bitwise(tool: str, mode: str, other: str, labels: list, what: str) -> dict:
     return {"cases": len(labels), "bitwise_equal": len(labels)}
 
 
-def ab(tool: str, other: str, labels: list, card: str) -> dict:
-    """``tool --emit times`` (ms per label) in the order other, this, this,
-    other; per label both checkouts' two times."""
+def ab(tool: str, other: str, labels: list, card: str, mode: str = "times") -> dict:
+    """``tool --emit MODE`` (ms per label; MODE 'times' unless named) in the
+    order other, this, this, other; per label both checkouts' two times."""
     other = os.path.abspath(other)
-    runs = run_trees(tool, "times", [("other", other), ("this", ROOT), ("this", ROOT),
-                                     ("other", other)])
+    runs = run_trees(tool, mode, [("other", other), ("this", ROOT), ("this", ROOT),
+                                  ("other", other)])
     res = {}
     for i, label in enumerate(labels):
         mine, theirs = [runs[1][i], runs[2][i]], [runs[0][i], runs[3][i]]
