@@ -23,8 +23,6 @@ from repro_torch.configs.base import SHAPE_CELLS, ModelConfig
 
 # the reference's fields that the port's ModelConfig lacks, and why
 NOT_PORTED = {
-    "remat": "the port's step is eager and has no rematerialisation policy "
-             "(ROADMAP item 19)",
     "seq_shard_attn": "the reference reads it only for GSPMD constraints on the "
                       "score tensors; the port's step runs the model on gathered "
                       "plain tensors (ROADMAP item 19)",

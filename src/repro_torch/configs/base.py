@@ -2,8 +2,10 @@
 ``repro.configs.base.ModelConfig`` / ``RankConfig`` / ``MoEConfig`` /
 ``MLAConfig`` / ``SSMConfig`` / ``RWKVConfig`` that the port's model
 families and its sharding rules read, and of ``TrainConfig``, with the
-same names and defaults. ``remat``, ``scan_layers``, ``seq_shard`` and
-``seq_shard_attn`` are not ported (ROADMAP item 19)."""
+same names and defaults. ``remat`` (none | full | dots) is read by
+``forward_dense`` and ``forward_deepseek``'s MoE stack, as in the
+reference (``models.common.remat_layer``); ``scan_layers``, ``seq_shard``
+and ``seq_shard_attn`` are not ported (ROADMAP item 19)."""
 from __future__ import annotations
 
 import dataclasses
@@ -116,6 +118,7 @@ class ModelConfig:
     dtype: str = "float32"         # activation/compute dtype
     param_dtype: str = "float32"
     # distribution (repro_torch.dist), in the reference's field order:
+    remat: str = "none"            # none | full | dots (models.common.remat_layer)
     # sharding mode: 'dp' (replicated params), 'tp' (megatron), 'fsdp'
     # (params sharded over data too), 'fsdp_tp'
     sharding: str = "fsdp_tp"

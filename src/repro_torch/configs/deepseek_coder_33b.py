@@ -1,7 +1,7 @@
 """deepseek-coder-33b [dense]: 62L d_model=7168 56H (GQA kv=8) d_ff=19200
 vocab=32256, llama-arch. Same values as
-``repro/configs/deepseek_coder_33b.py`` (whose ``remat`` the
-port does not read)."""
+``repro/configs/deepseek_coder_33b.py`` (``remat="dots"`` included, applied
+by ``models.common.remat_layer``)."""
 from repro_torch.configs.base import ModelConfig, RankConfig
 
 
@@ -11,12 +11,14 @@ def full_config() -> ModelConfig:
         num_layers=62, d_model=7168, num_heads=56, num_kv_heads=8,
         d_ff=19200, vocab_size=32256, head_dim=128,
         rope_theta=1e5, dtype="bfloat16", param_dtype="bfloat16",
+        remat="dots",
         rank=RankConfig(mode="off"),
     )
 
 
 def reduced_config() -> ModelConfig:
     return full_config().with_(
+        remat="none",
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256, dtype="float32", param_dtype="float32",
         max_seq_len=128,

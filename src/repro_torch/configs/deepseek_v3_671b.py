@@ -3,8 +3,8 @@ vocab=129280, MLA, 1 shared + 256 routed top-8, MTP.
 
 First 3 layers dense (d_ff 18432); MoE layers 1 shared + 256 routed experts
 (top-8); MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 / v 128. Same
-values as ``repro/configs/deepseek_v3_671b.py`` (whose ``remat`` the
-port does not read)."""
+values as ``repro/configs/deepseek_v3_671b.py`` (``remat="full"`` included,
+applied to the MoE stack by ``models.common.remat_layer``)."""
 from repro_torch.configs.base import MLAConfig, MoEConfig, ModelConfig, RankConfig
 
 
@@ -20,12 +20,14 @@ def full_config() -> ModelConfig:
                       v_head_dim=128),
         first_dense_layers=3, dense_d_ff=18432, mtp_depth=1,
         rope_theta=1e4, dtype="bfloat16", param_dtype="bfloat16",
+        remat="full",
         rank=RankConfig(mode="off"),
     )
 
 
 def reduced_config() -> ModelConfig:
     return full_config().with_(
+        remat="none",
         num_layers=4, d_model=64, num_heads=4, num_kv_heads=4,
         d_ff=32, vocab_size=256,
         moe=MoEConfig(num_experts=4, top_k=2, d_expert=32,

@@ -1,10 +1,17 @@
 """Shared model components of the port: RoPE (M-RoPE too), the GQA head
-maps and the dense KV-cache append."""
+maps, the dense KV-cache append and the per-layer activation
+checkpointing of ``cfg.remat`` (the reference's ``jax.checkpoint`` around
+a layer stack's scan body)."""
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch import tree as tu
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -72,3 +79,80 @@ def cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
     cache["k"][:, idx:idx + s_new] = k_new.to(cache["k"].dtype)
     cache["v"][:, idx:idx + s_new] = v_new.to(cache["v"].dtype)
     return {"k": cache["k"], "v": cache["v"], "len": idx + s_new}
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing (``cfg.remat``)
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "full", "dots")
+
+# what a ``dot_general`` reaches the dispatcher as in eager PyTorch: the ops
+# that ``@``, ``linear``, ``matmul`` and ``einsum`` lower to
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+    torch.ops.aten.baddbmm, torch.ops.aten.addbmm, torch.ops.aten.mv,
+    torch.ops.aten.addmv, torch.ops.aten.dot, torch.ops.aten.vdot})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: every matrix product's
+    output saved, every other op recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXTS = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+
+def remat_layer(cfg, body: Callable,
+                generators: Iterable[Optional[torch.Generator]] = ()) -> Callable:
+    """``body`` as the reference's ``jax.checkpoint(body, policy=...)`` wraps
+    a layer stack's scan body, by ``cfg.remat``: 'none' returns ``body``;
+    'full' runs each call under ``torch.utils.checkpoint.checkpoint``
+    (non-reentrant), so the backward keeps only the call's inputs and runs
+    ``body`` again; 'dots' does the same with selective checkpointing that
+    saves every matrix product (``_save_dots``) and recomputes the rest.
+
+    A call that autograd records nothing of (grad mode off, or no tensor
+    among its arguments requiring grad) runs ``body`` directly, as JAX's
+    checkpoint changes nothing without a gradient: serving, decoding and
+    every grad-free forward are untouched.
+
+    ``generators`` are the explicit ``torch.Generator`` s that ``body``
+    draws from (rank mode 'drrl''s sampled actions). Checkpointing restores
+    only the global CPU and CUDA generators for its recompute, so each call
+    records their states as it starts and sets them back for the recompute
+    (then returns them to where the backward found them): the recompute
+    draws what the forward drew. Kernels called through ctypes are opaque
+    to the dispatcher, so 'dots' cannot save their outputs: they run again
+    in the recompute (``lowrank_flash``'s forward, once per call)."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"remat {cfg.remat!r}: not one of {REMAT_MODES}")
+    if cfg.remat == "none":
+        return body
+    gens = [g for g in generators if g is not None]
+    context = {"context_fn": _DOTS_CONTEXTS} if cfg.remat == "dots" else {}
+
+    def call(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(x, torch.Tensor) and x.requires_grad for x in tu.leaves(args))):
+            return body(*args)
+        start = [g.get_state() for g in gens]
+        first = True
+
+        def region(*a):
+            nonlocal first
+            if first:
+                first = False
+                return body(*a)
+            now = [g.get_state() for g in gens]
+            for g, s in zip(gens, start):
+                g.set_state(s)
+            try:
+                return body(*a)
+            finally:
+                for g, s in zip(gens, now):
+                    g.set_state(s)
+        return checkpoint(region, *args, use_reentrant=False, **context)
+    return call

@@ -18,6 +18,7 @@ from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.ctx import logits_spec
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import remat_layer
 from repro_torch.models.mla import init_mla, init_mla_cache, mla_decode, mla_train
 from repro_torch.models.transformer import _logits, _pick, ffn, init_ffn
 
@@ -85,7 +86,10 @@ def forward_deepseek(cfg: ModelConfig, params, tokens, *, positions=None,
     block's included. ``rank_ctx0`` ({'cfg': RankConfig[, 'rng']}) is every
     layer's rank context, as in the reference; ``collect_aux`` is accepted
     and unused, as there. ``chunked`` sends every attention over more than
-    1024 keys through ``lowrank_flash`` (r = qk_nope + qk_rope)."""
+    1024 keys through ``lowrank_flash`` (r = qk_nope + qk_rope). Under
+    autograd the MoE layers run as ``cfg.remat`` says
+    (:func:`repro_torch.models.common.remat_layer`); the dense layers and
+    the MTP block keep their activations, as in the reference."""
     dtype = nn.dt(cfg.dtype)
     tokens = tokens.long()
     x = params["embed"][tokens].to(dtype)
@@ -95,11 +99,16 @@ def forward_deepseek(cfg: ModelConfig, params, tokens, *, positions=None,
 
     for lp in params["dense_layers"]:
         x, _ = _block(cfg, lp, x, positions, rank_ctx0, chunked)
+
+    def moe_layer(x, lp):
+        # the reference's scan body over the MoE stack, under cfg.remat
+        x, aux = _block(cfg, lp, x, positions, rank_ctx0, chunked)
+        return x, aux["aux_loss"]
+    moe_layer = remat_layer(cfg, moe_layer)
     aux_loss = torch.zeros((), device=x.device)
     for li in range(_n_moe(params)):
-        x, aux = _block(cfg, _pick(params["moe_layers"], li), x, positions,
-                        rank_ctx0, chunked)
-        aux_loss = aux_loss + aux["aux_loss"]
+        x, layer_loss = moe_layer(x, _pick(params["moe_layers"], li))
+        aux_loss = aux_loss + layer_loss
     logits = _logits(params, nn.rms_norm(x, params["ln_f"], cfg.rms_eps))
     aux_out: Dict[str, Any] = {"aux_loss": aux_loss}
 

@@ -17,7 +17,7 @@ from repro_torch.dist.ctx import logits_spec
 from repro_torch.kernels.ops import decode_attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import attend, mhsa
-from repro_torch.models.common import apply_rope, kv_group_mean
+from repro_torch.models.common import apply_rope, kv_group_mean, remat_layer
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype, *, device,
@@ -251,7 +251,11 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
     card, and only each layer's (b, hkv) ranks move to it. ``proj`` is the
     'performer' feature matrices (see :func:`make_rank_ctx`).
     ``power_v0`` {'wq', 'wk', 'wv': start vector} overrides the start
-    vectors of w_t's power iterations (default ``drrl.power_starts``)."""
+    vectors of w_t's power iterations (default ``drrl.power_starts``).
+    Under autograd each layer runs as ``cfg.remat`` says
+    (:func:`repro_torch.models.common.remat_layer`): its rank context and
+    block are recomputed in the backward ('full'), all but their matrix
+    products ('dots'), or kept ('none')."""
     dtype = nn.dt(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
     if extra_embeddings is not None:
@@ -269,15 +273,21 @@ def forward_dense(cfg: ModelConfig, params, tokens, *, positions=None,
     prev = torch.full((b, cfg.num_kv_heads), cfg.rank.rank_grid[-1],
                       dtype=torch.int32, device=x.device)
     key = rank_rng
-    aux_layers = []
-    for li in range(cfg.num_layers):
-        lp = _layer(params, li)
-        sub = None
-        if rank_ctx is not None and key is not None:
-            key, sub = prng.split(key)
+
+    def layer(x, prev, lp, li, sub):
+        # the reference's scan body: the layer's rank context (w_t), the
+        # block and its aux, under cfg.remat
         x, _, aux = _block(cfg, lp, x, positions,
                            _rank_layer_ctx(cfg, rank_ctx, lp, li, prev,
                                            power_v0, rng=sub), None, chunked)
+        return x, aux
+    layer = remat_layer(cfg, layer, generators=(rank_generator,))
+    aux_layers = []
+    for li in range(cfg.num_layers):
+        sub = None
+        if rank_ctx is not None and key is not None:
+            key, sub = prng.split(key)
+        x, aux = layer(x, prev, _layer(params, li), li, sub)
         prev = aux.get("rank", prev)
         aux_layers.append(_aux_slim(aux, collect_aux))
     x = nn.rms_norm(x, params["ln_f"], cfg.rms_eps)

@@ -27,10 +27,11 @@ from repro_torch.models.api import get_model  # noqa: E402
 FAMILY_ARCHS = ("zamba2-7b", "rwkv6-1.6b", "seamless-m4t-medium", "qwen2-vl-7b")
 PORTED = ("qwen2.5-14b", "internlm2-20b", "phi3-medium-14b", "deepseek-coder-33b",
           "granite-moe-3b-a800m", "deepseek-v3-671b") + FAMILY_ARCHS + ("drrl-paper",)
-# the reference's fields the port does not carry: XLA's remat / scan knobs
-# and its GSPMD sequence-sharding hints (the sharding rules' fields,
-# ``sharding``, ``mesh_axes`` and ``cache_seq_shard``, are carried)
-XLA_KNOBS = {"remat", "scan_layers", "seq_shard", "seq_shard_attn"}
+# the reference's fields the port does not carry: XLA's scan knob and its
+# GSPMD sequence-sharding hints (the sharding rules' fields, ``sharding``,
+# ``mesh_axes`` and ``cache_seq_shard``, are carried, and so is ``remat``,
+# compared like every other field)
+XLA_KNOBS = {"scan_layers", "seq_shard", "seq_shard_attn"}
 CASES = [(a, r) for a in PORTED for r in (False, True)]
 IDS = ["%s-%s" % (a, "reduced" if r else "full") for a, r in CASES]
 

@@ -5,7 +5,8 @@ stages applied in turn); the sharded training step on a 2 x 2
 ("data", "model") mesh (reduced drrl-paper in rank modes 'drrl' and
 'random', reduced granite at capacity factor 0.5 with the MoE auxiliary
 loss and a loss mask of uneven rows, once more with two bf16-accumulated
-microbatches, and once on a (pod 2, data 2, model 1) mesh), 2 steps each,
+microbatches, once on a (pod 2, data 2, model 1) mesh, and once with
+remat 'dots', each layer checkpointed inside the sharded step), 2 steps each,
 against the one-process step on the global batch and against JAX's
 ``make_train_step``; a JAX-saved checkpoint loaded onto 2 x 2, (4, 1) and
 a ("data",) mesh, and a port save from 2 x 2 loaded by JAX; the training
@@ -87,7 +88,8 @@ def jax_config(case):
                                             fixed_rank=8))
         return cfg
     return jget_config("granite-moe-3b-a800m", reduced=True).with_(
-        moe=MoEConfig(num_experts=4, top_k=2, d_expert=32, capacity_factor=0.5))
+        moe=MoEConfig(num_experts=4, top_k=2, d_expert=32, capacity_factor=0.5),
+        remat="dots" if case == "granite_dots" else "none")
 
 
 def jax_loss_fn(case, cfg, agent):
@@ -140,7 +142,7 @@ def run(tmp_path_factory):
     # granite's loss masks a different share of each row's tokens, so the
     # masked mean is a global one and not a mean of the data ranks' means
     keep = np.array([0.9, 0.3, 0.6, 0.8])[:, None]
-    for c in ("granite", "granite_mb2", "granite_pod"):
+    for c in ("granite", "granite_mb2", "granite_pod", "granite_dots"):
         batches[c] = [dict(b, mask=jnp.asarray(
             (rng.random((W.BATCH, W.SEQ)) < keep).astype(np.float32))) for b in batches[c]]
 

@@ -234,21 +234,23 @@ def test_train_collectives_match_spec_count(reduced):
     assert rec["devices"] == 8 and rec["memory"]["temp_bytes"] > 0
 
 
-def test_train_flops_match_real_run_at_world_size_1(reduced):
-    """The fake trace's FLOPs equal FlopCounterMode on the same step run for
-    real on the CPU (a one-rank gloo group)."""
+def _fake_and_real_flops(overrides=None):
+    """The FLOPs of reduced qwen2.5-14b's train step at 4 x 32 traced on a
+    fake (1, 1) mesh, and FlopCounterMode's of the same step run for real
+    on the CPU (a one-rank gloo group)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.utils.flop_counter import FlopCounterMode
     cell = ShapeCell("train_4k", 32, 4, "train")
     mesh = fake_mesh({"data": 1, "model": 1})
     try:
-        rec = dryrun.trace_step("qwen2.5-14b", cell, mesh, device="cpu")
+        rec = dryrun.trace_step("qwen2.5-14b", cell, mesh, device="cpu", overrides=overrides)
     finally:
         dist.destroy_process_group()
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
-        fn, args = dryrun.build_cell("qwen2.5-14b", cell, mesh, device="cpu")
+        fn, args = dryrun.build_cell("qwen2.5-14b", cell, mesh, overrides=overrides,
+                                     device="cpu")
         for x in dryrun.local_tensors(args):
             x.zero_()
         with FlopCounterMode(display=False) as fc:
@@ -256,7 +258,42 @@ def test_train_flops_match_real_run_at_world_size_1(reduced):
         assert torch.isfinite(out[2]["loss"])
     finally:
         dist.destroy_process_group()
-    assert rec["flops"] == fc.get_total_flops() > 0
+    return rec["flops"], fc.get_total_flops()
+
+
+def test_train_flops_match_real_run_at_world_size_1(reduced):
+    """The fake trace's FLOPs equal FlopCounterMode on the same step run for
+    real on the CPU (a one-rank gloo group)."""
+    fake, real = _fake_and_real_flops()
+    assert fake == real > 0
+
+
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_train_counts(reduced, remat):
+    """The train cell of reduced qwen2.5-14b on a fake (data 4, model 2)
+    mesh under each ``remat``, against 'none': 'dots' recomputes no matrix
+    product, so its FLOPs are 'none''s; 'full' recomputes each layer's
+    forward, so its FLOPs are more and its temporaries less (the layers
+    keep only their inputs). The checkpointed sharded step traces on fake
+    tensors and, at world size 1, counts the FLOPs of a real run."""
+    cell = SHAPE_CELLS[0]
+    recs = {}
+    for r in ("none", remat):
+        mesh = fake_mesh(MESHES["data4_model2"])
+        try:
+            recs[r] = dryrun.trace_step("qwen2.5-14b", cell, mesh, device="cpu",
+                                        overrides={"remat": r})
+        finally:
+            dist.destroy_process_group()
+    got, want = recs[remat], recs["none"]
+    if remat == "dots":
+        assert got["flops"] == want["flops"]
+    else:
+        assert got["flops"] > want["flops"]
+        assert got["memory"]["temp_bytes"] < want["memory"]["temp_bytes"]
+    assert got["collectives"] == want["collectives"]
+    fake, real = _fake_and_real_flops({"remat": remat})
+    assert fake == real > 0
 
 
 def test_trace_counts_every_layer(reduced, art_dir):

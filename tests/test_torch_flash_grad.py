@@ -13,8 +13,9 @@ versions here) and the slice it serves, ``make_train_step`` with
     ``attend(chunked=True)`` at 1040-1100 keys, GQA included (JAX takes K/V
     repeated over each group; its dK/dV are summed over the group first);
 (c) one ``make_train_step`` step of reduced drrl-paper at 2 x 1040 tokens
-    with ``loss(chunked=True)``, rank modes 'off' and 'drrl', against the
-    JAX package's step on the same converted weights and batch;
+    with ``loss(chunked=True)``, rank modes 'off' and 'drrl' (and 'drrl'
+    with ``remat`` 'full' and 'dots' on both sides), against the JAX
+    package's step on the same converted weights and batch;
 (d) the route on the CPU: a call of 1 or 16 queries that requires grad goes
     to ``LowrankFlash`` (exactly the plain backward's gradients), a
     grad-free one keeps flash_decode's plain version;
@@ -52,6 +53,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
+from repro_torch.train.rl import value_and_grad  # noqa: E402
 
 SEQ, BATCH, LR = 1040, 2, 1e-2           # > the 1024-key chunk: the flash branch
 TRAIN_TOL = {"off": dict(loss=1e-6, grad_norm=3e-6, p99=1e-6),
@@ -175,8 +177,8 @@ def test_attend_chunked_grads_match_jax(ref, case):
         _close(t, j, 2e-5)
 
 
-def _train_cfgs(ref, mode):
-    cfg = ref.get_config("drrl-paper", reduced=True)          # rank mode 'drrl'
+def _train_cfgs(ref, mode, remat="none"):
+    cfg = ref.get_config("drrl-paper", reduced=True).with_(remat=remat)  # rank mode 'drrl'
     if mode != "drrl":
         cfg = cfg.with_(rank=ref.RankConfig(mode=mode, rank_grid=(4, 8, 12, 16),
                                             fixed_rank=8))
@@ -195,32 +197,64 @@ def train_setup(ref):
                 batch_j=data.batch_at(0), batch_t=ref.tp.JaxBatches(data).batch_at(0))
 
 
-@pytest.mark.parametrize("mode", ["off", "drrl"])
-def test_chunked_train_step_matches_jax(ref, train_setup, mode):
-    """(c) One step of make_train_step with loss(chunked=True) on both
-    sides: loss, grad norm, lr and every parameter after AdamW."""
-    s = train_setup
-    cfg, tcfg = _train_cfgs(ref, mode)
-    kj, kt = {}, {}
-    if mode == "drrl":
-        kj, kt = {"policy_params": s["aj"]}, {"policy_params": s["at"], "power_v0": s["v0"]}
-    fj, ft = ref.get_model(cfg), get_model(tcfg)
-
-    def lj(p, b, rng):
-        return fj.loss(p, b, chunked=True, **({"rank_rng": rng, **kj} if mode != "off" else {}))
+def _port_chunked_loss(ref, s, mode, remat):
+    """The port's ``loss_fn(p, b, rng)`` with ``loss(chunked=True)``."""
+    _, tcfg = _train_cfgs(ref, mode, remat)
+    ft = get_model(tcfg)
+    kt = {"policy_params": s["at"], "power_v0": s["v0"]} if mode == "drrl" else {}
 
     def lt(p, b, rng):
         return ft.loss(p, b, chunked=True, **({"rank_rng": rng, **kt} if mode != "off" else {}))
+    return lt
+
+
+def _port_grads(ref, s, mode, remat):
+    """The port's loss and gradients of step 0's chunked loss."""
+    lt = _port_chunked_loss(ref, s, mode, remat)
+    rng = prng.fold_in(prng.key(0), 0)
+    loss, grads = value_and_grad(lambda p, b: lt(p, b, rng)[0], s["pt"], s["batch_t"])
+    return loss, tu.leaves(grads)
+
+
+CHUNKED_CASES = [("off", "none"), ("drrl", "none"), ("drrl", "full"), ("drrl", "dots")]
+
+
+@pytest.mark.parametrize("mode,remat", CHUNKED_CASES,
+                         ids=[m if r == "none" else f"{m}-remat_{r}" for m, r in CHUNKED_CASES])
+def test_chunked_train_step_matches_jax(ref, train_setup, monkeypatch, mode, remat):
+    """(c) One step of make_train_step with loss(chunked=True) on both
+    sides: loss, grad norm, lr and every parameter after AdamW. Each layer
+    calls LowrankFlash's forward once, or, checkpointed (``remat`` 'full'
+    or 'dots' on both sides), twice: its recompute runs the forward again
+    (the kernel is opaque to selective checkpointing). The checkpointed
+    step's loss and gradients are the port's plain step's bitwise."""
+    s = train_setup
+    cfg, tcfg = _train_cfgs(ref, mode, remat)
+    kj = {"policy_params": s["aj"]} if mode == "drrl" else {}
+    fj = ref.get_model(cfg)
+
+    def lj(p, b, rng):
+        return fj.loss(p, b, chunked=True, **({"rank_rng": rng, **kj} if mode != "off" else {}))
+    lt = _port_chunked_loss(ref, s, mode, remat)
     tc = dict(global_batch=BATCH, seq_len=SEQ, lr=LR, warmup_steps=1, total_steps=1)
     step_j = ref.jax.jit(ref.loop.make_train_step(cfg, ref.TrainConfig(**tc), lj))
     step_t = tloop.make_train_step(tcfg, TTrainConfig(**tc), lt)
     pj, _, mj = step_j(s["pj"], ref.adamw.init(s["pj"]), s["batch_j"],
                        ref.jax.random.fold_in(ref.jax.random.PRNGKey(0), 0))
+    forwards = []
+    plain = lowrank_flash.lowrank_flash_plain
+    monkeypatch.setattr(lowrank_flash, "lowrank_flash_plain",
+                        lambda *a, **k: forwards.append(None) or plain(*a, **k))
     lowrank_flash.LAUNCHES["lowrank_flash"] = 0
     pt, st, mt = step_t(s["pt"], tadamw.init(s["pt"]), s["batch_t"],
                         prng.fold_in(prng.key(0), 0))
     assert lowrank_flash.LAUNCHES["lowrank_flash"] == 0
+    assert len(forwards) == tcfg.num_layers * (1 if remat == "none" else 2)
     assert int(st.step) == 1
+    if remat != "none":
+        (loss_r, g_r), (loss_n, g_n) = (_port_grads(ref, s, mode, r) for r in (remat, "none"))
+        assert torch.equal(loss_r, loss_n)
+        assert all(torch.equal(a, b) for a, b in zip(g_r, g_n))
     tol = TRAIN_TOL[mode]
     for name, rtol in (("loss", tol["loss"]), ("grad_norm", tol["grad_norm"]), ("lr", 1e-6)):
         np.testing.assert_allclose(float(mt[name]), float(mj[name]), rtol=rtol, err_msg=name)

@@ -120,21 +120,29 @@ def test_forensics_names_source_lines(reduced, capsys, cell, line):
     assert line in ops, out
 
 
-@pytest.mark.parametrize("arch,encoder", [("seamless-m4t-medium", True),
-                                          ("qwen2.5-14b", False)])
-def test_forensics_layers_override(arch, encoder):
+@pytest.mark.parametrize("arch,encoder,remat", [
+    ("seamless-m4t-medium", True, None), ("qwen2.5-14b", False, None),
+    ("qwen2.5-14b", False, "full"), ("deepseek-v3-671b", False, "dots")],
+    ids=["seamless-m4t-medium-True", "qwen2.5-14b-False", "qwen2.5-14b-remat_full",
+         "deepseek-v3-671b-remat_dots"])
+def test_forensics_layers_override(arch, encoder, remat):
     """``--layers`` also sets the encoder's depth where the config has an
-    encoder, as the reference's does for the encoder-decoder."""
-    ov = torch_forensics.overrides_of(arch, layers=2, sharding="fsdp")
+    encoder, as the reference's does for the encoder-decoder; ``--remat``
+    sets the config's ``remat``, which the port's ModelConfig carries."""
+    ov = torch_forensics.overrides_of(arch, layers=2, sharding="fsdp", remat=remat)
     assert ov == {"num_layers": 2, "sharding": "fsdp",
-                  **({"num_encoder_layers": 2} if encoder else {})}
+                  **({"num_encoder_layers": 2} if encoder else {}),
+                  **({"remat": remat} if remat else {})}
+    assert get_config(arch).with_(**ov).remat == (remat or get_config(arch).remat)
 
 
 def test_hillclimb_variants(reduced):
     lines = torch_hillclimb.climb("qwen-train", device="cpu")
     by_name = {line.split()[0]: line for line in lines if line.startswith("  v")}
     assert list(by_name) == [v[0] for v in torch_hillclimb.CELLS["qwen-train"]["variants"]]
-    assert "; remat, the port's step is eager" in by_name["v3_remat_none"]
+    # remat is ported: v3_remat_none is not run for seq_shard_attn alone
+    assert by_name["v3_remat_none"] == "  %-16s not ported: seq_shard_attn, %s" % (
+        "v3_remat_none", torch_hillclimb.NOT_PORTED["seq_shard_attn"])
     assert "not ported: seq_shard_attn," in by_name["v2_seqshard"]
     assert "not ported" not in by_name["v0_baseline"] + by_name["v1_bf16_scores"]
     base = json.loads((reduced / "qwen2.5-14b__train_4k__single__v0_baseline.json")

@@ -42,9 +42,12 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import TrainConfig as TTrainConfig  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models import common  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
+from repro_torch.models.transformer import forward_dense  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
+from repro_torch.train.rl import value_and_grad  # noqa: E402
 from torch_parity import (JaxBatches, jax_and_torch_agent,  # noqa: E402
                           jax_and_torch_params, jax_power_v0, torch_config)
 
@@ -65,8 +68,8 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _cfg(mode):
-    cfg = get_config("drrl-paper", reduced=True)          # rank mode 'drrl'
+def _cfg(mode, remat="none"):
+    cfg = get_config("drrl-paper", reduced=True).with_(remat=remat)  # rank mode 'drrl'
     if mode == "drrl":
         return cfg
     return cfg.with_(rank=RankConfig(mode=mode, rank_grid=(4, 8, 12, 16),
@@ -85,11 +88,11 @@ def setup():
                 tdata=JaxBatches(data))
 
 
-def _loss_fns(mode, s):
+def _loss_fns(mode, s, remat="none"):
     """(JAX loss_fn, port loss_fn) of ``mode``: 'drrl' passes the agent
     (and, on the port's side, JAX's power-iteration start vectors), and
     'drrl' / 'random' the step's rank key, as the launchers do."""
-    cfg = _cfg(mode)
+    cfg = _cfg(mode, remat)
     fj, ft = jget_model(cfg), get_model(torch_config(cfg))
     kj, kt = {}, {}
     if mode == "drrl":
@@ -128,14 +131,24 @@ def _params_close(pt, pj, mode, lr_sum):
         assert np.quantile(d, 0.99) <= TOL[mode]["p99"], (name, np.quantile(d, 0.99))
 
 
-@pytest.mark.parametrize("mode,microbatches,compression", [
-    ("off", 1, "none"), ("off", 1, "bf16"), ("off", 2, "none"), ("off", 2, "bf16"),
-    ("drrl", 1, "none"), ("drrl", 2, "bf16")])
-def test_train_step_matches_jax(setup, mode, microbatches, compression):
+STEP_CASES = [("off", 1, "none", "none"), ("off", 1, "bf16", "none"),
+              ("off", 2, "none", "none"), ("off", 2, "bf16", "none"),
+              ("drrl", 1, "none", "none"), ("drrl", 2, "bf16", "none"),
+              ("drrl", 1, "none", "dots"), ("drrl", 1, "none", "full")]
+
+
+@pytest.mark.parametrize("mode,microbatches,compression,remat", STEP_CASES,
+                         ids=["-".join(map(str, c[:3])) + ("" if c[3] == "none" else
+                                                           f"-remat_{c[3]}")
+                              for c in STEP_CASES])
+def test_train_step_matches_jax(setup, mode, microbatches, compression, remat):
+    """Three steps of make_train_step on both sides; with ``remat`` both
+    sides checkpoint each layer (JAX's jax.checkpoint, the port's
+    remat_layer) and are held to the same tolerances."""
     s = setup
     tcj, tct = _tcs(microbatches=microbatches, grad_compression=compression)
-    lj, lt = _loss_fns(mode, s)
-    cfg = _cfg(mode)
+    lj, lt = _loss_fns(mode, s, remat)
+    cfg = _cfg(mode, remat)
     step_j = jax.jit(jloop.make_train_step(cfg, tcj, lj))
     step_t = tloop.make_train_step(torch_config(cfg), tct, lt)
     pj, sj = s["pj"], jadamw.init(s["pj"])
@@ -248,3 +261,66 @@ def test_train_cli_resumes(tmp_path, capsys):
     assert "[ckpt]" not in capsys.readouterr().out
     losses = [h["loss"] for h in out["history"]]
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
+def _sampled_grads(s, remat, seed):
+    """Loss, gradients, per-layer ranks and the generator's final state of
+    the port's loss on batch 0 in rank mode 'drrl' with sampled actions
+    (``greedy=False``) drawn from a generator seeded ``seed``."""
+    fns = get_model(torch_config(_cfg("drrl", remat)))
+    gen = torch.Generator().manual_seed(seed)
+    ranks = []
+
+    def lf(p, b):
+        loss, aux = fns.loss(p, b, policy_params=s["at"], power_v0=s["v0"], greedy=False,
+                             rank_generator=gen, collect_aux="ranks")
+        ranks.append(aux["layers"]["rank"])
+        return loss
+    loss, grads = value_and_grad(lf, s["pt"], s["tdata"].batch_at(0))
+    assert len(ranks) == 1                     # the recompute appends no ranks
+    return loss, tu.leaves(grads), ranks[0], gen.get_state()
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_sampled_actions_match_none(setup, remat):
+    """Sampled actions are drawn from ``rank_generator`` inside each
+    checkpointed layer, and checkpointing restores only the global
+    generators: remat_layer sets the explicit one back for the recompute.
+    From one seed, ``remat`` gives ``none``'s ranks, loss and gradients
+    bitwise and leaves the generator where ``none`` does; another seed
+    draws other ranks (the draw decides them)."""
+    s = setup
+    want = _sampled_grads(s, "none", 5)
+    got = _sampled_grads(s, remat, 5)
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert torch.equal(got[3], want[3])
+    assert not torch.equal(_sampled_grads(s, remat, 6)[2], want[2])
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_grad_free_forward_is_unchanged(setup, monkeypatch, remat):
+    """Without a gradient ``remat`` changes nothing, as JAX's checkpoint:
+    under no_grad, and with grad on but no parameter requiring it (the
+    serving engine's calls), forward_dense runs each layer directly
+    (checkpoint, made to raise here, is never entered) and gives the
+    ``none`` forward's logits and ranks bitwise. Parameters that require
+    grad do enter it."""
+    s = setup
+    toks = s["tdata"].batch_at(0)["tokens"]
+    kw = dict(policy_params=s["at"], power_v0=s["v0"], collect_aux="ranks")
+    want, aux_w = forward_dense(torch_config(_cfg("drrl")), s["pt"], toks, **kw)
+
+    def entered(*a, **k):
+        raise RuntimeError("checkpoint entered")
+    monkeypatch.setattr(common, "checkpoint", entered)
+    cfg = torch_config(_cfg("drrl", remat))
+    with torch.no_grad():
+        got = forward_dense(cfg, s["pt"], toks, **kw)
+    for logits, aux in (got, forward_dense(cfg, s["pt"], toks, **kw)):
+        assert torch.equal(logits, want)
+        assert torch.equal(aux["layers"]["rank"], aux_w["layers"]["rank"])
+    live = tu.tree_map(lambda x: x.detach().requires_grad_(True), s["pt"])
+    with pytest.raises(RuntimeError, match="checkpoint entered"):
+        forward_dense(cfg, live, toks, **kw)

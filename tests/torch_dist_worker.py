@@ -34,8 +34,9 @@ WORLD = 4
 SEQ, BATCH, STEPS, LR = 32, 4, 2, 1e-2
 
 # the sharded step's cases: the port's config, its TrainConfig knobs and its
-# mesh (granite_pod: data over ("pod", "data"), pod-major)
-STEP_CASES = ("drrl", "random", "granite", "granite_mb2", "granite_pod")
+# mesh (granite_pod: data over ("pod", "data"), pod-major; granite_dots: the
+# full config's remat='dots', each layer checkpointed inside the step)
+STEP_CASES = ("drrl", "random", "granite", "granite_mb2", "granite_pod", "granite_dots")
 
 
 def case_mesh(case):
@@ -54,7 +55,8 @@ def case_config(case):
         return cfg
     cfg = get_config("granite-moe-3b-a800m", reduced=True)
     return cfg.with_(moe=MoEConfig(num_experts=4, top_k=2, d_expert=32,
-                                   capacity_factor=0.5))
+                                   capacity_factor=0.5),
+                     remat="dots" if case == "granite_dots" else "none")
 
 
 def case_train_config(case) -> dict:
